@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive vaemolsim_tpu_torch's flagship MC path on one NVIDIA GPU.
+"""Drive vaemolsim_tpu_torch's MC and training paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
 1. builds the CUDA kernels from ``vaemolsim_tpu_torch/csrc`` (nvcc, one
    process per source, in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at
-   the flagship's shapes (10k and 50k rows), with the tolerances stated
-   beside each check, and times both;
+   the shapes of the paths below, with the tolerances stated beside
+   each check, and times both (the MAF block also against its unfused
+   route, and by torch.profiler's device time);
 3. checks the proposal kernel's own Philox draws: the plain version on
    the same seed, the densities of its samples recomputed through the
    model's distribution objects, and the moments of the normals it drew;
@@ -15,12 +16,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    random weights from the config's seed) on a 2-D standard-normal
    target at 10k and 50k chains: the generic ``make_mcmc_step`` (dense
    stack + RQS kernels) and ``make_fused_vae_step`` (proposal kernel),
-   with launch counters zeroed before and read after, and checks
-   acceptance, finiteness, the chains' second moment and the counters.
+   and checks acceptance, finiteness, the chains' second moment and the
+   counters;
+5. trains the flagship VAE by its ELBO through ``train.fit`` at batch
+   10k on 100k two-mode 2-D points (dense stack + RQS kernels), and an
+   8-D RQS-spline MAF flow model (reference widths: hidden 200, 32 bins
+   on [-10, 10]) by maximum likelihood at batch 10k on 100k correlated
+   Gaussian points, then samples 10k points from it (MAF-block kernel
+   in both directions): finite, falling losses, samples moving toward
+   the data's moments, and each path's gradients against a CPU copy.
 
-Any failed check raises and the script exits non-zero; there is no CPU
-fallback.  The last stdout lines are the card's name and power limit,
-one JSON line of per-kernel results, and
+Every path runs with the launch counters zeroed just before it and read
+just after.  Any failed check raises and the script exits non-zero;
+there is no CPU fallback.  The last stdout lines are the card's name and
+power limit, one JSON line of per-kernel results, and
 ``{"ok": true, "device": {...}}``.  The full results also go to
 ``chiprun_out/chip_smoke_results.json``.  TF32 is off throughout, so
 every float32 product is a float32 product.
@@ -34,22 +43,34 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from vaemolsim_tpu_torch import _build
-from vaemolsim_tpu_torch.config import flagship_experiment_config
-from vaemolsim_tpu_torch.flows.spline_flows import _bin_positions, _slopes
+from vaemolsim_tpu_torch.config import (ExperimentConfig, FlowedDistConfig,
+                                        FlowModelConfig, MAFConfig,
+                                        OptimizerConfig, RQSParams,
+                                        flagship_experiment_config)
+from vaemolsim_tpu_torch.flows.spline_flows import (MAFLayer,
+                                                    MaskedSplineConditioner,
+                                                    _bin_positions, _slopes)
 from vaemolsim_tpu_torch.mcmc import (MCMCState, make_fused_vae_step,
                                       make_mcmc_step, run_mcmc,
                                       vae_proposal_fns)
 from vaemolsim_tpu_torch.mcmc import fused as mf
-from vaemolsim_tpu_torch.ops import rqs
+from vaemolsim_tpu_torch.ops import maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain)
+from vaemolsim_tpu_torch.train import fit
 
 SIZES = (10_000, 50_000)
 WARMUP_STEPS, TIMED_STEPS = 20, 200
-RESULTS = {"checks": [], "mc": []}
+TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 100_000, 10_000, 5
+FLOW_D = 8
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+RESULTS = {"checks": [], "mc": [], "train": []}
 
 
 def fail_unless(cond, what):
@@ -84,13 +105,60 @@ def compare(name, got, want, atol, rtol, allowed_frac=0.0):
     return err.max().item()
 
 
-def record(kernel, shape, max_err, ms=None, plain_ms=None):
+def record(kernel, shape, max_err, ms=None, plain_ms=None, **extra):
     RESULTS["checks"].append({"kernel": kernel, "shape": shape,
                               "max_abs_err": max_err, "ms": ms,
-                              "plain_ms": plain_ms})
+                              "plain_ms": plain_ms, **extra})
     t = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+    t += "".join(f"  {k} {v:.4f}" for k, v in extra.items() if v is not None)
     print(f"check {kernel:12s} {shape:44s} max_abs_err {max_err:.3e}{t}",
           flush=True)
+
+
+def profiled(fn):
+    """Run fn() once under torch.profiler, ending in a device sync:
+    (wall seconds of the call, the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def device_time(prof, match=""):
+    """A profile's device microseconds: (all of its kernels, those whose
+    name contains ``match``); (None, None) where it holds no device
+    time."""
+    total = named = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        total += us
+        if match in e.key:
+            named += us
+    if total == 0.0:
+        return None, None
+    return total, named
+
+
+def device_us(fn, match, reps=10):
+    """torch.profiler's device microseconds per call of fn(), after a
+    warm-up call: (all of its kernels, those whose name contains
+    ``match``); None where the trace holds no device time."""
+    fn()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    total, named = device_time(profiled(calls)[1], match)
+    return ((None, None) if total is None
+            else (total / reps, named / reps))
 
 
 # ---------------------------------------------------------------------------
@@ -273,8 +341,72 @@ def check_philox_samples(vae, x1, seed, args):
     return err
 
 
+def check_maf_block(flow, gen, dev, label=""):
+    """Inverse and forward at D=8 (the flow model's own block-0 weights)
+    and at D=3, with and without a 5-wide context (fresh conditioners at
+    the reference widths), N=10k, and N=777 once; y of spread 4 reaches
+    both identity tails of [-10, 10].  Against the plain version: values
+    to 1e-4 + 1e-4|v|, log-dets to 1e-3 + 1e-4|v| (sums of 600 products
+    in another order than cuBLAS's, through steep bins), a fraction 1e-4
+    of elements allowed a neighbouring bin at a knot.  At D=8 and 10k
+    rows the unfused route is held to the same tolerances, and the
+    kernel, its plain version and the unfused route
+    (``MAFLayer.unfused_and_log_det``: dense-stack and RQS kernels) are
+    timed."""
+    cases = [("D=8", flow.flowed_dist.flow.blocks[0], 0, (TRAIN_BATCH, 777))]
+    if not label:
+        cases += [
+            ("D=3", MAFLayer(MaskedSplineConditioner.create(
+                gen, 3, device=dev)), 0, (TRAIN_BATCH,)),
+            ("D=3 ctx 5", MAFLayer(MaskedSplineConditioner.create(
+                gen, 3, conditional=True, conditional_event_shape=5,
+                device=dev)), 5, (TRAIN_BATCH,))]
+    for name, layer, dc, sizes in cases:
+        cond = layer.conditioner
+        params = [p.detach() for p in cond.merged_params() if p is not None]
+        D, K = cond.w_net.event_size, cond.num_bins
+        for n in sizes:
+            y = 4.0 * torch.randn(n, D, generator=gen, device=dev)
+            ctx = torch.randn(n, dc, generator=gen, device=dev) if dc else None
+            for inverse in (True, False):
+                args = (y, params, ctx, D, K, cond.bin_min, cond.bin_max,
+                        inverse)
+                got = maf_fused.maf_block_cuda(*args)
+                want = maf_fused.maf_block_plain(*args)
+                err = max(compare(f"maf_block {name} x", got[0], want[0],
+                                  1e-4, 1e-4, 1e-4),
+                          compare(f"maf_block {name} ldj", got[1], want[1],
+                                  1e-3, 1e-4, 1e-4))
+                extra = {}
+                ms = plain_ms = None
+                if name == "D=8" and n == TRAIN_BATCH:
+                    unf = layer.unfused_and_log_det(y, ctx, inverse)
+                    compare(f"unfused {name} x", unf[0], want[0], 1e-4,
+                            1e-4, 1e-4)
+                    compare(f"unfused {name} ldj", unf[1], want[1], 1e-3,
+                            1e-4, 1e-4)
+                    if not label:
+                        ms = timed(lambda: maf_fused.maf_block_cuda(*args))
+                        plain_ms = timed(
+                            lambda: maf_fused.maf_block_plain(*args))
+                        extra["unfused_ms"] = timed(
+                            lambda: layer.unfused_and_log_det(y, ctx,
+                                                              inverse))
+                        _, extra["device_us"] = device_us(
+                            lambda: maf_fused.maf_block_cuda(*args),
+                            "maf_block_kernel")
+                        extra["plain_device_us"], _ = device_us(
+                            lambda: maf_fused.maf_block_plain(*args), "")
+                        extra["unfused_device_us"], _ = device_us(
+                            lambda: layer.unfused_and_log_det(y, ctx,
+                                                              inverse), "")
+                direction = "inverse" if inverse else "forward"
+                record("maf_block", f"{direction} {name} N={n}{label}", err,
+                       ms, plain_ms, **extra)
+
+
 # ---------------------------------------------------------------------------
-# The main path: both MC steps on the full-width flagship
+# The main paths: both MC steps on the full-width flagship, then training
 # ---------------------------------------------------------------------------
 
 
@@ -323,6 +455,289 @@ def run_path(name, step, dev):
     return _build.launch_counts()
 
 
+def two_mode_data(dev):
+    """100k points whose coordinates each come from an equal mixture of
+    N(-2, 0.5^2) and N(2, 0.5^2) (examples/02_train_vae.py's data)."""
+    rng = np.random.default_rng(0)
+    x = (np.where(rng.random((TRAIN_N, 2)) < 0.5, -2.0, 2.0)
+         + 0.5 * rng.normal(size=(TRAIN_N, 2)))
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def gaussian_data(dev):
+    """100k points of an 8-D correlated Gaussian: means in [-1.5, 1.5],
+    covariance A A^T / 8 + I/2."""
+    rng = np.random.default_rng(1)
+    mean = rng.uniform(-1.5, 1.5, FLOW_D)
+    a = rng.normal(size=(FLOW_D, FLOW_D))
+    cov = a @ a.T / FLOW_D + 0.5 * np.eye(FLOW_D)
+    x = rng.multivariate_normal(mean, cov, size=TRAIN_N)
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def train_path(name, model, loss_fn, data, dev):
+    """A warm-up epoch, then TRAIN_EPOCHS epochs of fit() at batch 10k
+    with Adam 1e-3, counters zeroed just before and read just after the
+    timed run; checks finite losses, the last epoch's mean below the
+    warm-up epoch's, and reports steps/s, ms per step and peak memory."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    adam = OptimizerConfig("adam", 1e-3).build()
+    _, warm = fit(model, loss_fn, data, generator=gen, num_epochs=1,
+                  batch_size=TRAIN_BATCH, optimizer=adam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    _, hist = fit(model, loss_fn, data, generator=gen,
+                  num_epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+                  optimizer=adam)
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm["loss"] + hist["loss"]
+    fail_unless(all(math.isfinite(v) for v in losses),
+                f"{name}: non-finite loss {losses}")
+    fail_unless(hist["loss"][-1] < warm["loss"][0],
+                f"{name}: loss did not fall: {losses}")
+    steps = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
+    seconds = sum(hist["epoch_time_s"])
+    ms_per_step = 1e3 * seconds / steps
+    # One more epoch of fit() under torch.profiler: its device-busy time
+    # and its wall time both come from this one window.  The profiler
+    # adds host time, so the window's ms/step is kept beside the
+    # unprofiled one.
+    window_s, prof = profiled(lambda: fit(
+        model, loss_fn, data, generator=gen, num_epochs=1,
+        batch_size=TRAIN_BATCH, optimizer=adam))
+    busy_us, _ = device_time(prof)
+    per_epoch = TRAIN_N // TRAIN_BATCH
+    window_ms = 1e3 * window_s / per_epoch
+    busy_ms = None if busy_us is None else busy_us / 1e3 / per_epoch
+    row = {"path": name, "batch": TRAIN_BATCH, "steps": steps,
+           "seconds": seconds, "steps_per_s": steps / seconds,
+           "ms_per_step": ms_per_step, "losses": losses,
+           "peak_memory_bytes": peak, "launches": counts,
+           "profiled_ms_per_step": window_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / window_ms)}
+    RESULTS["train"].append(row)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {window_ms:.3f} ms/step in a profiled epoch "
+            f"({row['device_idle_share']:.3f} idle)")
+    print(f"train {name:6s} batch {TRAIN_BATCH} {row['steps_per_s']:.3f} "
+          f"steps/s ({ms_per_step:.3f} ms/step)  device busy {busy}  peak "
+          f"memory {peak / 2 ** 20:.1f} MiB  loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    return row
+
+
+def knot_safe(layers, y, inverse=True, margin=1e-4):
+    """A CPU mask of the rows of y (N, D) whose spline input lies more
+    than ``margin`` from every knot, the ends of the bin range included,
+    in every pass of the unconditional MAF ``layers`` applied in turn in
+    one direction (a flow's density pass: its blocks last first,
+    ``inverse=True``), evaluated on CPU copies.  At a knot the spline is
+    C1, but its gradient with respect to the bin parameters jumps; a row
+    that float32 roundoff (~1e-5 here) puts in the neighbouring bin on
+    one device changes a mean gradient by O(1)/N, whichever device is
+    right."""
+    y = y.cpu()
+    keep = torch.ones(y.shape[0], dtype=torch.bool)
+    with torch.no_grad():
+        for layer in layers:
+            layer = copy.deepcopy(layer).to("cpu")
+            cur = y
+            for _ in range(1 if inverse
+                           else layer.conditioner.w_net.event_size):
+                spline = layer._spline(cur, None)
+                x_knots, y_knots = rqs._knots(
+                    spline.bin_widths, spline.bin_heights, spline.range_min)
+                knots = y_knots if inverse else x_knots
+                keep &= ((y[..., None] - knots).abs().amin(-1)
+                         > margin).all(-1)
+                cur = spline.forward(y)
+            y = layer.unfused_and_log_det(y, None, inverse)[0]
+    return keep
+
+
+def rows_off_knots(flow, y):
+    """knot_safe over the flow's density pass, on y's device; fails
+    unless it keeps more than 99% of the rows."""
+    keep = knot_safe(reversed(list(flow.blocks)), y)
+    fail_unless(float(keep.float().mean()) > 0.99,
+                f"only {int(keep.sum())} of {keep.numel()} rows away from "
+                "the knots")
+    print(f"rows away from the knots: {int(keep.sum())} of {keep.numel()}",
+          flush=True)
+    return keep.to(y.device)
+
+
+def check_grads(name, model, loss_of, dev):
+    """Every parameter's gradient of loss_of(model) on the card (kernels
+    forward, plain recompute backward) against a CPU copy's (plain
+    throughout): 1e-4 + 1e-3|g|, on rows away from the spline knots
+    (see knot_safe)."""
+    cpu = copy.deepcopy(model).to("cpu")
+    got = torch.autograd.grad(loss_of(model, dev), list(model.parameters()))
+    want = torch.autograd.grad(loss_of(cpu, torch.device("cpu")),
+                               list(cpu.parameters()))
+    err = max(compare(f"{name} gradient {i}", g.cpu(), w, 1e-4, 1e-3)
+              for i, (g, w) in enumerate(zip(got, want)))
+    print(f"gradients {name}: {len(got)} parameters, max abs err "
+          f"{err:.3e}", flush=True)
+    RESULTS.setdefault("gradients", {})[name] = err
+    return err
+
+
+def elbo_path(dev):
+    """Training path 1: the flagship VAE (built with no device: on the
+    card) by its ELBO."""
+    vae = flagship_experiment_config().build()
+    fail_unless(next(vae.parameters()).device.type == dev.type,
+                "build() with no device did not build on the card")
+    data = two_mode_data(dev)
+    row = train_path("elbo", vae, lambda m, b, g: m.elbo_loss(b, g), data,
+                     dev)
+    fail_unless(row["launches"]["rqs"] > 0
+                and row["launches"]["dense_stack"] > 0,
+                f"ELBO path launch counts {row['launches']}")
+    eps = torch.randn(TRAIN_BATCH, 1,
+                      generator=torch.Generator(device=dev).manual_seed(12),
+                      device=dev)
+    with torch.no_grad():
+        f = vae.encoder(data[:TRAIN_BATCH]).families[0]
+        keep = rows_off_knots(vae.prior.flow, f.loc + f.scale * eps)
+    x, eps = data[:TRAIN_BATCH][keep], eps[keep]
+
+    def elbo_at(m, d):
+        """The ELBO at fixed encoder normals (the same on both devices)."""
+        xd = x.to(d)
+        enc = m.encoder(xd, train=True)
+        f = enc.families[0]
+        z = f.loc + f.scale * eps.to(d)
+        prior = m._prior_dist(z, True)
+        return (-m.decoder(z, train=True).log_prob(xd).mean()
+                + m.regularizer(enc, prior, samples=z))
+
+    check_grads("elbo", vae, elbo_at, dev)
+    return row
+
+
+def moment_distance(x, data):
+    x, data = x.double(), data.double()
+    return float((x.mean(0) - data.mean(0)).norm()
+                 + (torch.cov(x.T) - torch.cov(data.T)).norm())
+
+
+def flow_path(flow, dev):
+    """Training path 2: the D=8 MAF flow model by maximum likelihood,
+    then sampling 10k points (MAF-block kernel forward)."""
+    data = gaussian_data(dev)
+    probe = torch.zeros(TRAIN_BATCH, FLOW_D, device=dev)
+    sample_gen = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        before = moment_distance(flow.predict(probe, sample_gen), data)
+    row = train_path("flow", flow, lambda m, b, g: -m.log_prob(b).mean(),
+                     data, dev)
+    fail_unless(row["launches"]["maf_block"] > 0,
+                f"flow training launch counts {row['launches']}")
+    _build.reset_launches()
+    with torch.no_grad():
+        samples = flow.predict(probe, sample_gen)
+    predict_counts = _build.launch_counts()
+    fail_unless(predict_counts["maf_block"] > 0,
+                f"flow sampling launch counts {predict_counts}")
+    fail_unless(bool(torch.isfinite(samples).all())
+                and samples.shape == (TRAIN_BATCH, FLOW_D),
+                "flow samples not finite or of the wrong shape")
+    after = moment_distance(samples, data)
+    fail_unless(after < before, f"flow samples' moments did not move toward "
+                f"the data's: distance {before} -> {after}")
+    with torch.no_grad():
+        ms = timed(lambda: flow.predict(probe, sample_gen), reps=10)
+    row.update(predict_launches=predict_counts, samples_per_s=
+               TRAIN_BATCH / (ms * 1e-3), predict_ms=ms,
+               moment_distance=[before, after])
+    print(f"sample flow N={TRAIN_BATCH} {row['samples_per_s']:.1f} "
+          f"samples/s ({ms:.4f} ms)  moment distance {before:.4f} -> "
+          f"{after:.4f}", flush=True)
+    x = data[:TRAIN_BATCH]
+    x = x[rows_off_knots(flow.flowed_dist.flow, x)]
+    check_grads("flow", flow, lambda m, d: -m.log_prob(x.to(d)).mean(), dev)
+    return row, predict_counts
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for each kernel's main shape
+# ---------------------------------------------------------------------------
+
+
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return (1e6 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def spline_flops(K):
+    """One RQS evaluation: the bin walk's running sums (4 adds per knot)
+    and ~25 operations for the rational map and its log-derivative."""
+    return 4 * (K - 1) + 25
+
+
+def bounds(vae, flow):
+    """{kernel or shape: (bound µs, what bounds it)}, at each kernel's
+    main shape and at the one-row MAF conditioner and the MAF forward:
+    bytes read once and written once over HBM bandwidth against float32
+    operations over the peak outside the tensor cores."""
+    n, K = SIZES[-1], 32
+    out = {"rqs": _bound(4 * (3 * n + 3 * K - 1), n * spline_flops(K))}
+    enc_w, _, _, _ = mf._extract_mlp(vae.encoder, "encoder")
+    dec_w, _, _, _ = mf._extract_mlp(vae.decoder, "decoder")
+    ew = (enc_w[0].shape[0] * enc_w[0].shape[1]
+          + enc_w[2].shape[0] * enc_w[2].shape[1])
+    dw = (dec_w[0].shape[0] * dec_w[0].shape[1]
+          + dec_w[2].shape[0] * dec_w[2].shape[1])
+    d_in, d_out = enc_w[0].shape[0], enc_w[2].shape[1]
+    out["dense_stack"] = _bound(
+        4 * (n * (d_in + d_out) + ew + sum(t.numel() for t in enc_w[1::2])),
+        2 * n * ew)
+    # Whole proposal: two encoder and two decoder passes and 2B = 4
+    # spline walks per chain; x1 in, x2 and four scalars out.
+    d_x = dec_w[2].shape[1] // 2
+    out["vae_proposal"] = _bound(4 * n * (d_x + d_x + 4),
+                                 n * (2 * 2 * ew + 2 * 2 * dw
+                                      + 4 * spline_flops(K)))
+    cond = flow.flowed_dist.flow.blocks[0].conditioner
+    D, H, Kf = (cond.w_net.event_size, cond.w_net.kernels[0].shape[1],
+                cond.num_bins)
+    nf = TRAIN_BATCH
+    head = H * D * (3 * Kf - 1)  # the three heads' blocks of K2
+    maf_bytes = 4 * (nf * (2 * D + 1) + D * 3 * H + 3 * H + head
+                     + D * (3 * Kf - 1))
+    # The products the MADE masks leave non-zero (about half of K1 and of
+    # each head's block: hidden degrees cycle over 1..D-1) are the least
+    # work; the block-diagonal product with its masked zeros is what the
+    # kernel does.  Both add, per (row, DOF), the softmax of the widths
+    # and heights (~3 operations per bin: exp, sum, scale) and the spline.
+    masked = sum(int(m.sum()) for n in cond.nets for m in n.masks)
+    spline = nf * D * (2 * 3 * Kf + spline_flops(Kf))
+    out["maf_block"] = _bound(maf_bytes, 2 * nf * masked + spline)
+    # The forward repeats the conditioner and the spline D times on the
+    # same rows and weights.
+    out["maf_block forward"] = _bound(maf_bytes,
+                                      D * (2 * nf * masked + spline))
+    out["maf_block block-diagonal"] = _bound(
+        maf_bytes, 2 * nf * (D * 3 * H + head) + spline)
+    out["maf_block forward block-diagonal"] = _bound(
+        maf_bytes, D * (2 * nf * (D * 3 * H + head) + spline))
+    # The flagship prior's one-row merged conditioner: its weights.
+    w = [t for t in vae.prior.flow.blocks[0].conditioner.merged_params()
+         if t is not None]
+    out["dense_stack one-row MAF conditioner"] = _bound(
+        4 * (1 + sum(t.numel() for t in w) + w[2].shape[1]),
+        2 * (w[0].numel() + w[2].numel()))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -344,12 +759,16 @@ def main():
           flush=True)
 
     vae = flagship_experiment_config().build(dev)
+    flow = ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(
+        MAFConfig(data_dim=FLOW_D, num_blocks=2, rqs=RQSParams()),
+        base=None, static_base_dim=FLOW_D))).build(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         check_rqs(vae, gen, dev)
         check_dense_stack(vae, gen, dev)
         x1, seed, args = check_proposal(vae, gen, dev)
         check_philox_samples(vae, x1, seed, args)
+        check_maf_block(flow, gen, dev)
 
     generic = run_path("generic", make_mcmc_step(*vae_proposal_fns(vae),
                                                  log_target), dev)
@@ -358,27 +777,43 @@ def main():
                 f"generic path launch counts {generic}")
     fail_unless(fused["vae_proposal"] > 0,
                 f"fused path launch counts {fused}")
+    elbo = elbo_path(dev)
+    flow_row, predict = flow_path(flow, dev)
+    with torch.no_grad():
+        check_maf_block(flow, gen, dev, label=" trained")
     fail_unless("jax" not in sys.modules, "jax was imported")
 
+    launches = {"generic": generic, "fused": fused,
+                "elbo_train": elbo["launches"],
+                "flow_train": flow_row["launches"], "flow_sample": predict}
+    bound = bounds(vae, flow)
+    for name, (us, by) in bound.items():
+        print(f"bound {name:36s} {us:10.4f} us ({by})", flush=True)
     kernels = []
-    main_shape = {"rqs": "forward broadcast N=50000",
-                  "dense_stack": "encoder 2->200->2 relu N=50000",
-                  "vae_proposal": "philox N=50000"}
+    n = SIZES[-1]
+    main_shape = {"rqs": f"forward broadcast N={n}",
+                  "dense_stack": f"encoder 2->200->2 relu N={n}",
+                  "vae_proposal": f"philox N={n}",
+                  "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}"}
     for name, k in _build.KERNELS.items():
         rows = [c for c in RESULTS["checks"] if c["kernel"] == name]
-        timed_row = next(c for c in rows
-                         if c["shape"].startswith(main_shape[name]))
+        timed_row = next(c for c in rows if c["ms"] is not None
+                         and c["shape"].startswith(main_shape[name]))
+        bound_us, bound_by = bound[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vaemolsim_tpu_torch/{k.source}",
             "replaces": k.replaces,
-            "launches": generic[name] + fused[name],
+            "launches": sum(c[name] for c in launches.values()),
             "max_abs_err": max(c["max_abs_err"] for c in rows),
-            "ms": timed_row["ms"], "plain_ms": timed_row["plain_ms"]})
+            "ms": timed_row["ms"], "plain_ms": timed_row["plain_ms"],
+            "bound_ms": bound_us / 1e3, "bound_us": bound_us,
+            "bound_by": bound_by, "library_ms": None})
     fail_unless(all(k["launches"] > 0 for k in kernels),
                 f"a kernel was not launched on the main path: {kernels}")
-    RESULTS.update(card=card, kernels=kernels,
-                   launches={"generic": generic, "fused": fused})
+    RESULTS.update(card=card, kernels=kernels, launches=launches,
+                   bounds={k: {"us": us, "by": by}
+                           for k, (us, by) in bound.items()})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke_results.json"),
               "w") as fh:

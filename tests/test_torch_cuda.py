@@ -12,10 +12,13 @@ runs the same comparisons at the flagship's full shapes.
 import pytest
 import torch
 
+import copy
+
 from vaemolsim_tpu_torch import _build
-from vaemolsim_tpu_torch.flows.spline_flows import _bin_positions, _slopes
+from vaemolsim_tpu_torch.flows.spline_flows import (
+    MAFLayer, MaskedSplineConditioner, _bin_positions, _slopes)
 from vaemolsim_tpu_torch.mcmc import fused as mf
-from vaemolsim_tpu_torch.ops import rqs
+from vaemolsim_tpu_torch.ops import maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_plain,
                                                fused_dense_stack)
 
@@ -144,4 +147,139 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                           [torch.zeros(30000, device=dev),
                            torch.zeros(1, device=dev)], ["relu", None])
     assert set(_build.launch_counts()) == {"rqs", "dense_stack",
-                                           "vae_proposal"}
+                                           "vae_proposal", "maf_block"}
+
+
+def _maf_layer(dev, D, cond_dim=None, circular=False, hidden=64, K=16):
+    """A MAF block with weights scaled up from the init (which gives
+    near-uniform bins) and non-zero biases."""
+    gen = torch.Generator(device=dev).manual_seed(5 + D)
+    cond = MaskedSplineConditioner.create(
+        gen, D, bin_range=(-6.0, 6.0), num_bins=K, hidden_dim=hidden,
+        conditional=cond_dim is not None, conditional_event_shape=cond_dim,
+        input_order="left-to-right", circular=circular, device=dev)
+    with torch.no_grad():
+        for net in cond.nets:
+            for k in net.kernels:
+                k.mul_(4.0)
+            for b in net.biases:
+                b.add_(0.2 * torch.randn(b.shape, generator=gen, device=dev))
+    return MAFLayer(cond)
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("D,cond_dim,n", [(3, None, 2001), (8, None, 777),
+                                          (3, 5, 1001), (1, 4, 513)])
+def test_maf_block_kernel_matches_plain(dev, inverse, D, cond_dim, n):
+    """The kernel against its plain version on the block's own merged
+    weights, ragged row counts included: values to 1e-4 + 1e-4|v|,
+    log-dets to 1e-3 + 1e-4|v| (sums of up to 200 products in another
+    order than cuBLAS's, through steep bins)."""
+    layer = _maf_layer(dev, D, cond_dim)
+    cond = layer.conditioner
+    gen = torch.Generator(device=dev).manual_seed(6)
+    y = 3.0 * torch.randn(n, D, generator=gen, device=dev)
+    ctx = (torch.randn(n, cond_dim, generator=gen, device=dev)
+           if cond_dim else None)
+    with torch.no_grad():
+        params = [p for p in cond.merged_params() if p is not None]
+        args = (y, params, ctx, D, cond.num_bins, cond.bin_min, cond.bin_max,
+                inverse)
+        before = maf_fused.KERNEL.launches
+        got = maf_fused.maf_block_cuda(*args)
+        assert maf_fused.KERNEL.launches == before + 1
+        want = maf_fused.maf_block_plain(*args)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["D3", "D1 conditional", "D1", "circular",
+                                  "3-D input"])
+def test_maf_layer_routes_by_launch_counts(dev, kind):
+    """Which route each kind of block takes on the card: the MAF-block
+    kernel for a supported block (one launch per pass direction), the
+    unfused route (dense stack, then RQS) for the 1-D unconditional
+    block's constant spline, and the dense stack with the plain circular
+    spline, or the dense stack and RQS for a 3-D input."""
+    D = 1 if kind.startswith("D1") else 3
+    cond_dim = 4 if kind == "D1 conditional" else None
+    layer = _maf_layer(dev, D, cond_dim, circular=kind == "circular")
+    shape = (2, 50, D) if kind == "3-D input" else (50, D)
+    y = torch.randn(shape, device=dev)
+    ctx = torch.randn(50, cond_dim, device=dev) if cond_dim else None
+    _build.reset_launches()
+    with torch.no_grad():
+        layer.inverse_and_log_det(y, ctx)
+        layer.forward_and_log_det(y, ctx)
+    counts = _build.launch_counts()
+    if kind in ("D3", "D1 conditional"):
+        assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
+                          "maf_block": 2}
+    else:
+        assert counts["maf_block"] == 0 and counts["dense_stack"] > 0
+        assert (counts["rqs"] > 0) == (kind != "circular")
+
+
+def test_maf_layer_gradients_through_kernel_match_cpu(dev):
+    """A training step's gradients through the kernel (recomputed through
+    the plain version on the card) against a CPU copy of the block,
+    for the density and the sampling pass, on rows away from the knots,
+    of a batch-mean loss as in training: 1e-4 + 1e-3 relative.  (Run
+    from the root of the checkout, which holds chip_smoke.py.)"""
+    from chip_smoke import knot_safe
+    layer = _maf_layer(dev, 4)
+    cpu = copy.deepcopy(layer).to("cpu")
+    y = 2.0 * torch.randn(300, 4, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    for name in ("inverse_and_log_det", "forward_and_log_det"):
+        keep = knot_safe([cpu], y, name.startswith("inverse"))
+        assert int(keep.sum()) > 250
+        grads = []
+        for m, t in ((layer, y[keep.to(dev)]), (cpu, y.cpu()[keep])):
+            m.zero_grad()
+            x, ldj = getattr(m, name)(t)
+            ((x ** 2).sum(-1) + ldj).mean().backward()
+            grads.append([p.grad.cpu() for p in m.parameters()])
+        for g, w in zip(*grads):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+def test_maf_block_kernel_refuses_what_it_does_not_take(dev):
+    layer = _maf_layer(dev, 3)
+    params = [p.detach() for p in layer.conditioner.merged_params()
+              if p is not None]
+    with pytest.raises(TypeError):
+        maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev,
+                                             dtype=torch.float64),
+                                 params, None, 3, 16, -6.0, 6.0, True)
+    big = [torch.zeros(3, 3 * 6000, device=dev),
+           torch.zeros(3 * 6000, device=dev),
+           torch.zeros(3 * 6000, 3 * 47, device=dev),
+           torch.zeros(3 * 47, device=dev)]
+    with pytest.raises(RuntimeError, match="maf_block kernel launch failed"):
+        maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev), big, None, 3,
+                                 16, -6.0, 6.0, True)
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+def test_maf_block_kernel_reads_only_diagonal_blocks_of_k2(dev, inverse):
+    """The kernel's contract: k2 is block-diagonal over the three heads,
+    and it reads only the diagonal blocks.  With noise in the blocks off
+    the diagonal its output is the plain version's on k2 with those
+    blocks zeroed (1e-4 + 1e-4|v|, log-dets 1e-3 + 1e-4|v|)."""
+    layer = _maf_layer(dev, 3)
+    cond = layer.conditioner
+    with torch.no_grad():
+        k1, b1, k2, b2 = [p for p in cond.merged_params() if p is not None]
+        gen = torch.Generator(device=dev).manual_seed(8)
+        off = torch.block_diag(
+            *[torch.ones_like(n.kernels[1]) for n in cond.nets]) == 0
+        noisy = torch.where(off, torch.randn(k2.shape, generator=gen,
+                                             device=dev), k2)
+        y = 3.0 * torch.randn(501, 3, generator=gen, device=dev)
+        args = (3, cond.num_bins, cond.bin_min, cond.bin_max, inverse)
+        got = maf_fused.maf_block_cuda(y, [k1, b1, noisy, b2], None, *args)
+        want = maf_fused.maf_block_plain(y, [k1, b1, k2, b2], None, *args)
+    assert bool(off.any())
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)

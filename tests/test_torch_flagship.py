@@ -79,7 +79,7 @@ def pair():
               if leaf.ndim == 1 and leaf.size > 2 else leaf
               for leaf in leaves]
     vae = jax.tree_util.tree_unflatten(tree, leaves)
-    return vae, from_jax(vae)
+    return vae, from_jax(vae, "cpu")
 
 
 def densities(vae, x1, z1, z2, x2, to, out):
@@ -123,7 +123,7 @@ def test_fcdeepnn_periodic_expansion_matches_jax():
     jm = FCDeepNN.create(jax.random.PRNGKey(3), 3, (2, 2), hidden_dim=[16, 8],
                          periodic_dofs=[True, False, True],
                          activation="tanh")
-    tm = from_jax(jm)
+    tm = from_jax(jm, "cpu")
     x = np.random.default_rng(13).uniform(-4, 4, size=(7, 5, 3))
     x = x.astype(np.float32)
     np.testing.assert_allclose(tnp(tm(t(x))), np.asarray(jm(j(x))),
@@ -226,7 +226,7 @@ def test_made_masks_orders_and_d3_maf_match_jax(conditional):
     flow = JMAF.create(jax.random.PRNGKey(21), 3, num_blocks=3,
                        order_seed=4, rqs_params=rqs)
     jdist = JFlowed(flow=flow, base_layer=JBlockwise.create(3, "normal"))
-    tdist = from_jax(jdist)
+    tdist = from_jax(jdist, "cpu")
     for jb, tb in zip(flow.blocks, tdist.flow.blocks):
         for jn, tn in zip((jb.conditioner.w_net, jb.conditioner.h_net,
                            jb.conditioner.s_net), tb.conditioner.nets):
@@ -341,7 +341,7 @@ def test_flagship_json_from_jax_builds_same_architecture(tmp_path):
     assert cfg == tconfig.flagship_experiment_config()
     built = cfg.build("cpu")
     jvae = jcfg.build()
-    carried = from_jax(jvae)
+    carried = from_jax(jvae, "cpu")
     assert ({k: tuple(v.shape) for k, v in built.state_dict().items()}
             == {k: tuple(v.shape) for k, v in carried.state_dict().items()})
     # JAX leaves = the port's parameters + the static base's loc and

@@ -194,7 +194,7 @@ def test_spline_conditioner_matches_jax():
                                       num_bins=K, hidden_dim=16,
                                       bin_range=(-4.0, 4.0))
         xin = x[:, :in_dim]
-        js, ts = jc(jnp.asarray(xin)), from_jax(jc)(t(xin))
+        js, ts = jc(jnp.asarray(xin)), from_jax(jc, "cpu")(t(xin))
         for a in ("bin_widths", "bin_heights", "knot_slopes"):
             np.testing.assert_allclose(getattr(ts, a).detach().numpy(),
                                        np.asarray(getattr(js, a)),
@@ -339,12 +339,20 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     fused_dense_stack(x, [t(k) for k in ks], [t(b) for b in bs],
                       ["relu", None])
     assert all(v == 0 for v in _build.launch_counts().values())
-    assert set(_build.KERNELS) == {"rqs", "dense_stack", "vae_proposal"}
+    assert set(_build.KERNELS) == {"rqs", "dense_stack", "vae_proposal",
+                                   "maf_block"}
     with pytest.raises(ValueError, match="CUDA"):
         trqs.rqs_cuda(x, w, h, s, -5.0, False)
     with pytest.raises(ValueError, match="CUDA"):
         dense_stack_cuda(x, [t(k) for k in ks], [t(b) for b in bs],
                          ["relu", None])
+    from vaemolsim_tpu_torch.ops.maf_fused import maf_block_cuda
+    y2 = torch.zeros(4, 2)
+    k1, k2 = torch.zeros(2, 3 * 8), torch.zeros(3 * 8, 2 * (3 * K - 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        maf_block_cuda(y2, [k1, torch.zeros(3 * 8), k2,
+                            torch.zeros(2 * (3 * K - 1))], None, 2, K, -5.0,
+                       5.0, True)
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,14 @@ the TPU kernels on the ported path are hand-written CUDA kernels under
 ``csrc/``, built at first use (``_build``).  On a CPU tensor every
 kernel wrapper runs the kernel's plain PyTorch version instead.
 
-Ported so far: the VAE-proposal MC step on the flagship model (see
-ROADMAP.md for what is still to come).
+Ported so far: the VAE-proposal MC step on the flagship model, and
+training (``train.fit``, the ELBO and flow-model losses) with the
+MAF-block kernel for flows of two or more dimensions (see ROADMAP.md for
+what is still to come).
 """
 
-from vaemolsim_tpu_torch import config, convert  # noqa: F401
+from vaemolsim_tpu_torch import config, convert, losses  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
+from vaemolsim_tpu_torch import train  # noqa: F401
 
 __version__ = "0.1.0"

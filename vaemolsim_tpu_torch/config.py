@@ -3,13 +3,17 @@
 The dataclasses mirror the JAX package's field for field, read and
 write the same tagged JSON (``save_json`` / ``load_json``), and
 ``build()`` the port's objects on a given device, drawing every weight
-from one ``torch.Generator`` seeded by the experiment's ``seed``.  A JSON
+from one ``torch.Generator`` seeded by the experiment's ``seed``.
+``ExperimentConfig.build()`` builds on the CUDA card unless it is given
+a device; without a card it raises rather than quietly build on the CPU
+(pass ``"cpu"`` for that).  A JSON
 written by ``vaemolsim_tpu.config.save_json`` builds the same
 architecture here (not the same weights: the random streams differ; use
 ``convert.from_jax`` to carry weights across).
 
-Ported so far: the configs the flagship experiment uses.  A JSON naming
-another config class (RealNVP, backmapping, ...) is refused by name.
+Ported so far: the configs of the flagship experiment and of flow
+models, and the optimizer.  A JSON naming another config class
+(RealNVP, backmapping, ...) is refused by name.
 """
 
 from __future__ import annotations
@@ -18,17 +22,30 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 __all__ = ["RQSParams", "MAFConfig", "DistLayerConfig", "FlowedDistConfig",
-           "RegularizerConfig", "MappingToDistConfig", "VAEConfig",
-           "MCMCConfig", "OptimizerConfig", "ExperimentConfig", "from_dict",
+           "RegularizerConfig", "MappingToDistConfig", "FlowModelConfig",
+           "VAEConfig", "MCMCConfig", "OptimizerConfig", "ExperimentConfig",
+           "default_device", "from_dict",
            "to_dict", "to_tagged_dict", "save_json", "load_json",
            "flagship_experiment_config"]
 
 _TAG = "__config__"
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` itself when given; otherwise the CUDA card, and an error
+    where there is none (never a quiet fall back to the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port builds on the card unless told "
+            "otherwise; pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
 
 
 def to_dict(cfg) -> Dict[str, Any]:
@@ -227,17 +244,28 @@ class FlowedDistConfig:
 @dataclass
 class RegularizerConfig:
     """VAE information regularizer: ``kind`` none | kl | log_prob |
-    reverse_kl.  Carried by the VAE as this config (the loss classes
-    come with the training slice)."""
+    reverse_kl."""
 
     kind: str = "kl"
     weight: float = 1.0
-    sample_dist: Optional[str] = None
+    sample_dist: Optional[str] = None  # default per kind
 
     def build(self):
-        if self.kind not in ("none", "kl", "log_prob", "reverse_kl"):
-            raise ValueError(f"Unknown regularizer kind {self.kind!r}")
-        return self
+        from vaemolsim_tpu_torch import losses
+
+        classes = {"none": losses.NonRegularizer,
+                   "kl": losses.KLDivergenceEstimate,
+                   "log_prob": losses.LogProbRegularizer,
+                   "reverse_kl": losses.ReverseKLDivergenceEstimate}
+        try:
+            cls = classes[self.kind]
+        except KeyError:
+            raise ValueError(f"Unknown regularizer kind {self.kind!r}; "
+                             f"one of {sorted(classes)}") from None
+        kw: Dict[str, Any] = {"weight": self.weight}
+        if self.sample_dist is not None:
+            kw["sample_dist"] = self.sample_dist
+        return cls(**kw)
 
 
 @dataclass
@@ -257,6 +285,23 @@ class MappingToDistConfig:
             generator, dist, input_shape=_shape(self.input_shape),
             mapping_kwargs=self.mapping_kwargs, name=self.name,
             device=device)
+
+
+@dataclass
+class FlowModelConfig:
+    """FlowModel: optional mapping + flowed distribution."""
+
+    flowed_dist: FlowedDistConfig = field(default_factory=FlowedDistConfig)
+    input_shape: Optional[Union[int, List[int]]] = None
+    mapping_kwargs: Optional[Dict[str, Any]] = None
+
+    def build(self, generator: torch.Generator, device=None):
+        from vaemolsim_tpu_torch.models import FlowModel
+        return FlowModel.create(generator,
+                                self.flowed_dist.build(generator, device),
+                                input_shape=_shape(self.input_shape),
+                                mapping_kwargs=self.mapping_kwargs,
+                                device=device)
 
 
 @dataclass
@@ -291,12 +336,30 @@ class VAEConfig:
 
 @dataclass
 class OptimizerConfig:
-    """Optimizer knobs, carried so experiment JSON round-trips; building
-    an optimizer comes with the training slice."""
+    """Optimizer knobs.  ``build()`` returns a factory
+    ``params -> torch.optim.Optimizer`` (adam, adamw or sgd with the
+    optax defaults the JAX package uses)."""
 
     name: str = "adam"
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
+
+    def build(self) -> Callable[[Any], torch.optim.Optimizer]:
+        if self.weight_decay and self.name != "adamw":
+            raise ValueError(
+                f"weight_decay={self.weight_decay} is only applied by "
+                f"name='adamw'; with {self.name!r} it would be silently "
+                "dropped while the saved config claims otherwise")
+        lr = self.learning_rate
+        if self.name == "adam":
+            return lambda params: torch.optim.Adam(params, lr=lr)
+        if self.name == "adamw":
+            wd = self.weight_decay
+            return lambda params: torch.optim.AdamW(params, lr=lr,
+                                                    weight_decay=wd)
+        if self.name == "sgd":
+            return lambda params: torch.optim.SGD(params, lr=lr)
+        raise ValueError(f"Unknown optimizer {self.name!r}")
 
 
 @dataclass
@@ -304,7 +367,7 @@ class ExperimentConfig:
     """One JSON = one reproducible experiment: model, optimizer, training
     and MC knobs, and the seed."""
 
-    model: Union[VAEConfig, MappingToDistConfig] = field(
+    model: Union[VAEConfig, FlowModelConfig, MappingToDistConfig] = field(
         default_factory=VAEConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     seed: int = 0
@@ -312,8 +375,10 @@ class ExperimentConfig:
     batch_size: Optional[int] = None
     mcmc: Optional[MCMCConfig] = None
 
-    def build(self, device="cpu"):
-        device = torch.device(device)
+    def build(self, device=None):
+        """The model on ``device``: by default the CUDA card (raises where
+        there is none; pass ``"cpu"`` to build on the CPU)."""
+        device = default_device(device)
         generator = torch.Generator(device=device).manual_seed(self.seed)
         return self.model.build(generator, device)
 
@@ -348,5 +413,5 @@ _CONFIG_REGISTRY: Dict[str, type] = {
     c.__name__: c
     for c in (RQSParams, MAFConfig, MCMCConfig, DistLayerConfig,
               FlowedDistConfig, RegularizerConfig, MappingToDistConfig,
-              VAEConfig, OptimizerConfig, ExperimentConfig)
+              FlowModelConfig, VAEConfig, OptimizerConfig, ExperimentConfig)
 }

@@ -2,11 +2,13 @@
 
 Reads the JAX objects' fields by name and their arrays through
 ``np.asarray``, so it needs no import of jax.  Covers everything the
-flagship VAE holds: FCDeepNN, Dense, MADE, MaskedSplineConditioner,
-MAFLayer, RQSSplineMAF (and SplineConditioner), Normal, Independent, IndependentBlockwise,
+flagship VAE and a flow model hold: FCDeepNN, Dense, MADE,
+MaskedSplineConditioner, MAFLayer, RQSSplineMAF (and
+SplineConditioner), Normal, Independent, IndependentBlockwise,
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
-the VAE and its regularizer.  Weights are copied exactly (the Dense
-layout is the same ``(in, out)`` in both packages).
+FlowModel, the VAE and the seven loss classes.  Weights are copied
+exactly (the Dense layout is the same ``(in, out)`` in both packages).
+Objects land on the CUDA card unless a device is given.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+
+from vaemolsim_tpu_torch.config import default_device
 
 __all__ = ["from_jax"]
 
@@ -112,12 +116,29 @@ def _mapping_to_dist(o, device):
                                  from_jax(o.dist, device), o.name)
 
 
-def _regularizer(kind):
-    def conv(o, device):
-        from vaemolsim_tpu_torch.config import RegularizerConfig
-        return RegularizerConfig(kind=kind, weight=float(o.weight),
-                                 sample_dist=o.sample_dist)
-    return conv
+def _flow_model(o, device):
+    from vaemolsim_tpu_torch.models import FlowModel
+    return FlowModel(from_jax(o.flowed_dist, device),
+                     None if o.mapping is None
+                     else from_jax(o.mapping, device))
+
+
+def _regularizer(o, device):
+    from vaemolsim_tpu_torch import losses
+    return getattr(losses, type(o).__name__)(weight=float(o.weight),
+                                             sample_dist=o.sample_dist)
+
+
+def _log_prob_loss(o, device):
+    from vaemolsim_tpu_torch.losses import LogProbLoss
+    return LogProbLoss()
+
+
+def _potential_loss(o, device):
+    """The potential function is carried as it is: it must accept torch
+    tensors (as a plain arithmetic expression does)."""
+    from vaemolsim_tpu_torch.losses import PotentialEnergyLogProbLoss
+    return PotentialEnergyLogProbLoss(o.potential_fn)
 
 
 def _vae(o, device):
@@ -140,21 +161,25 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "StaticFlowedDistribution": _static_flowed,
     "FlowedDistribution": _flowed,
     "MappingToDistribution": _mapping_to_dist,
+    "FlowModel": _flow_model,
     "VAE": _vae,
-    "NonRegularizer": _regularizer("none"),
-    "KLDivergenceEstimate": _regularizer("kl"),
-    "LogProbRegularizer": _regularizer("log_prob"),
-    "ReverseKLDivergenceEstimate": _regularizer("reverse_kl"),
+    "LogProbLoss": _log_prob_loss,
+    "PotentialEnergyLogProbLoss": _potential_loss,
+    "NonRegularizer": _regularizer,
+    "KLDivergenceEstimate": _regularizer,
+    "LogProbRegularizer": _regularizer,
+    "ReverseKLDivergenceEstimate": _regularizer,
 }
 
 
-def from_jax(obj: Any, device="cpu") -> Any:
+def from_jax(obj: Any, device=None) -> Any:
     """The port's counterpart of a JAX-package object, with its weights,
-    on ``device``."""
+    on ``device``: by default the CUDA card (raises where there is none;
+    pass ``"cpu"`` for the CPU)."""
     name = type(obj).__name__
     try:
         conv = _CONVERTERS[name]
     except KeyError:
         raise TypeError(f"from_jax: no port of {name} yet; supported: "
                         f"{sorted(_CONVERTERS)}") from None
-    return conv(obj, torch.device(device))
+    return conv(obj, default_device(device))

@@ -8,8 +8,21 @@ positions are ``softmax(raw) * (bin_max - bin_min - K*1e-2) + 1e-2`` and
 knot slopes ``softplus(raw) + 1e-2``.
 
 Ported so far: SplineConditioner, MaskedSplineConditioner, MAFLayer and
-RQSSplineMAF without batch norm.  The MAF-block kernel dispatch comes
-with that kernel; RQSSplineRealNVP and CouplingLayer come later.
+RQSSplineMAF without batch norm; RQSSplineRealNVP and CouplingLayer come
+later.
+
+MAFLayer runs a whole block through the MAF-block kernel
+(``ops/maf_fused.py``, ``csrc/maf_block.cu``) on every CUDA input that
+the kernel supports: a mergeable conditioner whose three nets share one
+hidden width, a spline that is not circular, a 2-D input (and context),
+the float32 compute dtype, and not the 1-D unconditional block, which
+keeps its constant-spline shortcut (one conditioner row for the whole
+batch).  Every other block, and every CPU input, takes the unfused route
+(conditioner through the dense-stack kernel, then the RQS kernel).
+There is no switch: the JAX package's ``set_maf_fused`` /
+``maf_fused_enabled`` chose a backend for the TPU, where its own study
+measured the fused kernel slower than XLA; here the kernel is the route
+whenever it applies.
 """
 
 from __future__ import annotations
@@ -214,11 +227,44 @@ class MaskedSplineConditioner(nn.Module):
 class MAFLayer(bj.Bijector, nn.Module):
     """Masked autoregressive flow layer over an RQS conditioner.  Density
     (inverse) is one pass; sampling (forward) is the D-pass fixed point.
-    A bijector first: calling it transforms, as with every bijector."""
+    A bijector first: calling it transforms, as with every bijector.
+    A CUDA block that the MAF-block kernel supports runs through it (see
+    the module docstring)."""
 
     def __init__(self, conditioner: MaskedSplineConditioner):
         nn.Module.__init__(self)
         self.conditioner = conditioner
+
+    def _fused_args(self, t: Tensor, context: Optional[Tensor]):
+        """(params, ctx) for the MAF-block kernel, or None where the
+        block takes the unfused route."""
+        from vaemolsim_tpu_torch.nn.core import compute_dtype
+        cond = self.conditioner
+        if not (t.is_cuda and cond.mergeable and not cond.circular
+                and t.dim() == 2
+                and (context is None or context.dim() == 2)
+                and compute_dtype() in (None, torch.float32)
+                and (cond.w_net.event_size > 1 or cond.conditional)
+                and len({n.kernels[0].shape[1] for n in cond.nets}) == 1):
+            return None
+        cond._check_conditional(context)
+        k1, b1, k2, b2, c1, c2 = cond.merged_params()
+        if context is not None:
+            return (k1, b1, k2, b2, c1, c2), context
+        return (k1, b1, k2, b2), None
+
+    def _fused_call(self, t: Tensor, context: Optional[Tensor],
+                    inverse: bool):
+        from vaemolsim_tpu_torch.ops import maf_fused
+        args = self._fused_args(t, context)
+        if args is None:
+            return None
+        params, ctx = args
+        cond = self.conditioner
+        fn = (maf_fused.maf_block_inverse_fused if inverse
+              else maf_fused.maf_block_forward_fused)
+        return fn(t, params, ctx, cond.w_net.event_size, cond.num_bins,
+                  cond.bin_min, cond.bin_max)
 
     def _spline(self, t: Tensor, context: Optional[Tensor]):
         cond = self.conditioner
@@ -230,19 +276,34 @@ class MAFLayer(bj.Bijector, nn.Module):
             return cond(torch.zeros((1, 1), dtype=t.dtype, device=t.device))
         return cond(t, context)
 
-    def forward_and_log_det(self, x, context=None):
+    def unfused_and_log_det(self, t: Tensor, context: Optional[Tensor] = None,
+                            inverse: bool = False):
+        """The block without the MAF-block kernel: the conditioner (the
+        dense-stack kernel on CUDA), then the spline (the RQS kernel).
+        The route of every block that the kernel does not take."""
+        if inverse:
+            x, ldj = self._spline(t, context).inverse_and_log_det(t)
+            return x, ldj.sum(-1)
         D = self.conditioner.w_net.event_size
-        y = x
+        y = t
         # After k passes every DOF of autoregressive depth <= k is final:
         # D - 1 passes here, the D-th with the log-det.
         for _ in range(D - 1):
-            y = self._spline(y, context).forward(x)
-        y, ldj = self._spline(y, context).forward_and_log_det(x)
+            y = self._spline(y, context).forward(t)
+        y, ldj = self._spline(y, context).forward_and_log_det(t)
         return y, ldj.sum(-1)
 
+    def forward_and_log_det(self, x, context=None):
+        fused = self._fused_call(x, context, inverse=False)
+        if fused is not None:
+            return fused
+        return self.unfused_and_log_det(x, context, inverse=False)
+
     def inverse_and_log_det(self, y, context=None):
-        x, ldj = self._spline(y, context).inverse_and_log_det(y)
-        return x, ldj.sum(-1)
+        fused = self._fused_call(y, context, inverse=True)
+        if fused is not None:
+            return fused
+        return self.unfused_and_log_det(y, context, inverse=True)
 
 
 def _ensure_event_transform(t, data_dim: int, device):

@@ -2,6 +2,7 @@
 
 from vaemolsim_tpu_torch.models.core import (  # noqa: F401
     VAE,
+    FlowModel,
     MappingToDistribution,
     VAEOutput,
 )

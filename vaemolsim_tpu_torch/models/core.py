@@ -1,26 +1,30 @@
-"""Model compositions: mapping to distribution, and the VAE (port of
-``vaemolsim_tpu/models/core.py``).
+"""Model compositions: mapping to distribution, flow model and VAE (port
+of ``vaemolsim_tpu/models/core.py``).
 
-Ported so far: MappingToDistribution and the VAE's forward pass,
-``_prior_dist`` and ``sample``.  The training losses (``elbo_loss``,
-``iwae_loss``, ``hvae_elbo_loss``) come with the training slice; until
-then the VAE carries its regularizer as a ``config.RegularizerConfig``.
+Ported so far: MappingToDistribution, FlowModel, and the VAE with its
+forward pass, ``elbo_loss``, ``iwae_loss`` and ``sample``.
+``hvae_elbo_loss`` differentiates through per-step gradients, which the
+kernels' plain-recompute backward does not support yet; it waits, with
+VAEDualELBO (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from vaemolsim_tpu_torch import losses as loss_lib
+from vaemolsim_tpu_torch.dists.layers import StaticFlowedDistribution
 from vaemolsim_tpu_torch.nn.mappings import FCDeepNN
 from vaemolsim_tpu_torch.ops import distributions as dl
 
 Tensor = torch.Tensor
 
-__all__ = ["MappingToDistribution", "VAE", "VAEOutput"]
+__all__ = ["MappingToDistribution", "FlowModel", "VAE", "VAEOutput"]
 
 
 def _call_dist_layer(layer, raw, conditional_input, train):
@@ -75,6 +79,57 @@ class MappingToDistribution(nn.Module):
         return _call_dist_layer(self.dist, params, inputs, train)
 
 
+
+
+class FlowModel(nn.Module):
+    """Optional mapping + flowed distribution: the density-estimation
+    model.  With a :class:`StaticFlowedDistribution` (a fixed base) no
+    mapping is used and the inputs only matter as conditional context
+    and batch shape.  ``predict`` samples the output distribution."""
+
+    def __init__(self, flowed_dist: Any, mapping: Any = None):
+        super().__init__()
+        self.flowed_dist = flowed_dist
+        self.mapping = mapping
+
+    @classmethod
+    def create(cls, generator: torch.Generator, flowed_dist: Any,
+               input_shape: Optional[Union[int, Sequence[int]]] = None,
+               mapping: Any = None, mapping_kwargs: Optional[dict] = None,
+               device=None) -> "FlowModel":
+        if mapping is None and not isinstance(flowed_dist,
+                                              StaticFlowedDistribution):
+            if input_shape is None:
+                raise ValueError("input_shape required to auto-build the "
+                                 "mapping for a non-static flowed dist")
+            mapping = FCDeepNN.create(generator, input_shape,
+                                      flowed_dist.params_size(),
+                                      device=device,
+                                      **(mapping_kwargs or {}))
+        return cls(flowed_dist, mapping)
+
+    def forward(self, inputs: Tensor, train: bool = False):
+        params = (self.mapping(inputs, train=train)
+                  if self.mapping is not None else inputs)
+        return _call_dist_layer(self.flowed_dist, params, inputs, train)
+
+    def log_prob(self, inputs: Tensor, targets: Optional[Tensor] = None,
+                 train: bool = False) -> Tensor:
+        """Density of ``targets`` (by default the inputs: maximum-likelihood
+        training of an unconditional flow)."""
+        dist = self(inputs, train=train)
+        return dist.log_prob(inputs if targets is None else targets)
+
+    def predict(self, inputs: Tensor, generator: torch.Generator,
+                train: bool = False) -> Tensor:
+        """One sample per input row (a static flowed distribution has no
+        batch axis of its own)."""
+        dist = self(inputs, train=train)
+        if tuple(dist.batch_shape) == () and inputs.dim() > 1:
+            return dist.sample(generator, (inputs.shape[0],))
+        return dist.sample(generator)
+
+
 @dataclass
 class VAEOutput:
     """Forward-pass output: the encoder's distribution and sample, the
@@ -90,47 +145,58 @@ class VAEOutput:
 
 class VAE(nn.Module):
     """Standard VAE: encode, sample, build the prior (from the sample, for
-    shape only), regularize, decode.  ``regularizer`` is a
-    ``config.RegularizerConfig`` (kinds none, kl, log_prob, reverse_kl)."""
+    shape only), regularize, decode.  ``regularizer`` is one of the
+    ``losses`` regularizers (KL by default); the reconstruction loss is
+    applied by :meth:`elbo_loss` or the training loop."""
 
     def __init__(self, encoder: Any, decoder: Any, prior: Any,
                  regularizer: Any = None):
         super().__init__()
-        from vaemolsim_tpu_torch.config import RegularizerConfig
         self.encoder = encoder
         self.decoder = decoder
         self.prior = prior
-        self.regularizer = regularizer or RegularizerConfig()
+        self.regularizer = (loss_lib.KLDivergenceEstimate()
+                            if regularizer is None else regularizer)
 
     def _prior_dist(self, shape_sample: Tensor, train: bool):
         return _resolve_prior_dist(self.prior, shape_sample, train)
-
-    def _regularize(self, enc, prior, z) -> Tensor:
-        """weight * the regularizer, estimated at the encoder's samples
-        (the JAX VAE passes its sample, so ``sample_dist`` never draws)."""
-        reg = self.regularizer
-        if reg.kind == "none":
-            return torch.zeros((), device=z.device)
-        if reg.kind == "kl":
-            val = enc.log_prob(z) - prior.log_prob(z)
-        elif reg.kind == "reverse_kl":
-            val = prior.log_prob(z) - enc.log_prob(z)
-        elif reg.kind == "log_prob":
-            val = -prior.log_prob(z)
-        else:
-            raise ValueError(f"Unknown regularizer kind {reg.kind!r}")
-        return reg.weight * val.mean()
 
     def forward(self, inputs: Tensor, generator: torch.Generator,
                 train: bool = False) -> VAEOutput:
         encode_dist = self.encoder(inputs, train=train)
         z = encode_dist.sample(generator)
         prior_dist = self._prior_dist(z, train)
-        reg = self._regularize(encode_dist, prior_dist, z)
-        w = self.regularizer.weight
-        kl_div = reg / w if w != 0 else torch.zeros_like(reg)
+        reg_loss = self.regularizer(encode_dist, prior_dist, samples=z,
+                                    generator=generator)
+        weight = getattr(self.regularizer, "weight", 1.0)
+        kl_div = (reg_loss / weight if weight != 0
+                  else torch.zeros_like(reg_loss))
         return VAEOutput(encode_dist, z, prior_dist,
-                         self.decoder(z, train=train), reg, kl_div)
+                         self.decoder(z, train=train), reg_loss, kl_div)
+
+    def elbo_loss(self, inputs: Tensor, generator: torch.Generator,
+                  train: bool = True) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """Negative ELBO = reconstruction NLL + regularizer, with the
+        metrics (loss, recon_nll, kl_div, regularizer_loss)."""
+        out = self(inputs, generator, train=train)
+        recon = -out.decode_dist.log_prob(inputs).mean()
+        total = recon + out.regularizer_loss
+        return total, {"loss": total, "recon_nll": recon,
+                       "kl_div": out.kl_div,
+                       "regularizer_loss": out.regularizer_loss}
+
+    def iwae_loss(self, inputs: Tensor, generator: torch.Generator,
+                  n_samples: int = 8, train: bool = True) -> Tensor:
+        """Importance-weighted negative bound (Burda et al. 2016) with
+        ``n_samples`` posterior draws, taken as one leading batch axis:
+        the encoder runs once, the prior and decoder on all draws."""
+        encode_dist = self.encoder(inputs, train=train)
+        z = encode_dist.sample(generator, (n_samples,))  # (K, batch, d_z)
+        prior_dist = self._prior_dist(z, train)
+        log_w = (self.decoder(z, train=train).log_prob(inputs)
+                 + prior_dist.log_prob(z) - encode_dist.log_prob(z))
+        bound = torch.logsumexp(log_w, 0) - math.log(n_samples)
+        return -bound.mean()
 
     def sample(self, generator: torch.Generator,
                batch_shape: Tuple[int, ...] = (), train: bool = False,

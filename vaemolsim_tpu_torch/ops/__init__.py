@@ -1,7 +1,8 @@
-"""Bijectors, distributions, the RQS spline and dense stacks, each
-kernel beside its plain PyTorch version."""
+"""Bijectors, distributions, the RQS spline, dense stacks and the MAF
+block, each kernel beside its plain PyTorch version."""
 
 from vaemolsim_tpu_torch.ops import bijectors, distributions  # noqa: F401
+from vaemolsim_tpu_torch.ops import maf_fused  # noqa: F401
 from vaemolsim_tpu_torch.ops.fused_mlp import (  # noqa: F401
     dense_stack_plain,
     fused_dense_stack,
