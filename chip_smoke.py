@@ -24,7 +24,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    on [-10, 10]) by maximum likelihood at batch 10k on 100k correlated
    Gaussian points, then samples 10k points from it (MAF-block kernel
    in both directions): finite, falling losses, samples moving toward
-   the data's moments, and each path's gradients against a CPU copy.
+   the data's moments, and each path's gradients against a CPU copy;
+6. runs CG -> atomistic backmapping on the notebook's model
+   (``backmapping_experiment_config``: 10 nearest of 30 particles within
+   3.0, a 2-block GA-attention embedding of width 20, hidden 40, a von
+   Mises + 3-block conditional MAF decoder): ``predict`` and
+   ``log_prob`` at 10k CG sites (pair-attention, dense-stack and
+   MAF-block kernels), rotation invariance of ``log_prob`` on the card,
+   and ``train.fit`` at batch 128 on 2000 frames, with its gradients
+   against a CPU copy.  The pair-attention kernel is also held against
+   its plain version at the notebook's shape (N = 10, H = 40, B = 2000,
+   on the path's own selections), at the compute-dense N = 50, H = 64
+   (B = 1000) and at a ragged N = 37, in both modes, with fully masked
+   rows and clouds.
 
 Every path runs with the launch counters zeroed just before it and read
 just after.  Any failed check raises and the script exits non-zero;
@@ -50,6 +62,7 @@ from vaemolsim_tpu_torch import _build
 from vaemolsim_tpu_torch.config import (ExperimentConfig, FlowedDistConfig,
                                         FlowModelConfig, MAFConfig,
                                         OptimizerConfig, RQSParams,
+                                        backmapping_experiment_config,
                                         flagship_experiment_config)
 from vaemolsim_tpu_torch.flows.spline_flows import (MAFLayer,
                                                     MaskedSplineConditioner,
@@ -58,6 +71,8 @@ from vaemolsim_tpu_torch.mcmc import (MCMCState, make_fused_vae_step,
                                       make_mcmc_step, run_mcmc,
                                       vae_proposal_fns)
 from vaemolsim_tpu_torch.mcmc import fused as mf
+from vaemolsim_tpu_torch.nn.attention import VectorAttention
+from vaemolsim_tpu_torch.ops import attention as pa
 from vaemolsim_tpu_torch.ops import maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain)
@@ -67,6 +82,10 @@ SIZES = (10_000, 50_000)
 WARMUP_STEPS, TIMED_STEPS = 20, 200
 TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 100_000, 10_000, 5
 FLOW_D = 8
+BM_SITES, BM_FRAMES, BM_BATCH, BM_EPOCHS = 10_000, 2_000, 128, 5
+BM_PARTICLES, PA_FRAMES = 30, 2_000
+PA_MAIN = f"row notebook path N=10 H=40 Fo=20 B={PA_FRAMES}"
+PA_DENSE, PA_RAGGED = (50, 64, 1000), (37, 40, 300)  # (N, H, B)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -144,6 +163,22 @@ def device_time(prof, match=""):
     if total == 0.0:
         return None, None
     return total, named
+
+
+def top_ops(prof, per=1, n=6):
+    """The profile's n largest device kernels and n largest host ops by
+    self time, in µs per ``per`` (for example per step)."""
+    ev = prof.key_averages()
+    dev_ev = sorted((e for e in ev
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)[:n]
+    host_ev = sorted((e for e in ev
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)[:n]
+    return {"device": [(e.key[:60], e.self_device_time_total / per)
+                       for e in dev_ev],
+            "host": [(e.key[:60], e.self_cpu_time_total / per)
+                     for e in host_ev]}
 
 
 def device_us(fn, match, reps=10):
@@ -405,6 +440,123 @@ def check_maf_block(flow, gen, dev, label=""):
                        ms, plain_ms, **extra)
 
 
+def backmapping_frames(n, seed, dev):
+    """examples/04_backmapping.py's synthetic frames, made with numpy:
+    30 particles of spread 1.5 with 2-wide info around a CG site of
+    spread 0.3, and three torsions whose mean depends on the number of
+    particles within 3.0 of the site, wrapped to [-pi, pi]."""
+    rng = np.random.default_rng(seed)
+    coords = 1.5 * rng.normal(size=(n, BM_PARTICLES, 3))
+    info = rng.normal(size=(n, BM_PARTICLES, 2))
+    ref = 0.3 * rng.normal(size=(n, 3))
+    count = (np.linalg.norm(coords - ref[:, None], axis=-1) < 3.0).sum(-1)
+    tors = ((count % 5 - 2.0) * 0.8)[:, None] + 0.3 * rng.normal(size=(n, 3))
+    tors = tors - 2 * np.pi * np.round(tors / (2 * np.pi))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                 for a in (ref, coords, info, tors))
+
+
+def pair_attention_work(B, N, H, Fo, mask, reduce):
+    """(bytes, least float32 operations) of one pair-attention call on
+    these inputs: each input read once and the output written once; per
+    valid pair (m_i m_j = 1) the invariants (~20), the two trunks (4
+    FMAs and 2 adds per hidden unit each: 20 H), the score head (2 H),
+    LayerNorm (~8 H), the softmax (~5) and the weighted accumulation of
+    the value trunk (2 H); the value head, which is linear, once per
+    valid row (per non-empty frame with reduce): 2 H Fo.  Also the count
+    with the value head taken per pair (2 H Fo + 2 Fo per valid pair),
+    as a kernel that does not fold it through the contraction would."""
+    m = mask.double()
+    rows = m.sum(-1)
+    pairs = float((rows * rows).sum())
+    heads = float((rows > 0).sum()) if reduce else float(rows.sum())
+    out = B * Fo if reduce else B * N * Fo
+    nbytes = 4 * (B * N * 3 + B * N + 4 * B * N * H
+                  + 13 * H + H * Fo + Fo + 1 + out)
+    per_pair = 32 * H + 25
+    return (nbytes, pairs * per_pair + heads * 2 * H * Fo,
+            pairs * (per_pair + 2 * H * Fo + 2 * Fo))
+
+
+def check_pair_attention(bm, gen, dev):
+    """The pair-attention kernel against its plain version: atol 1e-5 +
+    rtol 1e-5 (LayerNorm, softmax and contraction sums of up to N^2 =
+    2500 terms in another order; the kernel also folds the value head
+    through the contraction), every element; fully masked rows and
+    clouds exactly zero.  Shapes: the notebook's (N = 10, F = Fo = 20,
+    H = 40, B = 2000) through the model's own block-0 and final
+    attention layers, on the path's own selections and masks (timed),
+    and with a random mask; the compute-dense N = 50, H = 64, B = 1000
+    (timed); a ragged N = 37, H = 40, B = 300; each in both modes."""
+    ref, coords, info, _ = backmapping_frames(PA_FRAMES, 21, dev)
+    lpd = bm.mask_and_embed
+    sel, valid, sel_info = lpd.select(coords, ref, particle_info=info)
+    values = lpd.embed.info_net(sel_info)
+
+    def random_mask(B, N):
+        m = (torch.rand(B, N, generator=gen, device=dev) > 0.3).float()
+        m[0, 1] = 0.0  # a fully masked row
+        m[1] = 0.0     # a fully masked cloud
+        return m
+
+    def fresh(N, H, B):
+        attn = VectorAttention.create(gen, 20, 20, hidden_dim=H, device=dev)
+        for p in attn.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
+        return (attn, 1.5 * torch.randn(B, N, 3, generator=gen, device=dev),
+                torch.randn(B, N, 20, generator=gen, device=dev),
+                random_mask(B, N))
+
+    blocks = lpd.embed.blocks[0].attn, lpd.embed.final_attn
+    nb = f"N=10 H=40 Fo=20 B={PA_FRAMES}"
+    cases = [(f"notebook path {nb}", blocks, sel, values, valid.float(),
+              True)]
+    cases.append((f"notebook random mask {nb}", blocks, sel, values,
+                  random_mask(PA_FRAMES, 10), False))
+    for label, (N, H, B), timed_case in (("dense", PA_DENSE, True),
+                                         ("ragged", PA_RAGGED, False)):
+        attn, c, v, m = fresh(N, H, B)
+        cases.append((f"{label} N={N} H={H} Fo=20 B={B}", (attn, attn),
+                      c, v, m, timed_case))
+    for shape, (row_attn, red_attn), c, v, m, timed_case in cases:
+        for reduce in (False, True):
+            base = red_attn if reduce else row_attn
+            attn = VectorAttention(base.score_net, base.value_net, reduce)
+            (c_, *nodes, mf, weights), kw = attn.pair_args(c, v, m)
+            args = (c_, *nodes, mf, *weights)
+            got = pa.pair_attention_cuda(*args, **kw)
+            want = pa.pair_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = compare(f"pair_attention {shape} reduce={reduce}", got,
+                          want, 1e-5, 1e-5)
+            empty = (m.sum(-1) == 0) if reduce else (m == 0)
+            if bool(empty.any()):
+                fail_unless(float(got[empty].abs().max()) == 0.0,
+                            f"pair_attention {shape}: masked outputs not "
+                            "exactly zero")
+            ms = plain_ms = None
+            extra = {}
+            if timed_case:
+                ms = timed(lambda: pa.pair_attention_cuda(*args, **kw))
+                plain_ms = timed(lambda: pa.pair_attention_plain(*args, **kw))
+                _, extra["device_us"] = device_us(
+                    lambda: pa.pair_attention_cuda(*args, **kw),
+                    "pair_attention_kernel")
+                extra["plain_device_us"], _ = device_us(
+                    lambda: pa.pair_attention_plain(*args, **kw), "")
+                B, N = m.shape
+                nbytes, ops, per_pair_ops = pair_attention_work(
+                    B, N, nodes[0].shape[-1], got.shape[-1], m, reduce)
+                extra["bound_us"], by = _bound(nbytes, ops)
+                extra["per_pair_head_bound_us"], _ = _bound(nbytes,
+                                                            per_pair_ops)
+                RESULTS.setdefault("pair_attention_bound_by", {})[
+                    f"{'reduce' if reduce else 'row'} {shape}"] = by
+            record("pair_attention",
+                   f"{'reduce' if reduce else 'row'} {shape}", err, ms,
+                   plain_ms, **extra)
+
+
 # ---------------------------------------------------------------------------
 # The main paths: both MC steps on the full-width flagship, then training
 # ---------------------------------------------------------------------------
@@ -475,21 +627,21 @@ def gaussian_data(dev):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
-def train_path(name, model, loss_fn, data, dev):
-    """A warm-up epoch, then TRAIN_EPOCHS epochs of fit() at batch 10k
-    with Adam 1e-3, counters zeroed just before and read just after the
-    timed run; checks finite losses, the last epoch's mean below the
-    warm-up epoch's, and reports steps/s, ms per step and peak memory."""
+def train_path(name, model, loss_fn, data, dev, batch=TRAIN_BATCH,
+               epochs=TRAIN_EPOCHS):
+    """A warm-up epoch, then ``epochs`` epochs of fit() at ``batch`` with
+    Adam 1e-3, counters zeroed just before and read just after the timed
+    run; checks finite losses, the last epoch's mean below the warm-up
+    epoch's, and reports steps/s, ms per step and peak memory."""
     gen = torch.Generator(device=dev).manual_seed(11)
     adam = OptimizerConfig("adam", 1e-3).build()
     _, warm = fit(model, loss_fn, data, generator=gen, num_epochs=1,
-                  batch_size=TRAIN_BATCH, optimizer=adam)
+                  batch_size=batch, optimizer=adam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    _, hist = fit(model, loss_fn, data, generator=gen,
-                  num_epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
-                  optimizer=adam)
+    _, hist = fit(model, loss_fn, data, generator=gen, num_epochs=epochs,
+                  batch_size=batch, optimizer=adam)
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = warm["loss"] + hist["loss"]
@@ -497,7 +649,9 @@ def train_path(name, model, loss_fn, data, dev):
                 f"{name}: non-finite loss {losses}")
     fail_unless(hist["loss"][-1] < warm["loss"][0],
                 f"{name}: loss did not fall: {losses}")
-    steps = TRAIN_EPOCHS * (TRAIN_N // TRAIN_BATCH)
+    n = (data[0] if isinstance(data, tuple) else data).shape[0]
+    per_epoch = n // batch
+    steps = epochs * per_epoch
     seconds = sum(hist["epoch_time_s"])
     ms_per_step = 1e3 * seconds / steps
     # One more epoch of fit() under torch.profiler: its device-busy time
@@ -506,41 +660,47 @@ def train_path(name, model, loss_fn, data, dev):
     # unprofiled one.
     window_s, prof = profiled(lambda: fit(
         model, loss_fn, data, generator=gen, num_epochs=1,
-        batch_size=TRAIN_BATCH, optimizer=adam))
+        batch_size=batch, optimizer=adam))
     busy_us, _ = device_time(prof)
-    per_epoch = TRAIN_N // TRAIN_BATCH
+    tops = top_ops(prof, per_epoch)
     window_ms = 1e3 * window_s / per_epoch
     busy_ms = None if busy_us is None else busy_us / 1e3 / per_epoch
-    row = {"path": name, "batch": TRAIN_BATCH, "steps": steps,
+    row = {"path": name, "batch": batch, "steps": steps,
            "seconds": seconds, "steps_per_s": steps / seconds,
            "ms_per_step": ms_per_step, "losses": losses,
            "peak_memory_bytes": peak, "launches": counts,
            "profiled_ms_per_step": window_ms,
            "device_busy_ms_per_step": busy_ms,
            "device_idle_share": (None if busy_ms is None
-                                 else 1.0 - busy_ms / window_ms)}
+                                 else 1.0 - busy_ms / window_ms),
+           "top_ops_us_per_step": tops}
     RESULTS["train"].append(row)
     busy = ("not measured" if busy_ms is None else
             f"{busy_ms:.3f} of {window_ms:.3f} ms/step in a profiled epoch "
             f"({row['device_idle_share']:.3f} idle)")
-    print(f"train {name:6s} batch {TRAIN_BATCH} {row['steps_per_s']:.3f} "
+    print(f"train {name:6s} batch {batch} {row['steps_per_s']:.3f} "
           f"steps/s ({ms_per_step:.3f} ms/step)  device busy {busy}  peak "
           f"memory {peak / 2 ** 20:.1f} MiB  loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}", flush=True)
+    for side in ("device", "host"):
+        print(f"  profiled {name} step, top {side} µs: " + "; ".join(
+            f"{k} {us:.1f}" for k, us in tops[side]), flush=True)
     return row
 
 
-def knot_safe(layers, y, inverse=True, margin=1e-4):
+def knot_safe(layers, y, inverse=True, margin=1e-4, context=None):
     """A CPU mask of the rows of y (N, D) whose spline input lies more
     than ``margin`` from every knot, the ends of the bin range included,
-    in every pass of the unconditional MAF ``layers`` applied in turn in
-    one direction (a flow's density pass: its blocks last first,
-    ``inverse=True``), evaluated on CPU copies.  At a knot the spline is
+    in every pass of the MAF ``layers`` (with their ``context`` (N, C)
+    where they are conditional) applied in turn in one direction (a
+    flow's density pass: its blocks last first, ``inverse=True``),
+    evaluated on CPU copies.  At a knot the spline is
     C1, but its gradient with respect to the bin parameters jumps; a row
     that float32 roundoff (~1e-5 here) puts in the neighbouring bin on
     one device changes a mean gradient by O(1)/N, whichever device is
     right."""
     y = y.cpu()
+    ctx = None if context is None else context.cpu()
     keep = torch.ones(y.shape[0], dtype=torch.bool)
     with torch.no_grad():
         for layer in layers:
@@ -548,22 +708,22 @@ def knot_safe(layers, y, inverse=True, margin=1e-4):
             cur = y
             for _ in range(1 if inverse
                            else layer.conditioner.w_net.event_size):
-                spline = layer._spline(cur, None)
+                spline = layer._spline(cur, ctx)
                 x_knots, y_knots = rqs._knots(
                     spline.bin_widths, spline.bin_heights, spline.range_min)
                 knots = y_knots if inverse else x_knots
                 keep &= ((y[..., None] - knots).abs().amin(-1)
                          > margin).all(-1)
                 cur = spline.forward(y)
-            y = layer.unfused_and_log_det(y, None, inverse)[0]
+            y = layer.unfused_and_log_det(y, ctx, inverse)[0]
     return keep
 
 
-def rows_off_knots(flow, y):
+def rows_off_knots(flow, y, context=None, min_share=0.99):
     """knot_safe over the flow's density pass, on y's device; fails
-    unless it keeps more than 99% of the rows."""
-    keep = knot_safe(reversed(list(flow.blocks)), y)
-    fail_unless(float(keep.float().mean()) > 0.99,
+    unless it keeps more than ``min_share`` of the rows."""
+    keep = knot_safe(reversed(list(flow.blocks)), y, context=context)
+    fail_unless(float(keep.float().mean()) > min_share,
                 f"only {int(keep.sum())} of {keep.numel()} rows away from "
                 "the knots")
     print(f"rows away from the knots: {int(keep.sum())} of {keep.numel()}",
@@ -666,6 +826,100 @@ def flow_path(flow, dev):
     return row, predict_counts
 
 
+def backmapping_path(dev):
+    """The backmapping path on the notebook's model, built with no device
+    (on the card): serving (``predict`` and ``log_prob`` at 10k CG
+    sites, one frame each, then ``log_prob`` of rotated frames) and
+    training (``fit`` at batch 128 on 2000 frames), each with the
+    counters zeroed just before and read just after; gradients against
+    a CPU copy on rows whose flow inputs lie away from the spline knots.
+    Returns (serving row, training row)."""
+    bm = backmapping_experiment_config().build()
+    fail_unless(next(bm.parameters()).device.type == dev.type,
+                "build() with no device did not build on the card")
+    ref, coords, info, tors = backmapping_frames(BM_SITES, 22, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    reps = 10
+    with torch.no_grad():
+        bm.predict(ref, coords, info, gen)
+        bm.log_prob(ref, coords, info, tors)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            samples = bm.predict(ref, coords, info, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            lp = bm.log_prob(ref, coords, info, tors)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _build.launch_counts()
+        predict_wall, prof = profiled(lambda: bm.predict(ref, coords, info,
+                                                         gen))
+        busy_us, pa_us = device_time(prof, "pair_attention_kernel")
+        R = torch.tensor(np.linalg.qr(np.random.default_rng(24).normal(
+            size=(3, 3)))[0], dtype=torch.float32, device=dev)
+        lp_rot = bm.log_prob(ref @ R.T, coords @ R.T, info, tors)
+    fail_unless(all(counts[k] > 0 for k in ("pair_attention", "maf_block",
+                                            "dense_stack")),
+                f"backmapping serving launch counts {counts}")
+    fail_unless(samples.shape == (BM_SITES, 3)
+                and bool(torch.isfinite(samples).all())
+                and bool((samples.abs() <= math.pi + 1e-5).all()),
+                "sampled torsions not finite, of the wrong shape or outside "
+                "[-pi, pi]")
+    fail_unless(lp.shape == (BM_SITES,) and bool(torch.isfinite(lp).all()),
+                "backmapping log_prob not finite or of the wrong shape")
+    # Rotating every frame and its CG site together leaves every
+    # selection and invariant unchanged up to float32 roundoff; a site
+    # with a particle within roundoff of the cutoff or of a top-k tie may
+    # select otherwise (1e-3 of the sites allowed).
+    rot_err = compare("log_prob under rotation", lp_rot, lp, 1e-4, 1e-4,
+                      1e-3)
+    serve = {"sites": BM_SITES, "predict_ms": 1e3 * (t1 - t0) / reps,
+             "log_prob_ms": 1e3 * (t2 - t1) / reps,
+             "predict_sites_per_s": BM_SITES * reps / (t1 - t0),
+             "log_prob_sites_per_s": BM_SITES * reps / (t2 - t1),
+             "launches": counts, "rotation_max_abs_err": rot_err,
+             "profiled_predict_ms": 1e3 * predict_wall,
+             "predict_device_busy_ms": (None if busy_us is None
+                                        else busy_us / 1e3),
+             "predict_pair_attention_device_ms": (None if pa_us is None
+                                                  else pa_us / 1e3),
+             "predict_top_ops_us": top_ops(prof),
+             "mean_nll": float(-lp.mean())}
+    RESULTS["backmapping_serve"] = serve
+    busy = ("not measured" if busy_us is None else
+            f"{busy_us / 1e3:.3f} of {1e3 * predict_wall:.3f} ms busy in a "
+            "profiled call")
+    print(f"backmapping predict {BM_SITES} sites "
+          f"{serve['predict_sites_per_s']:.1f} sites/s "
+          f"({serve['predict_ms']:.3f} ms)  log_prob "
+          f"{serve['log_prob_sites_per_s']:.1f} sites/s "
+          f"({serve['log_prob_ms']:.3f} ms)  predict device {busy}  "
+          f"rotation max abs err {rot_err:.3e}", flush=True)
+
+    data = backmapping_frames(BM_FRAMES, 25, dev)
+    row = train_path("backmapping", bm,
+                     lambda m, b, g: -m.log_prob(*b).mean(), data, dev,
+                     batch=BM_BATCH, epochs=BM_EPOCHS)
+    fail_unless(all(row["launches"][k] > 0 for k in (
+        "pair_attention", "maf_block", "dense_stack")),
+        f"backmapping training launch counts {row['launches']}")
+    batch = tuple(a[:512] for a in data)
+    with torch.no_grad():
+        ctx = bm.embed(*batch[:3])
+    # Three trained blocks of 20 bins on [-pi, pi] crowd their knots
+    # where the torsions lie: fewer rows stay clear of them than in the
+    # flows above (99.35% of 2000 frames at initialisation, on the CPU).
+    keep = rows_off_knots(bm.decoder.dist.flow, batch[3], ctx, 0.95)
+    batch = tuple(a[keep] for a in batch)
+    check_grads("backmapping", bm, lambda m, d: -m.log_prob(
+        *(a.to(d) for a in batch)).mean(), dev)
+    return serve, row
+
+
 # ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
@@ -735,6 +989,16 @@ def bounds(vae, flow):
     out["dense_stack one-row MAF conditioner"] = _bound(
         4 * (1 + sum(t.numel() for t in w) + w[2].shape[1]),
         2 * (w[0].numel() + w[2].numel()))
+    # The pair-attention kernel: computed from each timed check's own
+    # inputs (its mask sets the valid pairs), by check_pair_attention.
+    for c in RESULTS["checks"]:
+        if c["kernel"] == "pair_attention" and "bound_us" in c:
+            by = RESULTS["pair_attention_bound_by"][c["shape"]]
+            out[f"pair_attention {c['shape']}"] = (c["bound_us"], by)
+            out[f"pair_attention {c['shape']} per-pair head"] = (
+                c["per_pair_head_bound_us"], "operations")
+            if c["shape"] == PA_MAIN:
+                out["pair_attention"] = (c["bound_us"], by)
     return out
 
 
@@ -769,6 +1033,8 @@ def main():
         x1, seed, args = check_proposal(vae, gen, dev)
         check_philox_samples(vae, x1, seed, args)
         check_maf_block(flow, gen, dev)
+        check_pair_attention(backmapping_experiment_config().build(dev),
+                             gen, dev)
 
     generic = run_path("generic", make_mcmc_step(*vae_proposal_fns(vae),
                                                  log_target), dev)
@@ -781,11 +1047,14 @@ def main():
     flow_row, predict = flow_path(flow, dev)
     with torch.no_grad():
         check_maf_block(flow, gen, dev, label=" trained")
+    bm_serve, bm_train = backmapping_path(dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
                 "elbo_train": elbo["launches"],
-                "flow_train": flow_row["launches"], "flow_sample": predict}
+                "flow_train": flow_row["launches"], "flow_sample": predict,
+                "backmapping_serve": bm_serve["launches"],
+                "backmapping_train": bm_train["launches"]}
     bound = bounds(vae, flow)
     for name, (us, by) in bound.items():
         print(f"bound {name:36s} {us:10.4f} us ({by})", flush=True)
@@ -794,7 +1063,8 @@ def main():
     main_shape = {"rqs": f"forward broadcast N={n}",
                   "dense_stack": f"encoder 2->200->2 relu N={n}",
                   "vae_proposal": f"philox N={n}",
-                  "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}"}
+                  "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}",
+                  "pair_attention": PA_MAIN}
     for name, k in _build.KERNELS.items():
         rows = [c for c in RESULTS["checks"] if c["kernel"] == name]
         timed_row = next(c for c in rows if c["ms"] is not None

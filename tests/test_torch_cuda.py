@@ -15,9 +15,12 @@ import torch
 import copy
 
 from vaemolsim_tpu_torch import _build
+from vaemolsim_tpu_torch.config import backmapping_experiment_config
 from vaemolsim_tpu_torch.flows.spline_flows import (
     MAFLayer, MaskedSplineConditioner, _bin_positions, _slopes)
 from vaemolsim_tpu_torch.mcmc import fused as mf
+from vaemolsim_tpu_torch.nn.attention import VectorAttention
+from vaemolsim_tpu_torch.ops import attention as pa
 from vaemolsim_tpu_torch.ops import maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_plain,
                                                fused_dense_stack)
@@ -147,7 +150,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                           [torch.zeros(30000, device=dev),
                            torch.zeros(1, device=dev)], ["relu", None])
     assert set(_build.launch_counts()) == {"rqs", "dense_stack",
-                                           "vae_proposal", "maf_block"}
+                                           "vae_proposal", "maf_block",
+                                           "pair_attention"}
 
 
 def _maf_layer(dev, D, cond_dim=None, circular=False, hidden=64, K=16):
@@ -214,7 +218,7 @@ def test_maf_layer_routes_by_launch_counts(dev, kind):
     counts = _build.launch_counts()
     if kind in ("D3", "D1 conditional"):
         assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
-                          "maf_block": 2}
+                          "maf_block": 2, "pair_attention": 0}
     else:
         assert counts["maf_block"] == 0 and counts["dense_stack"] > 0
         assert (counts["rqs"] > 0) == (kind != "circular")
@@ -283,3 +287,108 @@ def test_maf_block_kernel_reads_only_diagonal_blocks_of_k2(dev, inverse):
     assert bool(off.any())
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+
+
+def _attention(dev, N, H, B, seed, F=20, Fo=20):
+    """A create()-wired layer with its parameters moved off their init,
+    a cloud of spread 1.5, values and a mask with a fully masked row
+    (frame 0, particle 1) and a fully masked cloud (frame 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    attn = VectorAttention.create(gen, F, Fo, hidden_dim=H, device=dev)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
+    c = 1.5 * torch.randn(B, N, 3, generator=gen, device=dev)
+    v = torch.randn(B, N, F, generator=gen, device=dev)
+    m = (torch.rand(B, N, generator=gen, device=dev) > 0.3).float()
+    m[0, 1] = 0.0
+    m[1] = 0.0
+    return attn, c, v, m
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("N,H,B", [(10, 40, 2000), (50, 64, 200),
+                                   (37, 40, 100)])
+def test_pair_attention_kernel_matches_plain(dev, reduce, N, H, B):
+    """At chip_smoke.py's shapes (the notebook's, the compute-dense one
+    and a ragged N): 1e-5 + 1e-5|v| (LayerNorm, softmax and contraction
+    sums in another order; the value head folded through the
+    contraction); masked rows and clouds exactly zero."""
+    attn, c, v, m = _attention(dev, N, H, B, N + H)
+    attn.reduce = reduce
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        before = pa.KERNEL.launches
+        got = pa.pair_attention_cuda(c_, *nodes, mf_, *weights, **kw)
+        assert pa.KERNEL.launches == before + 1
+        want = pa.pair_attention_plain(c_, *nodes, mf_, *weights, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert float(got[1].abs().max()) == 0.0
+    if not reduce:
+        assert float(got[0, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("wiring", ["create", "value_d1_activation"])
+def test_vector_attention_routes_by_launch_counts(dev, wiring):
+    """A create()-wired layer on the card launches only the
+    pair-attention kernel; one with an activation on value_net.d1 is not
+    the kernel's wiring and launches nothing."""
+    attn, c, v, m = _attention(dev, 10, 40, 64, 1)
+    if wiring != "create":
+        attn.value_net.d1.activation = "tanh"
+    _build.reset_launches()
+    with torch.no_grad():
+        out = attn(c, v, m > 0.5)
+    counts = _build.launch_counts()
+    assert out.shape == (64, 10, 20)
+    want = 1 if wiring == "create" else 0
+    assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
+                      "maf_block": 0, "pair_attention": want}
+
+
+def test_pair_attention_gradients_recompute_through_plain(dev):
+    """Gradients through the kernel route (recomputed through the plain
+    version) equal autograd through the plain version, for the values,
+    the coordinates and every weight: 1e-4 + 1e-4|g|."""
+    attn, c, v, m = _attention(dev, 10, 40, 300, 2)
+    c.requires_grad_()
+    v.requires_grad_()
+    leaves = [c, v, *attn.parameters()]
+    got = torch.autograd.grad(attn.pair_grid(c, v, m).square().sum(), leaves)
+    want = torch.autograd.grad(
+        attn.plain_call(c, v, m > 0.5).square().sum(), leaves)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_backmapping_path_launches_kernels_5_3_and_2(dev):
+    """The notebook model, built with no device, on the card: log_prob,
+    predict and one training step each launch the pair-attention, MAF
+    block and dense-stack kernels and nothing else."""
+    import numpy as np
+    bm = backmapping_experiment_config().build()
+    assert next(bm.parameters()).is_cuda
+    rng = np.random.default_rng(3)
+    ref, coords, info, tors = (torch.tensor(a, dtype=torch.float32,
+                                            device=dev) for a in (
+        0.3 * rng.normal(size=(256, 3)), 1.5 * rng.normal(size=(256, 30, 3)),
+        rng.normal(size=(256, 30, 2)), rng.uniform(-3, 3, size=(256, 3))))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name in ("log_prob", "predict", "train"):
+        _build.reset_launches()
+        if name == "log_prob":
+            with torch.no_grad():
+                out = bm.log_prob(ref, coords, info, tors)
+            assert out.shape == (256,)
+        elif name == "predict":
+            with torch.no_grad():
+                out = bm.predict(ref, coords, info, gen)
+            assert out.shape == (256, 3)
+        else:
+            out = -bm.log_prob(ref, coords, info, tors).mean()
+            out.backward()
+        assert bool(torch.isfinite(out).all())
+        counts = _build.launch_counts()
+        assert counts["pair_attention"] == 3, (name, counts)
+        assert counts["maf_block"] == 3 and counts["dense_stack"] > 0
+        assert counts["rqs"] == counts["vae_proposal"] == 0

@@ -340,7 +340,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                       ["relu", None])
     assert all(v == 0 for v in _build.launch_counts().values())
     assert set(_build.KERNELS) == {"rqs", "dense_stack", "vae_proposal",
-                                   "maf_block"}
+                                   "maf_block", "pair_attention"}
     with pytest.raises(ValueError, match="CUDA"):
         trqs.rqs_cuda(x, w, h, s, -5.0, False)
     with pytest.raises(ValueError, match="CUDA"):
@@ -353,6 +353,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         maf_block_cuda(y2, [k1, torch.zeros(3 * 8), k2,
                             torch.zeros(2 * (3 * K - 1))], None, 2, K, -5.0,
                        5.0, True)
+    from vaemolsim_tpu_torch.ops.attention import pair_attention_cuda
+    H = 4
+    with pytest.raises(ValueError, match="CUDA"):
+        pair_attention_cuda(
+            torch.zeros(2, 3, 3), *[torch.zeros(2, 3, H)] * 4,
+            torch.ones(2, 3), torch.zeros(4, H), torch.zeros(H),
+            torch.zeros(H), torch.zeros(1), torch.zeros(4, H), torch.zeros(H),
+            torch.ones(H), torch.zeros(H), torch.zeros(H, 2), torch.zeros(2),
+            reduce=False, act="relu")
 
 
 # ---------------------------------------------------------------------------

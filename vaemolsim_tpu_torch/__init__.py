@@ -9,8 +9,11 @@ kernel wrapper runs the kernel's plain PyTorch version instead.
 
 Ported so far: the VAE-proposal MC step on the flagship model, and
 training (``train.fit``, the ELBO and flow-model losses) with the
-MAF-block kernel for flows of two or more dimensions (see ROADMAP.md for
-what is still to come).
+MAF-block kernel for flows of two or more dimensions, and CG ->
+atomistic backmapping (``BackmappingOnly``: distance selection, the
+geometric-algebra attention embedding with the pair-attention kernel,
+and a von Mises + conditional MAF decoder), served by ``predict`` and
+trained by ``train.fit`` (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, losses  # noqa: F401

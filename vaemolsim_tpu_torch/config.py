@@ -11,15 +11,18 @@ written by ``vaemolsim_tpu.config.save_json`` builds the same
 architecture here (not the same weights: the random streams differ; use
 ``convert.from_jax`` to carry weights across).
 
-Ported so far: the configs of the flagship experiment and of flow
-models, and the optimizer.  A JSON naming another config class
-(RealNVP, backmapping, ...) is refused by name.
+Ported so far: the configs of the flagship experiment, of flow models,
+of the backmapping model (``BackmappingConfig``, with
+``DistanceSelectionConfig`` and ``ParticleEmbeddingConfig``), and the
+optimizer.  A JSON naming another config class (RealNVP, ...) is refused
+by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import typing
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -28,10 +31,11 @@ import torch
 
 __all__ = ["RQSParams", "MAFConfig", "DistLayerConfig", "FlowedDistConfig",
            "RegularizerConfig", "MappingToDistConfig", "FlowModelConfig",
-           "VAEConfig", "MCMCConfig", "OptimizerConfig", "ExperimentConfig",
-           "default_device", "from_dict",
-           "to_dict", "to_tagged_dict", "save_json", "load_json",
-           "flagship_experiment_config"]
+           "VAEConfig", "DistanceSelectionConfig", "ParticleEmbeddingConfig",
+           "BackmappingConfig", "MCMCConfig", "OptimizerConfig",
+           "ExperimentConfig", "default_device", "from_dict", "to_dict",
+           "to_tagged_dict", "save_json", "load_json",
+           "flagship_experiment_config", "backmapping_experiment_config"]
 
 _TAG = "__config__"
 
@@ -179,6 +183,54 @@ class MAFConfig:
                                    order_seed=self.order_seed,
                                    rqs_params=self.rqs.asdict(),
                                    batch_norm=self.batch_norm, device=device)
+
+
+@dataclass
+class DistanceSelectionConfig:
+    """The nearest ``max_included`` particles within ``cutoff``."""
+
+    cutoff: float = 3.0
+    max_included: int = 50
+    box_lengths: Optional[List[float]] = None
+
+    def build(self, device=None):
+        from vaemolsim_tpu_torch.nn import DistanceSelection
+        return DistanceSelection.create(self.cutoff, self.max_included,
+                                        self.box_lengths, device=device)
+
+
+@dataclass
+class ParticleEmbeddingConfig:
+    """The geometric-algebra attention embedding.  ``attention`` and
+    ``kind`` name the JAX package's choices; only the fused attention
+    embedding is ported, and the others raise.  The SchNet knobs
+    (``n_rbf``, ``rbf_cutoff``, ``pool``) are kept so that every JSON of
+    the JAX package loads."""
+
+    info_dim: int = 1
+    embedding_dim: int = 20
+    hidden_dim: int = 40
+    num_blocks: int = 2
+    mask_zero: bool = True
+    attention: str = "fused"
+    kind: str = "attention"
+    n_rbf: int = 16
+    rbf_cutoff: float = 3.0
+    pool: str = "mean"
+
+    def build(self, generator: torch.Generator, device=None):
+        if self.kind == "schnet":
+            raise NotImplementedError(
+                "the SchNet embedding (kind='schnet') is not ported yet "
+                "(ROADMAP.md, Queue 1 slice 4b)")
+        if self.kind != "attention":
+            raise ValueError(
+                f"kind must be 'attention' or 'schnet', got {self.kind!r}")
+        from vaemolsim_tpu_torch.nn import ParticleEmbedding
+        return ParticleEmbedding.create(
+            generator, self.info_dim, self.embedding_dim, self.hidden_dim,
+            self.num_blocks, self.mask_zero, attention=self.attention,
+            device=device)
 
 
 @dataclass
@@ -335,6 +387,27 @@ class VAEConfig:
 
 
 @dataclass
+class BackmappingConfig:
+    """BackmappingOnly: DistanceSelection + ParticleEmbedding feeding a
+    decoding MappingToDistribution (the backmapping notebook's
+    defaults)."""
+
+    selection: DistanceSelectionConfig = field(
+        default_factory=lambda: DistanceSelectionConfig(max_included=10))
+    embedding: ParticleEmbeddingConfig = field(
+        default_factory=ParticleEmbeddingConfig)
+    decoder: MappingToDistConfig = field(default_factory=MappingToDistConfig)
+
+    def build(self, generator: torch.Generator, device=None):
+        from vaemolsim_tpu_torch.models import BackmappingOnly
+        from vaemolsim_tpu_torch.nn import LocalParticleDescriptors
+        lpd = LocalParticleDescriptors(
+            self.selection.build(device),
+            self.embedding.build(generator, device))
+        return BackmappingOnly(lpd, self.decoder.build(generator, device))
+
+
+@dataclass
 class OptimizerConfig:
     """Optimizer knobs.  ``build()`` returns a factory
     ``params -> torch.optim.Optimizer`` (adam, adamw or sgd with the
@@ -367,8 +440,8 @@ class ExperimentConfig:
     """One JSON = one reproducible experiment: model, optimizer, training
     and MC knobs, and the seed."""
 
-    model: Union[VAEConfig, FlowModelConfig, MappingToDistConfig] = field(
-        default_factory=VAEConfig)
+    model: Union[VAEConfig, FlowModelConfig, BackmappingConfig,
+                 MappingToDistConfig] = field(default_factory=VAEConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     seed: int = 0
     num_epochs: int = 1
@@ -409,9 +482,36 @@ def flagship_experiment_config() -> ExperimentConfig:
         mcmc=MCMCConfig(n_chains=10_000, n_steps=100))
 
 
+def backmapping_experiment_config() -> ExperimentConfig:
+    """The backmapping notebook's model (``examples/04_backmapping.py``):
+    the 10 nearest particles within 3.0 of the CG site, a 2-block
+    GA-attention embedding of 2-wide particle info to 20 (hidden 40),
+    and a decoder 20 -> 40 -> 9 over three von Mises DOFs pushed through
+    a 3-block conditional RQS-spline MAF (20 bins on [-pi, pi], hidden
+    40, context: the embedding)."""
+    return ExperimentConfig(
+        model=BackmappingConfig(
+            selection=DistanceSelectionConfig(cutoff=3.0, max_included=10),
+            embedding=ParticleEmbeddingConfig(info_dim=2, embedding_dim=20,
+                                              hidden_dim=40, num_blocks=2),
+            decoder=MappingToDistConfig(
+                input_shape=20,
+                dist=FlowedDistConfig(
+                    flow=MAFConfig(data_dim=3, num_blocks=3, rqs=RQSParams(
+                        bin_range=(-math.pi, math.pi), num_bins=20,
+                        hidden_dim=40, conditional=True,
+                        conditional_event_shape=20)),
+                    base=DistLayerConfig(kind="independent_blockwise",
+                                         num_dofs=3, families="von_mises")),
+                mapping_kwargs={"hidden_dim": 40})),
+        batch_size=128)
+
+
 _CONFIG_REGISTRY: Dict[str, type] = {
     c.__name__: c
     for c in (RQSParams, MAFConfig, MCMCConfig, DistLayerConfig,
               FlowedDistConfig, RegularizerConfig, MappingToDistConfig,
-              FlowModelConfig, VAEConfig, OptimizerConfig, ExperimentConfig)
+              FlowModelConfig, VAEConfig, DistanceSelectionConfig,
+              ParticleEmbeddingConfig, BackmappingConfig, OptimizerConfig,
+              ExperimentConfig)
 }

@@ -2,11 +2,14 @@
 
 Reads the JAX objects' fields by name and their arrays through
 ``np.asarray``, so it needs no import of jax.  Covers everything the
-flagship VAE and a flow model hold: FCDeepNN, Dense, MADE,
-MaskedSplineConditioner, MAFLayer, RQSSplineMAF (and
-SplineConditioner), Normal, Independent, IndependentBlockwise,
+flagship VAE, a flow model and the backmapping model hold: FCDeepNN,
+Dense, LayerNorm, MADE, MaskedSplineConditioner, MAFLayer, RQSSplineMAF
+(and SplineConditioner), Normal, VonMises, Independent,
+IndependentBlockwise (any ported family, von Mises included),
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
-FlowModel, the VAE and the seven loss classes.  Weights are copied
+FlowModel, the VAE, the seven loss classes, DistanceSelection, the
+attention nets, VectorAttention, AttentionBlock, ParticleEmbedding,
+LocalParticleDescriptors and BackmappingOnly.  Weights are copied
 exactly (the Dense layout is the same ``(in, out)`` in both packages).
 Objects land on the CUDA card unless a device is given.
 """
@@ -30,6 +33,11 @@ def _t(a, device) -> torch.Tensor:
 def _dense(o, device):
     from vaemolsim_tpu_torch.nn.core import Dense
     return Dense(_t(o.kernel, device), _t(o.bias, device), o.activation)
+
+
+def _layer_norm(o, device):
+    from vaemolsim_tpu_torch.nn.core import LayerNorm
+    return LayerNorm(_t(o.scale, device), _t(o.offset, device), o.eps)
 
 
 def _fcdeepnn(o, device):
@@ -85,6 +93,11 @@ def _rqs_maf(o, device):
 def _normal(o, device):
     from vaemolsim_tpu_torch.ops import distributions as d
     return d.Normal(_t(o.loc, device), _t(o.scale, device))
+
+
+def _von_mises(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.VonMises(_t(o.loc, device), _t(o.concentration, device))
 
 
 def _independent(o, device):
@@ -147,8 +160,60 @@ def _vae(o, device):
                from_jax(o.prior, device), from_jax(o.regularizer, device))
 
 
+def _distance_selection(o, device):
+    from vaemolsim_tpu_torch.nn.mappings import DistanceSelection
+    return DistanceSelection.create(
+        o.cutoff, o.max_included,
+        None if o.box_lengths is None else np.array(o.box_lengths),
+        device=device)
+
+
+def _score_net(o, device):
+    from vaemolsim_tpu_torch.nn.attention import _ScoreNet
+    return _ScoreNet(_dense(o.d1, device), _dense(o.d2, device))
+
+
+def _value_net(o, device):
+    from vaemolsim_tpu_torch.nn.attention import _ValueNet
+    return _ValueNet(_dense(o.d1, device), _layer_norm(o.ln, device),
+                     _dense(o.d2, device), o.activation)
+
+
+def _vector_attention(o, device):
+    from vaemolsim_tpu_torch.nn.attention import VectorAttention
+    return VectorAttention(_score_net(o.score_net, device),
+                           _value_net(o.value_net, device), o.reduce)
+
+
+def _attention_block(o, device):
+    from vaemolsim_tpu_torch.nn.attention import AttentionBlock
+    return AttentionBlock(from_jax(o.attn, device), _dense(o.post_d1, device),
+                          _layer_norm(o.post_ln, device),
+                          _dense(o.post_d2, device), o.activation)
+
+
+def _particle_embedding(o, device):
+    from vaemolsim_tpu_torch.nn.attention import ParticleEmbedding
+    return ParticleEmbedding(_dense(o.info_net, device),
+                             [_attention_block(b, device) for b in o.blocks],
+                             from_jax(o.final_attn, device), o.mask_zero)
+
+
+def _local_descriptors(o, device):
+    from vaemolsim_tpu_torch.nn.attention import LocalParticleDescriptors
+    return LocalParticleDescriptors(_distance_selection(o.select, device),
+                                    from_jax(o.embed, device))
+
+
+def _backmapping(o, device):
+    from vaemolsim_tpu_torch.models import BackmappingOnly
+    return BackmappingOnly(_local_descriptors(o.mask_and_embed, device),
+                           from_jax(o.decoder, device))
+
+
 _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "Dense": _dense,
+    "LayerNorm": _layer_norm,
     "FCDeepNN": _fcdeepnn,
     "MADE": _made,
     "MaskedSplineConditioner": _masked_conditioner,
@@ -156,6 +221,7 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "MAFLayer": _maf_layer,
     "RQSSplineMAF": _rqs_maf,
     "Normal": _normal,
+    "VonMises": _von_mises,
     "Independent": _independent,
     "IndependentBlockwise": _blockwise_layer,
     "StaticFlowedDistribution": _static_flowed,
@@ -163,6 +229,14 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "MappingToDistribution": _mapping_to_dist,
     "FlowModel": _flow_model,
     "VAE": _vae,
+    "DistanceSelection": _distance_selection,
+    "_ScoreNet": _score_net,
+    "_ValueNet": _value_net,
+    "VectorAttention": _vector_attention,
+    "AttentionBlock": _attention_block,
+    "ParticleEmbedding": _particle_embedding,
+    "LocalParticleDescriptors": _local_descriptors,
+    "BackmappingOnly": _backmapping,
     "LogProbLoss": _log_prob_loss,
     "PotentialEnergyLogProbLoss": _potential_loss,
     "NonRegularizer": _regularizer,

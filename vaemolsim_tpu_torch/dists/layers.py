@@ -5,10 +5,14 @@ A layer maps a raw parameter tensor to a distribution and reports
 ``params_size()`` so upstream mappings can be sized from it.  DOFs that
 share a family are evaluated together (``ops.distributions.Blockwise``).
 
-Ported so far: the family registry (normal and deterministic),
-IndependentBlockwise, FlowedDistribution and StaticFlowedDistribution.
-The von Mises, Beta and Gamma families and the autoregressive, von Mises
-and deterministic layers are still to come.
+Ported so far: the family registry (normal, von Mises and
+deterministic), IndependentBlockwise, FlowedDistribution and
+StaticFlowedDistribution.  A von Mises DOF reads three raw values: loc =
+atan2(sin, cos), wrapped to [-pi, pi] and pinned to 0 with a zero
+gradient where sin = cos = 0, and a concentration soft-clipped to
+[float32 eps, sqrt(float32 max) / 2].  The Beta and Gamma families and
+the autoregressive, von Mises and deterministic layers are still to
+come.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vaemolsim_tpu_torch.ops import bijectors as bj
 from vaemolsim_tpu_torch.ops import distributions as dl
 
 Tensor = torch.Tensor
@@ -29,6 +34,8 @@ __all__ = ["FAMILY_REGISTRY", "register_family", "family_param_count",
            "StaticFlowedDistribution"]
 
 _F32_EPS = float(np.finfo(np.float32).eps)
+_VM_CONC_HIGH = float(np.sqrt(np.finfo(np.float32).max) / 2.0)
+_vm_softclip = bj.SoftClip(low=_F32_EPS, high=_VM_CONC_HIGH)
 
 
 def _positive(x: Tensor) -> Tensor:
@@ -36,14 +43,31 @@ def _positive(x: Tensor) -> Tensor:
     return F.softplus(x) + _F32_EPS
 
 
+def _safe_atan2_loc(sin_raw: Tensor, cos_raw: Tensor) -> Tensor:
+    """atan2 that is 0, with a zero gradient, at sin = cos = 0 (where
+    plain atan2's gradient is NaN: an all-zero context feeding a
+    zero-initialised head gives exactly that point), and plain atan2
+    everywhere else."""
+    degenerate = (sin_raw == 0.0) & (cos_raw == 0.0)
+    return torch.atan2(torch.where(degenerate, 0.0, sin_raw),
+                       torch.where(degenerate, 1.0, cos_raw))
+
+
+def _von_mises_from_raw(raw: Tensor) -> dl.VonMises:
+    return dl.VonMises(loc=_safe_atan2_loc(raw[..., 0], raw[..., 1]),
+                       concentration=_vm_softclip.forward(raw[..., 2]))
+
+
 # Family name -> (param_count, raw (..., n, p) -> scalar dist batch (..., n)).
 FAMILY_REGISTRY: Dict[str, Tuple[int, Callable[[Tensor], dl.Distribution]]] = {
     "normal": (2, lambda r: dl.Normal(loc=r[..., 0],
                                       scale=_positive(r[..., 1]))),
+    "von_mises": (3, _von_mises_from_raw),
     "deterministic": (1, lambda r: dl.Deterministic(loc=r[..., 0])),
 }
 
-_CLASS_ALIASES = {dl.Normal: "normal", dl.Deterministic: "deterministic"}
+_CLASS_ALIASES = {dl.Normal: "normal", dl.VonMises: "von_mises",
+                  dl.Deterministic: "deterministic"}
 
 
 def register_family(name: str, param_count: int,

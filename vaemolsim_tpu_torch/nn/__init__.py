@@ -4,7 +4,18 @@ from vaemolsim_tpu_torch.nn.core import (  # noqa: F401
     MADE,
     MLP,
     Dense,
+    LayerNorm,
     compute_dtype,
     set_compute_dtype,
 )
-from vaemolsim_tpu_torch.nn.mappings import FCDeepNN  # noqa: F401
+from vaemolsim_tpu_torch.nn.mappings import (  # noqa: F401
+    DistanceSelection,
+    FCDeepNN,
+)
+from vaemolsim_tpu_torch.nn.attention import (  # noqa: F401
+    AttentionBlock,
+    LocalParticleDescriptors,
+    ParticleEmbedding,
+    VectorAttention,
+    pair_invariants,
+)

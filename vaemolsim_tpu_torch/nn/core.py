@@ -9,7 +9,8 @@ random streams are not the same).
 
 MADE is the masked autoregressive network (Germain et al. 2015) with
 static masks, input orders and an optional unmasked conditional input
-into every layer.  BatchNorm and LayerNorm are still to come.
+into every layer.  LayerNorm normalises the last axis with the Keras
+epsilon (1e-3).  BatchNorm is still to come.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
-__all__ = ["Dense", "MLP", "MADE", "resolve_activation", "glorot_uniform",
-           "truncated_normal_init", "set_compute_dtype", "compute_dtype"]
+__all__ = ["Dense", "MLP", "MADE", "LayerNorm", "resolve_activation",
+           "glorot_uniform", "truncated_normal_init", "set_compute_dtype",
+           "compute_dtype"]
 
 _ACTIVATIONS = {
     None: lambda x: x,
@@ -137,6 +139,28 @@ class Dense(nn.Module):
     @property
     def out_dim(self) -> int:
         return self.kernel.shape[1]
+
+
+class LayerNorm(nn.Module):
+    """Layer normalisation over the last axis: the biased variance (as
+    ``jnp.var``) and ``eps = 1e-3``, the Keras default the JAX package
+    keeps, not ``torch.nn.LayerNorm``'s 1e-5."""
+
+    def __init__(self, scale: Tensor, offset: Tensor, eps: float = 1e-3):
+        super().__init__()
+        self.scale = _param(scale)
+        self.offset = _param(offset)
+        self.eps = float(eps)
+
+    @classmethod
+    def create(cls, dim: int, device=None) -> "LayerNorm":
+        return cls(torch.ones(dim, device=device),
+                   torch.zeros(dim, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        m = x.mean(-1, keepdim=True)
+        v = ((x - m) ** 2).mean(-1, keepdim=True)
+        return (x - m) * torch.rsqrt(v + self.eps) * self.scale + self.offset
 
 
 class MLP(nn.Module):

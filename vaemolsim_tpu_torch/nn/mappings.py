@@ -1,13 +1,13 @@
 """Coordinate mappings and encoder/decoder trunks (port of
 ``vaemolsim_tpu/nn/mappings.py``).
 
-Ported so far: FCDeepNN.  CGCentroid, CGCenterOfMass and
-DistanceSelection come with the backmapping slice.
+Ported so far: FCDeepNN and DistanceSelection.  CGCentroid and
+CGCenterOfMass are still to come.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,7 +17,7 @@ from vaemolsim_tpu_torch.nn.core import Dense
 
 Tensor = torch.Tensor
 
-__all__ = ["FCDeepNN"]
+__all__ = ["FCDeepNN", "DistanceSelection"]
 
 
 class FCDeepNN(nn.Module):
@@ -95,3 +95,77 @@ class FCDeepNN(nn.Module):
             [l.bias for l in self.layers] + [self.head.bias],
             [l.activation for l in self.layers] + [None])
         return out.reshape(batch + self.target_shape)
+
+
+class DistanceSelection(nn.Module):
+    """The ``max_included`` particles nearest a reference point, within
+    ``cutoff``: coordinates relative to the reference (minimum image
+    under a stored or per-call box, which takes no gradient), a validity
+    mask and the co-selected per-particle info, all zero-filled where
+    invalid and zero-padded back to ``max_included`` when a frame has
+    fewer particles.  Masked-out particles sit at distance
+    ``finfo.max``.
+
+    ``torch.topk`` may order exact ties otherwise than ``jax.lax.top_k``.
+    The ties that arise are padding rows at ``finfo.max``, which are
+    invalid and zeroed whichever order they take; and the embeddings
+    that read a selection do not depend on its order."""
+
+    def __init__(self, cutoff: float, max_included: int = 50,
+                 box_lengths: Optional[Tensor] = None):
+        super().__init__()
+        self.cutoff = float(cutoff)
+        self.max_included = int(max_included)
+        self.register_buffer("box_lengths", box_lengths)
+
+    @classmethod
+    def create(cls, cutoff: float, max_included: int = 50, box_lengths=None,
+               device=None) -> "DistanceSelection":
+        box = (None if box_lengths is None else
+               torch.as_tensor(box_lengths, dtype=torch.float32,
+                               device=device))
+        return cls(cutoff, max_included, box)
+
+    def forward(self, coords: Tensor, ref: Tensor,
+                mask: Optional[Tensor] = None,
+                particle_info: Optional[Tensor] = None,
+                box_lengths: Optional[Tensor] = None):
+        """coords (B, P, 3); ref (B, 3) or (B, 1, 3); mask (B, P) bool;
+        particle_info (B, P, I) or None; box_lengths (3,) or (B, 3), in
+        place of the stored box.  Returns (sel (B, max_included, 3),
+        valid (B, max_included) bool, sel_info or None)."""
+        if ref.dim() == coords.dim():
+            ref = ref[..., 0, :]
+        diff = coords - ref[..., None, :]
+        box = box_lengths if box_lengths is not None else self.box_lengths
+        if box is not None:
+            box = torch.as_tensor(box, dtype=diff.dtype,
+                                  device=diff.device).detach()
+            if box.dim() < diff.dim():
+                box = box[..., None, :]
+            diff = diff - box * torch.round(diff / box)
+        d2 = (diff * diff).sum(-1)
+        big = torch.finfo(d2.dtype).max
+        if mask is not None:
+            d2 = torch.where(mask, d2, torch.full_like(d2, big))
+        k = min(self.max_included, d2.shape[-1])
+        neg_top, idx = torch.topk(-d2, k, dim=-1)
+        sel_d2 = -neg_top
+        sel = torch.gather(diff, -2, idx[..., None].expand(
+            idx.shape + (diff.shape[-1],)))
+        valid = sel_d2 <= self.cutoff * self.cutoff
+        if mask is not None:
+            valid = valid & (sel_d2 < big)
+        sel = torch.where(valid[..., None], sel, 0.0)
+        sel_info = None
+        if particle_info is not None:
+            sel_info = torch.gather(particle_info, -2, idx[..., None].expand(
+                idx.shape + (particle_info.shape[-1],)))
+            sel_info = torch.where(valid[..., None], sel_info, 0.0)
+        pad = self.max_included - k
+        if pad:
+            sel = torch.nn.functional.pad(sel, (0, 0, 0, pad))
+            valid = torch.nn.functional.pad(valid, (0, pad))
+            if sel_info is not None:
+                sel_info = torch.nn.functional.pad(sel_info, (0, 0, 0, pad))
+        return sel, valid, sel_info

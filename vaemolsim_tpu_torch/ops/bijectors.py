@@ -7,9 +7,10 @@ reduced over the event for vector ones; :class:`Block` sums a scalar
 bijector's log-det over trailing event axes.  ``context`` is an optional
 conditioning tensor threaded explicitly to every call.
 
-Ported so far: Identity, Shift, Scale, Block, Inverse and Chain (what
-the flagship model uses).  Sigmoid, Tanh, Softplus, SoftClip,
-BatchNormBijector and ``make_domain_transform`` are still to come.
+Ported so far: Identity, Shift, Scale, SoftClip (the von Mises
+concentration's bound), Block, Inverse and Chain.  Sigmoid, Tanh,
+Softplus, BatchNormBijector and ``make_domain_transform`` are still to
+come.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["Bijector", "Identity", "Shift", "Scale", "Block", "Inverse",
-           "Chain"]
+__all__ = ["Bijector", "Identity", "Shift", "Scale", "SoftClip", "Block",
+           "Inverse", "Chain"]
 
 
 class Bijector:
@@ -82,6 +83,46 @@ class Scale(Bijector):
 
     def inverse_and_log_det(self, y, context=None):
         return y / self.scale, -self._ldj(y)
+
+
+def _softplus(x: Tensor) -> Tensor:
+    """log(1 + e^x) without torch's linear cut-over at 20 (as
+    ``jax.nn.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class SoftClip(Bijector):
+    """Smoothly clip to (low, high): about the identity well inside the
+    bounds, softplus-rounded at the edges,
+
+        y = low + s softplus((x - low)/s) - s softplus((x - high)/s),
+
+    with ``s = hinge_softness``.  The inverse is Newton's method from
+    ``x0 = y`` clipped into the open interval; y outside it gives NaN."""
+
+    def __init__(self, low: float, high: float, hinge_softness: float = 1.0):
+        self.low, self.high = float(low), float(high)
+        self.hinge_softness = float(hinge_softness)
+
+    def _slope(self, x: Tensor) -> Tensor:
+        s = self.hinge_softness
+        return (torch.sigmoid((x - self.low) / s)
+                - torch.sigmoid((x - self.high) / s))
+
+    def forward_and_log_det(self, x, context=None):
+        s = self.hinge_softness
+        y = (self.low + s * _softplus((x - self.low) / s)
+             - s * _softplus((x - self.high) / s))
+        return y, torch.log(self._slope(x).clamp_min(1e-38))
+
+    def inverse_and_log_det(self, y, context=None):
+        x = y.clamp(self.low + 1e-6, self.high - 1e-6)
+        for _ in range(25):
+            x = x - ((self.forward_and_log_det(x)[0] - y)
+                     / self._slope(x).clamp_min(1e-12))
+        x = torch.where((y <= self.low) | (y >= self.high),
+                        torch.full_like(x, float("nan")), x)
+        return x, -self.forward_and_log_det(x)[1]
 
 
 class Block(Bijector):
