@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vaemolsim_tpu_torch's MC and training paths on one NVIDIA GPU.
+"""Drive vaemolsim_tpu_torch's MC, training, backmapping and molecular MD
+paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -36,7 +37,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    its plain version at the notebook's shape (N = 10, H = 40, B = 2000,
    on the path's own selections), at the compute-dense N = 50, H = 64
    (B = 1000) and at a ragged N = 37, in both modes, with fully masked
-   rows and clouds.
+   rows and clouds;
+7. runs molecular MD through ``md.baoab_neighbor`` at 8192 atoms (cell-
+   pair kernel): the production molecular stack of bench.py:631 (charged
+   dimers, harmonic bonds, bonded exclusions masked inside the cell-list
+   LJ with its Ewald real-space term, PME reciprocal space) and the LJ
+   liquid of bench.py:559, each thermalised, timed over 200 steps and
+   profiled over one rebuild chunk, with the kinetic temperature checked;
+   for the liquid also the cell-list energy and gradient against the
+   dense O(N^2) form and an NVE run's energy conservation.  The cell-pair
+   kernel is held against its plain version on both paths' own gathered
+   inputs, on a binary Lorentz-Berthelot mixture with charges and
+   exclusions, a coincident pair and a ragged grid, and the energy's NaN
+   contract (overflowed and drifted builds) is checked on the card.
 
 Every path runs with the launch counters zeroed just before it and read
 just after.  Any failed check raises and the script exits non-zero;
@@ -71,9 +84,10 @@ from vaemolsim_tpu_torch.mcmc import (MCMCState, make_fused_vae_step,
                                       make_mcmc_step, run_mcmc,
                                       vae_proposal_fns)
 from vaemolsim_tpu_torch.mcmc import fused as mf
+from vaemolsim_tpu_torch import md, potentials
 from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
-from vaemolsim_tpu_torch.ops import maf_fused, rqs
+from vaemolsim_tpu_torch.ops import cell_lj, maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain)
 from vaemolsim_tpu_torch.train import fit
@@ -86,6 +100,13 @@ BM_SITES, BM_FRAMES, BM_BATCH, BM_EPOCHS = 10_000, 2_000, 128, 5
 BM_PARTICLES, PA_FRAMES = 30, 2_000
 PA_MAIN = f"row notebook path N=10 H=40 Fo=20 B={PA_FRAMES}"
 PA_DENSE, PA_RAGGED = (50, 64, 1000), (37, 40, 300)  # (N, H, B)
+# Molecular MD: the production molecular stack (bench.py:631) and the
+# LJ liquid (bench.py:559), N atoms each, BAOAB with a neighbour-list
+# rebuild every MD_REBUILD steps.
+MD_N, MD_REBUILD, MD_TIMED, MD_NVE = 8192, 5, 200, 200
+MOL = dict(rho=0.6, cutoff=3.5, skin=0.4, capacity=72, dt=0.002)
+LJ = dict(rho=0.8, cutoff=2.5, skin=0.4, capacity=48, dt=0.004)
+MOL_SHAPE = "molecular coulomb+exclusion"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -921,6 +942,362 @@ def backmapping_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# Molecular MD: the production molecular stack and the LJ liquid (kernel 6)
+# ---------------------------------------------------------------------------
+
+
+def molecular_system():
+    """bench.py:631-717's production molecular stack: MD_N atoms as
+    MD_N / 2 charged dimers (+-0.5) at density 0.6, harmonic bonds (k
+    200, r0 1), the bonded pairs excluded inside the cell-list LJ with its
+    Ewald real-space term (cutoff 3.5, skin 0.4, capacity 72) and in PME
+    (tolerance 1e-4, reciprocal part only).  Start: the even-z lattice of
+    bench.py:669-676 (every bond one lattice spacing long).  Potentials
+    built with no device: on the card."""
+    n = MD_N
+    L = float((n / MOL["rho"]) ** (1.0 / 3.0))
+    mz = 2 * max(int(np.ceil(n ** (1.0 / 3.0) / 2.0)), 1)
+    mxy = int(np.ceil(np.sqrt(n / mz)))
+    g = np.stack(np.meshgrid(np.arange(mxy), np.arange(mxy), np.arange(mz),
+                             indexing="ij"), -1).reshape(-1, 3)[:n]
+    g = g * (L / np.array([mxy, mxy, mz]))
+    bonds = np.array([[2 * k, 2 * k + 1] for k in range(n // 2)])
+    q = np.tile([0.5, -0.5], n // 2)
+    recip = potentials.pme_coulomb(q, box=[L] * 3, r_cutoff=MOL["cutoff"],
+                                   tolerance=1e-4, exclude=bonds,
+                                   include_real_space=False)
+    build, cell_e = potentials.lennard_jones_cell_neighbor(
+        box=[L] * 3, cutoff=MOL["cutoff"], skin=MOL["skin"],
+        capacity=MOL["capacity"], charges=q,
+        coulomb_alpha=recip.ewald_alpha, exclude=bonds)
+    bonded = potentials.harmonic_bonds(bonds, k=200.0, r0=1.0)
+
+    def energy(nl, x):
+        return cell_e(nl, x) + recip(x) + bonded(x)
+
+    return dict(name="molecular", L=L, build=build, energy=energy,
+                cell_energy=cell_e, recip=recip, x0=g, spec=MOL)
+
+
+def lj_system():
+    """bench.py:559-617's LJ liquid: MD_N atoms at density 0.8, cutoff
+    2.5, skin 0.4, capacity 48, from a simple-cubic lattice."""
+    n = MD_N
+    L = float((n / LJ["rho"]) ** (1.0 / 3.0))
+    m = int(np.ceil(n ** (1.0 / 3.0)))
+    g = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n] * (L / m)
+    build, energy = potentials.lennard_jones_cell_neighbor(
+        box=[L] * 3, cutoff=LJ["cutoff"], skin=LJ["skin"],
+        capacity=LJ["capacity"])
+    return dict(name="lj", L=L, build=build, energy=energy,
+                cell_energy=energy, x0=g, spec=LJ)
+
+
+def launch_us(prof, match):
+    """(device µs per recorded launch of the kernels whose name contains
+    ``match``, the number of launches the profile recorded); (None, 0)
+    where it recorded none.  Late in this script a profile has recorded
+    only some, or none, of a window's ctypes launches on the H100, so
+    kernel 6 is timed per recorded launch, with the count kept."""
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and match in e.key]
+    n = sum(e.count for e in evs)
+    return ((sum(e.self_device_time_total for e in evs) / n if n else None),
+            n)
+
+
+def md_path(sys_, dev, seed):
+    """One MD path on the card: BAOAB (friction 1, kT 1, rebuild every
+    MD_REBUILD steps) thermalised for gamma t >= 3, then MD_TIMED steps
+    timed on the host clock ending in a device sync, with the launch
+    counters zeroed just before and read just after, and the peak memory
+    of that run; then one rebuild chunk (a build and MD_REBUILD steps)
+    under torch.profiler.  Checks a finite energy, a kinetic temperature
+    in (0.8, 1.2) and kernel-6 launches.  Returns (row, final state)."""
+    name, spec, build, energy = (sys_["name"], sys_["spec"], sys_["build"],
+                                 sys_["energy"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.tensor(sys_["x0"], dtype=torch.float32, device=dev)
+    v0 = torch.randn(x0.shape, generator=gen, device=dev)
+
+    def run(s_x, s_v, n):
+        return md.baoab_neighbor(build, energy, s_x, s_v, gen, dt=spec["dt"],
+                                 n_steps=n, rebuild_every=MD_REBUILD,
+                                 friction=1.0, kT=1.0)[0]
+
+    equil = MD_REBUILD * int(math.ceil(3.0 / spec["dt"] / MD_REBUILD))
+    t0 = time.perf_counter()
+    s = run(x0, v0, equil)
+    torch.cuda.synchronize()
+    equil_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    s = run(s.x, s.v, MD_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    def chunk():
+        nl = build(s.x)
+        return md.baoab(lambda x: energy(nl, x), s.x, s.v, gen,
+                        dt=spec["dt"], n_steps=MD_REBUILD, friction=1.0,
+                        kT=1.0, f0=s.force)[0]
+
+    chunk()
+    chunk_s, prof = profiled(chunk)
+    busy_us, _ = device_time(prof)
+    k6_us, k6_n = launch_us(prof, "cell_lj_kernel")
+    tops = top_ops(prof, MD_REBUILD)
+    with torch.no_grad():
+        e = float(energy(build(s.x), s.x))
+    kt = float(md.temperature(s.v))
+    fail_unless(math.isfinite(e), f"md {name}: energy {e}")
+    fail_unless(0.8 < kt < 1.2, f"md {name}: kinetic kT {kt}")
+    fail_unless(counts["cell_lj"] > 0, f"md {name} launch counts {counts}")
+    ms = 1e3 * wall / MD_TIMED
+    chunk_ms = 1e3 * chunk_s / MD_REBUILD
+    busy_ms = None if busy_us is None else busy_us / 1e3 / MD_REBUILD
+    row = {"path": name, "atoms": MD_N, "box": sys_["L"],
+           "thermalise_steps": equil, "thermalise_s": equil_s,
+           "steps": MD_TIMED, "seconds": wall, "ms_per_step": ms,
+           "atom_steps_per_s": MD_N * MD_TIMED / wall,
+           "launches": counts, "peak_memory_bytes": peak,
+           "profiled_ms_per_step": chunk_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "cell_lj_device_us_per_launch": k6_us,
+           "cell_lj_launches_recorded": k6_n,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / chunk_ms),
+           "top_ops_us_per_step": tops, "energy": e, "kT": kt}
+    RESULTS.setdefault("md", []).append(row)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {chunk_ms:.3f} ms/step in a profiled chunk "
+            f"({row['device_idle_share']:.3f} idle; kernel 6 "
+            f"{'not measured' if k6_us is None else f'{k6_us:.1f}'} µs "
+            f"per launch, {k6_n} of {MD_REBUILD} recorded)")
+    print(f"md {name:9s} N={MD_N} {row['atom_steps_per_s']:.1f} atom-steps/s "
+          f"({ms:.3f} ms/step)  device busy {busy}  peak memory "
+          f"{peak / 2 ** 20:.1f} MiB  U/N {e / MD_N:.4f}  kT {kt:.4f}  "
+          f"(thermalised {equil} steps in {equil_s:.1f} s)", flush=True)
+    for side in ("device", "host"):
+        print(f"  profiled md {name} step, top {side} µs: " + "; ".join(
+            f"{k} {us:.1f}" for k, us in tops[side]), flush=True)
+    return row, s
+
+
+def molecular_path(dev):
+    """Path A: the production molecular stack.  Also prints the PME grid
+    (equal to the JAX package's rule: tests/test_torch_md.py) and the
+    device time of one PME energy and force evaluation."""
+    sys_ = molecular_system()
+    grid = sys_["recip"].grid_shape
+    fail_unless(grid == (64, 64, 64), f"PME grid {grid}")
+    row, s = md_path(sys_, dev, 31)
+    recip = sys_["recip"]
+
+    def pme_force():
+        x = s.x.detach().requires_grad_()
+        torch.autograd.grad(recip(x), x)
+
+    pme_us, _ = device_us(pme_force, "")
+    row.update(pme_grid=list(grid), pme_alpha=recip.ewald_alpha,
+               pme_fwd_bwd_device_us=pme_us)
+    print(f"  PME grid {grid} alpha {recip.ewald_alpha:.4f}: energy + force "
+          f"{'not measured' if pme_us is None else f'{pme_us:.1f} µs'} "
+          "device per evaluation", flush=True)
+    return sys_, row, s
+
+
+def lj_path(dev):
+    """Path B: the LJ liquid, then at its final state the cell-list energy
+    and gradient (kernel 6) against the dense O(N^2) ``lennard_jones`` on
+    the card (energy to 1e-5 relative, gradient to 1e-4 of its largest
+    component + 1e-5: float32 sums over another set of pair orders), and
+    an NVE ``velocity_verlet_neighbor`` run of MD_NVE steps (dt 0.004)
+    conserving total energy to 5e-3 relative (tests/test_md.py:196)."""
+    sys_ = lj_system()
+    row, s = md_path(sys_, dev, 41)
+    build, energy, L = sys_["build"], sys_["energy"], sys_["L"]
+    dense = potentials.lennard_jones(box=[L] * 3, cutoff=LJ["cutoff"])
+    x = s.x.detach().requires_grad_()
+    e = energy(build(s.x), x)
+    (g,) = torch.autograd.grad(e, x)
+    xd = s.x.detach().requires_grad_()
+    ed = dense(xd)
+    (gd,) = torch.autograd.grad(ed, xd)
+    e, ed = float(e.detach()), float(ed.detach())
+    e_err = abs(e - ed) / abs(ed)
+    fail_unless(e_err <= 1e-5, f"lj cell vs dense energy {e} {ed} "
+                f"(relative {e_err:.2e})")
+    g_err = compare("lj cell vs dense gradient", g, gd,
+                    1e-4 * float(gd.abs().max()) + 1e-5, 0.0)
+    del xd, ed, gd
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        e0 = float(energy(build(s.x), s.x) + md.kinetic_energy(s.v))
+    nve, _ = md.velocity_verlet_neighbor(build, energy, s.x, s.v,
+                                         dt=LJ["dt"], n_steps=MD_NVE,
+                                         rebuild_every=MD_REBUILD)
+    with torch.no_grad():
+        e1 = float(energy(build(nve.x), nve.x) + md.kinetic_energy(nve.v))
+    drift = abs(e1 - e0) / abs(e0)
+    fail_unless(drift <= 5e-3, f"NVE energy {e0} -> {e1} ({drift:.2e})")
+    row.update(dense_energy_rel_err=e_err, dense_grad_max_abs_err=g_err,
+               nve_steps=MD_NVE, nve_energy=[e0, e1], nve_rel_drift=drift)
+    print(f"  lj cell list vs dense at N={MD_N}: energy {e_err:.2e} relative, "
+          f"gradient max abs err {g_err:.3e}; NVE {MD_NVE} steps: total "
+          f"energy {e0:.3f} -> {e1:.3f} ({drift:.2e})", flush=True)
+    return sys_, row, s
+
+
+def cell_lj_pairs(args, kw):
+    """The number of (centre, neighbour) slots of the block inside the
+    cutoff and not masked: the mask of the plain version, recomputed."""
+    cxt, nxt, cid, nid, _, _, excl = args
+    r2 = 0.0
+    for a, b in enumerate(kw["box"]):
+        d = cxt[:, a, :, None] - nxt[:, a, None, :]
+        d = d - b * torch.round(d * (1.0 / b))
+        r2 = r2 + d * d
+    ci = cid.transpose(1, 2)
+    n = kw["n_atoms"]
+    mask = (ci < n) & (nid < n) & (ci != nid) & (r2 < kw["cutoff"] ** 2)
+    if excl is not None:
+        for k in range(excl.shape[1]):
+            mask &= excl[:, k, :, None] != nid
+    return int(mask.sum())
+
+
+def cell_lj_work(args, kw):
+    """(bytes, least float32 operations) of one cell-pair call on these
+    inputs.  Bytes: every input read once, e and grad written once.
+    Operations, counted from csrc/cell_lj.cu: on every slot of the block
+    (C x 27 C per cell) the minimum image (5 per axis), r^2 (5) and the
+    mask (3 compares + D exclusion compares); on each slot inside the
+    cutoff the LJ energy, its derivative, the shift, the core test and
+    the accumulation (35, an FMA as 2), +3 for species, +40 for charges
+    (erfcf counted as ~20, expf ~5)."""
+    cxt, nxt, cid, nid, species, charge, excl = args
+    ins = [cxt, nxt, cid, nid, excl, *(species or ()), *(charge or ())]
+    nc, _, C = cxt.shape
+    nbytes = 4 * (sum(t.numel() for t in ins if t is not None)
+                  + nc + nc * 3 * C)
+    D = 0 if excl is None else excl.shape[1]
+    slots = nc * C * nxt.shape[-1]
+    pairs = cell_lj_pairs(args, kw)
+    per_pair = 35 + (3 if species else 0) + (40 if charge else 0)
+    return nbytes, slots * (23 + D) + pairs * per_pair, slots, pairs
+
+
+def check_cell_lj_case(label, energy, nl, x, timed_case):
+    """Kernel 6 against its plain version on one list's gathered inputs:
+    per-cell energies to 1e-5 relative (of the largest) and the total to
+    1e-5, gradients to 1e-4 of the largest component + 1e-5 (sums of up
+    to 27 C terms in another order; the pair masks are equal by
+    construction).  Timed cases add event ms, profiler device µs and the
+    bound."""
+    args, kw = energy.cell_pair_inputs(nl, x)
+    e, g = cell_lj.cell_pair_energy_force_cuda(*args, **kw)
+    ew, gw = cell_lj.cell_pair_energy_force_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(compare(f"cell_lj {label} e", e, ew,
+                      1e-5 * float(ew.abs().max()), 1e-5),
+              compare(f"cell_lj {label} grad", g, gw,
+                      1e-4 * float(gw.abs().max()) + 1e-5, 0.0))
+    tot = abs(float(e.sum()) - float(ew.sum()))
+    fail_unless(tot <= 1e-5 * abs(float(ew.sum())),
+                f"cell_lj {label}: total energy {float(e.sum())} vs "
+                f"{float(ew.sum())}")
+    nc, _, C = args[0].shape
+    shape = f"{label} C={C} cells={nc}"
+    ms = plain_ms = None
+    extra = {}
+    if timed_case:
+        ms = timed(lambda: cell_lj.cell_pair_energy_force_cuda(*args, **kw))
+        plain_ms = timed(lambda: cell_lj.cell_pair_energy_force_plain(
+            *args, **kw), reps=5)
+        cell_lj.cell_pair_energy_force_cuda(*args, **kw)
+        _, prof = profiled(lambda: [cell_lj.cell_pair_energy_force_cuda(
+            *args, **kw) for _ in range(10)])
+        extra["device_us"], recorded = launch_us(prof, "cell_lj_kernel")
+        extra["launches_recorded_of_10"] = recorded
+        extra["plain_device_us"], _ = device_us(
+            lambda: cell_lj.cell_pair_energy_force_plain(*args, **kw), "",
+            reps=3)
+        nbytes, ops, slots, pairs = cell_lj_work(args, kw)
+        extra["bound_us"], by = _bound(nbytes, ops)
+        RESULTS.setdefault("cell_lj_work", {})[shape] = {
+            "bytes": nbytes, "ops": ops, "slots": slots, "pairs": pairs,
+            "bound_by": by}
+        print(f"  cell_lj {shape}: {slots} slots, {pairs} pairs inside the "
+              f"cutoff, {nbytes} bytes, {ops} operations", flush=True)
+    record("cell_lj", shape, err, ms, plain_ms, **extra)
+
+
+def check_cell_lj(mol, mol_x, lj, lj_x, dev):
+    """Kernel 6 on the paths' own gathered inputs (their final states):
+    the molecular shape (charges and exclusions, C = 72, 216 cells) and
+    the LJ liquid (scalar, C = 48, 343 cells), timed; a binary
+    Lorentz-Berthelot mixture (sigma in {1, 0.88}, epsilon in {1, 0.5},
+    charges +-0.5 with alpha 1.2, dimer exclusions) at the LJ liquid's
+    size and state, timed; a coincident pair; a ragged 5 x 6 x 7 grid at
+    capacity 37 with every branch on.  Then the energy route's NaN
+    contract on the card: an overflowed and a drifted build give NaN
+    energy and gradient."""
+    check_cell_lj_case(MOL_SHAPE, mol["cell_energy"],
+                       mol["build"](mol_x), mol_x, True)
+    check_cell_lj_case("lj scalar", lj["energy"], lj["build"](lj_x), lj_x,
+                       True)
+    n, L = MD_N, lj["L"]
+    sig = np.where(np.arange(n) % 2 == 0, 1.0, 0.88)
+    bonds = np.array([[2 * k, 2 * k + 1] for k in range(n // 2)])
+    build, energy = potentials.lennard_jones_cell_neighbor(
+        sig, np.where(sig == 1.0, 1.0, 0.5), box=[L] * 3, cutoff=LJ["cutoff"],
+        skin=LJ["skin"], capacity=LJ["capacity"],
+        charges=np.tile([0.5, -0.5], n // 2), coulomb_alpha=1.2,
+        exclude=bonds)
+    check_cell_lj_case("species+coulomb+exclusion", energy, build(lj_x),
+                       lj_x, True)
+    xc = lj_x.clone()
+    xc[7] = xc[3]
+    check_cell_lj_case("lj coincident pair", lj["energy"], lj["build"](xc),
+                       xc, False)
+    rng = np.random.default_rng(51)
+    box = np.array([14.5, 17.4, 20.3])
+    xr = torch.tensor(rng.random((3000, 3)) * box, dtype=torch.float32,
+                      device=dev)
+    build, energy = potentials.lennard_jones_cell_neighbor(
+        rng.uniform(0.85, 1.0, 3000), rng.uniform(0.5, 1.0, 3000),
+        box=box.tolist(), cutoff=2.5, skin=0.4, capacity=37,
+        charges=np.tile([0.5, -0.5], 1500), coulomb_alpha=1.2,
+        exclude=bonds[:1500])
+    check_cell_lj_case("ragged all branches", energy, build(xr), xr, False)
+    for case in ("overflow", "drift"):
+        if case == "overflow":
+            build, energy = potentials.lennard_jones_cell_neighbor(
+                box=[L] * 3, cutoff=LJ["cutoff"], skin=LJ["skin"], capacity=8)
+            nl, x = build(lj_x), lj_x.clone()
+            fail_unless(bool(nl.overflow), "capacity 8 did not overflow")
+        else:
+            build, energy = lj["build"], lj["energy"]
+            nl, x = build(lj_x), lj_x.clone()
+            x[11, 2] += 0.3
+        x.requires_grad_()
+        before = cell_lj.KERNEL.launches
+        e = energy(nl, x)
+        (g,) = torch.autograd.grad(e, x)
+        fail_unless(cell_lj.KERNEL.launches == before + 1,
+                    f"cell_lj {case}: kernel not launched")
+        fail_unless(bool(torch.isnan(e)) and bool(torch.isnan(g).all()),
+                    f"cell_lj {case}: energy or gradient not NaN")
+        record("cell_lj", f"{case} build: NaN energy and gradient", 0.0)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
 
@@ -999,6 +1376,14 @@ def bounds(vae, flow):
                 c["per_pair_head_bound_us"], "operations")
             if c["shape"] == PA_MAIN:
                 out["pair_attention"] = (c["bound_us"], by)
+    # The cell-pair kernel: from each timed check's own inputs (the pairs
+    # inside the cutoff depend on the state), by check_cell_lj_case.
+    for c in RESULTS["checks"]:
+        if c["kernel"] == "cell_lj" and "bound_us" in c:
+            by = RESULTS["cell_lj_work"][c["shape"]]["bound_by"]
+            out[f"cell_lj {c['shape']}"] = (c["bound_us"], by)
+            if c["shape"].startswith(MOL_SHAPE):
+                out["cell_lj"] = (c["bound_us"], by)
     return out
 
 
@@ -1048,13 +1433,18 @@ def main():
     with torch.no_grad():
         check_maf_block(flow, gen, dev, label=" trained")
     bm_serve, bm_train = backmapping_path(dev)
+    mol, mol_row, mol_state = molecular_path(dev)
+    lj, lj_row, lj_state = lj_path(dev)
+    check_cell_lj(mol, mol_state.x, lj, lj_state.x, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
                 "elbo_train": elbo["launches"],
                 "flow_train": flow_row["launches"], "flow_sample": predict,
                 "backmapping_serve": bm_serve["launches"],
-                "backmapping_train": bm_train["launches"]}
+                "backmapping_train": bm_train["launches"],
+                "md_molecular": mol_row["launches"],
+                "md_lj": lj_row["launches"]}
     bound = bounds(vae, flow)
     for name, (us, by) in bound.items():
         print(f"bound {name:36s} {us:10.4f} us ({by})", flush=True)
@@ -1064,7 +1454,8 @@ def main():
                   "dense_stack": f"encoder 2->200->2 relu N={n}",
                   "vae_proposal": f"philox N={n}",
                   "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}",
-                  "pair_attention": PA_MAIN}
+                  "pair_attention": PA_MAIN,
+                  "cell_lj": MOL_SHAPE}
     for name, k in _build.KERNELS.items():
         rows = [c for c in RESULTS["checks"] if c["kernel"] == name]
         timed_row = next(c for c in rows if c["ms"] is not None

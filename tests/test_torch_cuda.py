@@ -151,7 +151,7 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            torch.zeros(1, device=dev)], ["relu", None])
     assert set(_build.launch_counts()) == {"rqs", "dense_stack",
                                            "vae_proposal", "maf_block",
-                                           "pair_attention"}
+                                           "pair_attention", "cell_lj"}
 
 
 def _maf_layer(dev, D, cond_dim=None, circular=False, hidden=64, K=16):
@@ -218,7 +218,7 @@ def test_maf_layer_routes_by_launch_counts(dev, kind):
     counts = _build.launch_counts()
     if kind in ("D3", "D1 conditional"):
         assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
-                          "maf_block": 2, "pair_attention": 0}
+                          "maf_block": 2, "pair_attention": 0, "cell_lj": 0}
     else:
         assert counts["maf_block"] == 0 and counts["dense_stack"] > 0
         assert (counts["rqs"] > 0) == (kind != "circular")
@@ -343,7 +343,7 @@ def test_vector_attention_routes_by_launch_counts(dev, wiring):
     assert out.shape == (64, 10, 20)
     want = 1 if wiring == "create" else 0
     assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
-                      "maf_block": 0, "pair_attention": want}
+                      "maf_block": 0, "pair_attention": want, "cell_lj": 0}
 
 
 def test_pair_attention_gradients_recompute_through_plain(dev):
@@ -392,3 +392,145 @@ def test_backmapping_path_launches_kernels_5_3_and_2(dev):
         assert counts["pair_attention"] == 3, (name, counts)
         assert counts["maf_block"] == 3 and counts["dense_stack"] > 0
         assert counts["rqs"] == counts["vae_proposal"] == 0
+        assert counts["cell_lj"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: the cell-pair LJ / Ewald real-space block
+# ---------------------------------------------------------------------------
+
+
+def _cell_system(dev, branch, box=(16.0, 16.0, 16.0), n=1800, capacity=48,
+                 seed=9, cutoff=2.5):
+    """A jittered-lattice system with numpy-made positions and a cell list
+    of the given capacity on the card, in one branch of the kernel:
+    scalar, species (sigma in {1, 0.88}, epsilon in {1, 0.5}), coulomb
+    (+-0.5, alpha 1.2), exclusion (1-2 and 1-3 on triples) or all."""
+    import numpy as np
+    from vaemolsim_tpu_torch import potentials as tp
+    rng = np.random.default_rng(seed)
+    box = np.asarray(box)
+    m = int(np.ceil(n ** (1 / 3)))
+    g = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n]
+    x = (g + 0.5) * box / m + 0.15 * rng.normal(size=(n, 3))
+    kw = {}
+    if branch in ("species", "all"):
+        sig = np.where(np.arange(n) % 3 == 0, 0.88, 1.0)
+        kw.update(sigma=sig, epsilon=np.where(sig == 1.0, 1.0, 0.5))
+    if branch in ("coulomb", "all"):
+        kw.update(charges=np.tile([0.5, -0.5], n // 2), coulomb_alpha=1.2)
+    if branch in ("exclusion", "all"):
+        kw["exclude"] = np.array(
+            [[3 * k, 3 * k + 1] for k in range(n // 3)]
+            + [[3 * k + 1, 3 * k + 2] for k in range(n // 3)]
+            + [[3 * k, 3 * k + 2] for k in range(n // 3)])
+    build, energy = tp.lennard_jones_cell_neighbor(
+        box=box.tolist(), cutoff=cutoff, skin=0.4, capacity=capacity,
+        device=dev, **kw)
+    return build, energy, torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _assert_cell_close(got, want):
+    """Per-cell energies to 1e-5 relative (of the largest), gradients to
+    1e-4 of the largest component + 1e-5: float32 sums of up to 27 C
+    terms in another order, with the pair masks equal by construction."""
+    (e, g), (ew, gw) = got, want
+    assert bool(torch.isfinite(e).all() and torch.isfinite(g).all())
+    torch.testing.assert_close(e, ew, rtol=1e-5,
+                               atol=1e-5 * float(ew.abs().max()))
+    torch.testing.assert_close(e.sum(), ew.sum(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(g, gw, rtol=0,
+                               atol=1e-4 * float(gw.abs().max()) + 1e-5)
+
+
+@pytest.mark.parametrize("branch", ["scalar", "species", "coulomb",
+                                    "exclusion", "all"])
+def test_cell_lj_kernel_matches_plain(dev, branch):
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, branch)
+    args, kw = energy.cell_pair_inputs(build(x), x)
+    before = cell_lj.KERNEL.launches
+    got = cell_lj.cell_pair_energy_force_cuda(*args, **kw)
+    assert cell_lj.KERNEL.launches == before + 1
+    _assert_cell_close(got, cell_lj.cell_pair_energy_force_plain(*args, **kw))
+
+
+def test_cell_lj_kernel_ragged_grid_and_capacity(dev):
+    """A 5 x 6 x 7 grid (210 cells) at capacity 37 (not a multiple of the
+    block's 12 warps), every branch on."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, "all", box=(14.5, 17.4, 20.3),
+                                    n=3000, capacity=37)
+    args, kw = energy.cell_pair_inputs(build(x), x)
+    assert args[0].shape == (210, 3, 37)
+    _assert_cell_close(cell_lj.cell_pair_energy_force_cuda(*args, **kw),
+                       cell_lj.cell_pair_energy_force_plain(*args, **kw))
+
+
+def test_cell_lj_coincident_atoms_stay_finite(dev):
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, "all")
+    x[7] = x[3]
+    args, kw = energy.cell_pair_inputs(build(x), x)
+    _assert_cell_close(cell_lj.cell_pair_energy_force_cuda(*args, **kw),
+                       cell_lj.cell_pair_energy_force_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("case", ["overflow", "drift"])
+def test_cell_lj_invalid_list_is_nan_on_the_card(dev, case):
+    """An overflowed build or a drift past skin / 2: NaN energy and NaN
+    gradient through the kernel route."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, "scalar",
+                                    capacity=4 if case == "overflow" else 48)
+    nl = build(x)
+    assert bool(nl.overflow) == (case == "overflow")
+    if case == "drift":
+        x = x.clone()
+        x[11, 2] += 0.3
+    x = x.requires_grad_()
+    before = cell_lj.KERNEL.launches
+    e = energy(nl, x)
+    (g,) = torch.autograd.grad(e, x)
+    assert cell_lj.KERNEL.launches == before + 1
+    assert bool(torch.isnan(e)) and bool(torch.isnan(g).all())
+
+
+def test_cell_energy_on_the_card_launches_only_kernel_6(dev):
+    """A CUDA lennard_jones_cell_neighbor energy and its gradient: one
+    launch of the cell-pair kernel and of nothing else; the gradient
+    equals the plain block's mapped back to atom order."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, "all")
+    nl = build(x)
+    x = x.requires_grad_()
+    _build.reset_launches()
+    e = energy(nl, x)
+    (g,) = torch.autograd.grad(e, x)
+    counts = _build.launch_counts()
+    assert counts == {"rqs": 0, "dense_stack": 0, "vae_proposal": 0,
+                      "maf_block": 0, "pair_attention": 0, "cell_lj": 1}
+    args, kw = energy.cell_pair_inputs(nl, x.detach())
+    ew, gw = cell_lj.cell_pair_energy_force_plain(*args, **kw)
+    gw = gw.transpose(1, 2).reshape(-1, 3)[nl.atom_slot.long()]
+    torch.testing.assert_close(e, ew.sum(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(g, gw, rtol=0,
+                               atol=1e-4 * float(gw.abs().max()) + 1e-5)
+
+
+def test_cell_lj_kernel_refuses_what_it_does_not_take(dev):
+    from vaemolsim_tpu_torch.ops import cell_lj
+    build, energy, x = _cell_system(dev, "scalar")
+    (cxt, nxt, cid, nid, *_), kw = energy.cell_pair_inputs(build(x), x)
+    with pytest.raises(TypeError):
+        cell_lj.cell_pair_energy_force_cuda(cxt.double(), nxt, cid, nid, **kw)
+    with pytest.raises(TypeError):
+        cell_lj.cell_pair_energy_force_cuda(cxt, nxt, cid.long(), nid, **kw)
+    # 27 * 600 neighbour slots need 259 KB of shared memory: refused.
+    big = torch.zeros(2, 3, 600, device=dev)
+    ids = torch.zeros(2, 1, 600, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="cell_lj kernel launch failed"):
+        cell_lj.cell_pair_energy_force_cuda(
+            big, torch.zeros(2, 3, 16200, device=dev), ids,
+            torch.zeros(2, 1, 16200, dtype=torch.int32, device=dev), **kw)

@@ -340,7 +340,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                       ["relu", None])
     assert all(v == 0 for v in _build.launch_counts().values())
     assert set(_build.KERNELS) == {"rqs", "dense_stack", "vae_proposal",
-                                   "maf_block", "pair_attention"}
+                                   "maf_block", "pair_attention", "cell_lj"}
     with pytest.raises(ValueError, match="CUDA"):
         trqs.rqs_cuda(x, w, h, s, -5.0, False)
     with pytest.raises(ValueError, match="CUDA"):
@@ -362,6 +362,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
             torch.zeros(H), torch.zeros(1), torch.zeros(4, H), torch.zeros(H),
             torch.ones(H), torch.zeros(H), torch.zeros(H, 2), torch.zeros(2),
             reduce=False, act="relu")
+    from vaemolsim_tpu_torch.ops.cell_lj import cell_pair_energy_force_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        cell_pair_energy_force_cuda(
+            torch.zeros(27, 3, 2), torch.zeros(27, 3, 54),
+            torch.zeros(27, 1, 2, dtype=torch.int32),
+            torch.zeros(27, 1, 54, dtype=torch.int32), n_atoms=4, sigma=1.0,
+            epsilon=1.0, cutoff=2.5, box=(9.0, 9.0, 9.0))
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,14 @@ MAF-block kernel for flows of two or more dimensions, and CG ->
 atomistic backmapping (``BackmappingOnly``: distance selection, the
 geometric-algebra attention embedding with the pair-attention kernel,
 and a von Mises + conditional MAF decoder), served by ``predict`` and
-trained by ``train.fit`` (see ROADMAP.md for what is still to come).
+trained by ``train.fit``, and molecular MD (``potentials``: bonds, the
+cell-list Lennard-Jones / Ewald real-space term with the cell-pair
+kernel, PME; ``md``: velocity Verlet and BAOAB, with neighbour-list
+rebuilds) (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, losses  # noqa: F401
+from vaemolsim_tpu_torch import md, potentials  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
 from vaemolsim_tpu_torch import train  # noqa: F401
 

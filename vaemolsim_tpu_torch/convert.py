@@ -9,9 +9,12 @@ IndependentBlockwise (any ported family, von Mises included),
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
 FlowModel, the VAE, the seven loss classes, DistanceSelection, the
 attention nets, VectorAttention, AttentionBlock, ParticleEmbedding,
-LocalParticleDescriptors and BackmappingOnly.  Weights are copied
-exactly (the Dense layout is the same ``(in, out)`` in both packages).
-Objects land on the CUDA card unless a device is given.
+LocalParticleDescriptors and BackmappingOnly; and the molecular MD
+state: a ``CellNeighborList`` (either JAX build, evaluated by the port's
+cell-list energy) and an ``MDState``.  Weights and arrays are copied
+exactly, with their dtypes (the Dense layout is the same ``(in, out)``
+in both packages).  Objects land on the CUDA card unless a device is
+given.
 """
 
 from __future__ import annotations
@@ -205,6 +208,17 @@ def _local_descriptors(o, device):
                                     from_jax(o.embed, device))
 
 
+def _cell_neighbor_list(o, device):
+    from vaemolsim_tpu_torch.potentials import CellNeighborList
+    return CellNeighborList(*(torch.as_tensor(np.array(a), device=device)
+                              for a in o))
+
+
+def _md_state(o, device):
+    from vaemolsim_tpu_torch.md import MDState
+    return MDState(*(_t(a, device) for a in o))
+
+
 def _backmapping(o, device):
     from vaemolsim_tpu_torch.models import BackmappingOnly
     return BackmappingOnly(_local_descriptors(o.mask_and_embed, device),
@@ -237,6 +251,8 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "ParticleEmbedding": _particle_embedding,
     "LocalParticleDescriptors": _local_descriptors,
     "BackmappingOnly": _backmapping,
+    "CellNeighborList": _cell_neighbor_list,
+    "MDState": _md_state,
     "LogProbLoss": _log_prob_loss,
     "PotentialEnergyLogProbLoss": _potential_loss,
     "NonRegularizer": _regularizer,

@@ -1,0 +1,811 @@
+"""Molecular potential-energy terms (port of ``vaemolsim_tpu/potentials.py``,
+the molecular MD slice).
+
+Every term is a function ``energy(x) -> (...,)`` of coordinates ``(...,
+n_atoms, 3)``, differentiable by autograd; the cell-list pair term takes
+its neighbour list first, ``energy(nl, x)``.  Energies are in reduced
+units.  The constructors build their tables (neighbour-cell table,
+exclusion table, per-atom sigma / sqrt(epsilon), charges, bond lists,
+the PME influence function) on ``config.default_device(device)``: the
+CUDA card unless a device is given, and an error without one.
+
+Ported: ``harmonic_bonds``, ``exclusions_from_bonds``, the dense
+``lennard_jones`` (the independent O(N^2) reference), ``composite``,
+``CellNeighborList`` / ``lennard_jones_cell_neighbor`` with
+``lennard_jones_cell``, and ``pme_coulomb`` on an orthorhombic box.  The
+cell-list energy runs the cell-pair kernel (``ops/cell_lj.py``) on the
+card: the neighbour list is always built in the kernel's cell layout,
+and there is no other route (the JAX ``backend=`` and ``interpret=``
+options are not ported).  ROADMAP.md lists what is still to come.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from vaemolsim_tpu_torch.config import default_device
+from vaemolsim_tpu_torch.ops.cell_lj import SLOPE_F, cell_pair_energy_force
+
+Tensor = torch.Tensor
+
+__all__ = ["harmonic_bonds", "exclusions_from_bonds", "lennard_jones",
+           "composite", "CellNeighborList", "lennard_jones_cell_neighbor",
+           "lennard_jones_cell", "pme_coulomb"]
+
+_EPS = 1e-12  # guards sqrt gradients at coincident points
+_TWO_OPI = 2.0 / math.sqrt(math.pi)
+_LATER = "ROADMAP.md, Queue 1, slice 5b"
+
+
+def _f32(a, device) -> Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def harmonic_bonds(bonds, k, r0, device=None) -> Callable[[Tensor], Tensor]:
+    """Harmonic bond-stretch term ``sum_b k_b/2 (|r_i - r_j| - r0_b)^2``.
+    ``bonds``: (B, 2) atom-index pairs; ``k`` / ``r0``: scalars or (B,)."""
+    bonds = np.asarray(bonds, np.int64)
+    if bonds.ndim != 2 or bonds.shape[1] != 2:
+        raise ValueError(f"bonds must be (B, 2); got {bonds.shape}")
+    dev = default_device(device)
+    i = torch.as_tensor(bonds[:, 0], device=dev)
+    j = torch.as_tensor(bonds[:, 1], device=dev)
+    k = _f32(k, dev)
+    r0 = _f32(r0, dev)
+
+    def energy(x: Tensor) -> Tensor:
+        d = x[..., i, :] - x[..., j, :]
+        r = torch.sqrt((d * d).sum(-1).clamp_min(_EPS))
+        return (0.5 * k * (r - r0) ** 2).sum(-1)
+
+    return energy
+
+
+def exclusions_from_bonds(n_atoms: int, bonds,
+                          through_angles: bool = True) -> np.ndarray:
+    """(n_atoms, n_atoms) bool mask of nonbonded exclusions: bonded (1-2)
+    pairs and, with ``through_angles``, 1-3 pairs; the diagonal set."""
+    adj = np.zeros((n_atoms, n_atoms), bool)
+    for a, b in np.asarray(bonds, np.int64):
+        adj[a, b] = adj[b, a] = True
+    excl = adj.copy()
+    if through_angles:
+        excl |= (adj.astype(np.int32) @ adj.astype(np.int32)) > 0
+    np.fill_diagonal(excl, True)
+    return excl
+
+
+def _exclude_matrix(exclude, n: int) -> np.ndarray:
+    """An ``exclude`` argument, an (n, n) bool matrix or an (E, 2) integer
+    pair list, as a validated symmetric (n, n) bool matrix."""
+    ex = np.asarray(exclude)
+    if ex.dtype == bool:
+        if ex.ndim != 2 or ex.shape[0] != ex.shape[1]:
+            raise ValueError(f"bool exclude must be a square (n, n) "
+                             f"matrix; got {ex.shape}")
+        if ex.shape[0] != n:
+            raise ValueError(f"exclude matrix is {ex.shape[0]}x"
+                             f"{ex.shape[0]} but the system has {n} atoms")
+        if not (ex == ex.T).all():
+            raise ValueError("exclude matrix must be symmetric")
+        return ex
+    pr = ex.astype(np.int64).reshape(-1, 2)
+    if (pr[:, 0] == pr[:, 1]).any():
+        raise ValueError("exclude pair list contains self pairs")
+    if pr.size and (pr.min() < 0 or pr.max() >= n):
+        raise ValueError(f"exclude references atom {pr.max()} but the "
+                         f"system has {n} atoms")
+    m = np.zeros((n, n), bool)
+    m[pr[:, 0], pr[:, 1]] = True
+    m[pr[:, 1], pr[:, 0]] = True
+    return m
+
+
+def lennard_jones(sigma=1.0, epsilon=1.0, *,
+                  exclude: Optional[np.ndarray] = None,
+                  box: Optional[Sequence[float]] = None,
+                  cutoff: Optional[float] = None, shift: bool = True,
+                  device=None) -> Callable[[Tensor], Tensor]:
+    """Dense all-pairs Lennard-Jones 12-6,
+    ``sum_{i<j} 4 eps_ij ((sig_ij/r)^12 - (sig_ij/r)^6)``, with a linear
+    core below 0.3 sigma_ij.  ``sigma`` / ``epsilon``: scalars, per-atom
+    (n,) (Lorentz-Berthelot) or (n, n); ``box``: minimum image;
+    ``cutoff``: truncation, shifted to 0 there with ``shift``;
+    ``exclude``: pairs masked out (see :func:`_exclude_matrix`)."""
+    dev = default_device(device)
+    sigma = _f32(sigma, dev)
+    epsilon = _f32(epsilon, dev)
+    if sigma.ndim == 1:
+        sigma = 0.5 * (sigma[:, None] + sigma[None, :])
+    if epsilon.ndim == 1:
+        epsilon = torch.sqrt(epsilon[:, None] * epsilon[None, :])
+    box_t = None if box is None else _f32(box, dev)
+    masks = {}
+
+    def pair_mask(n):
+        if n not in masks:
+            m = np.triu(np.ones((n, n), bool), k=1)
+            if exclude is not None:
+                m &= ~_exclude_matrix(exclude, n)
+            masks[n] = torch.as_tensor(m, device=dev)
+        return masks[n]
+
+    def energy(x: Tensor) -> Tensor:
+        mask = pair_mask(x.shape[-2])
+        d = x[..., :, None, :] - x[..., None, :, :]
+        if box_t is not None:
+            d = d - box_t * torch.round(d / box_t)
+        r2 = (d * d).sum(-1)
+        if cutoff is not None:
+            mask = mask & (r2 < cutoff * cutoff)
+        # Masked pairs get r2 = 1 (finite powers; NaN would poison the
+        # gradient); the floor keeps exact coincidence finite.
+        r = torch.sqrt(torch.where(mask, r2, 1.0).clamp_min(_EPS))
+        rc = 0.3 * sigma
+        sr6 = (sigma / torch.maximum(r, rc)) ** 6
+        u = 4.0 * epsilon * (sr6 * sr6 - sr6)
+        src6 = (sigma / rc) ** 6
+        slope = 24.0 * epsilon / rc * (src6 - 2.0 * src6 * src6)
+        u = u + torch.where(r < rc, slope * (r - rc), 0.0)
+        if cutoff is not None and shift:
+            sc6 = (sigma / cutoff) ** 6
+            u = u - 4.0 * epsilon * (sc6 * sc6 - sc6)
+        return torch.where(mask, u, 0.0).sum((-2, -1))
+
+    return energy
+
+
+class CellNeighborList(NamedTuple):
+    """A cell list frozen at build time (the JAX package's fields, so a
+    JAX-built list converts with ``convert.from_jax``).  Valid while no
+    atom has moved more than skin/2 from ``x_ref``; the energy is NaN
+    otherwise, or when a cell overflowed ``capacity``."""
+
+    x_ref: Tensor       # (n, 3) wrapped build-time positions
+    cell_atoms: Tensor  # (n_cells, capacity) int32 atom ids (n = empty)
+    nb_cid: Tensor      # (n, 27) per-atom cell ids (empty: cell layout)
+    mask: Tensor        # (n, 27 capacity) candidate mask; empty likewise
+    overflow: Tensor    # () bool: some cell exceeded capacity
+    atom_slot: Tensor   # (n,) int32 flat cell * capacity + slot per atom
+
+
+class _CellEnergy(torch.autograd.Function):
+    """The cell-pair energy, whose kernel returns the gradient with it: the
+    backward scales that gradient by the incoming cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, impl, nl):
+        e, grad = impl(nl, x)
+        ctx.save_for_backward(grad)
+        return e
+
+    @staticmethod
+    def backward(ctx, ct):
+        (grad,) = ctx.saved_tensors
+        return ct * grad, None, None
+
+
+def lennard_jones_cell_neighbor(
+        sigma=1.0, epsilon=1.0, *, box: Sequence[float], cutoff: float,
+        skin: float = 0.4, capacity: int = 24, shift: bool = True,
+        mesh=None, charges=None, coulomb_alpha: Optional[float] = None,
+        exclude: Optional[np.ndarray] = None, device=None
+        ) -> Tuple[Callable[[Tensor], CellNeighborList],
+                   Callable[[CellNeighborList, Tensor], Tensor]]:
+    """Cell-list Lennard-Jones with a reusable neighbour list: returns
+    ``(build, energy)``.  ``build(x)`` sorts atoms into a grid of cells of
+    edge >= cutoff + skin (at least 3 per axis), ``capacity`` slots each;
+    ``energy(nl, x)`` is the truncated, shifted LJ of :func:`lennard_jones`
+    over every pair within ``cutoff``, valid until an atom has moved
+    skin/2, NaN (energy and gradient) after that or after an overflowed
+    build.  Single-system shapes (n, 3).
+
+    ``sigma`` / ``epsilon``: scalars or per-atom (n,) (Lorentz-Berthelot).
+    ``charges`` with ``coulomb_alpha`` add the Ewald real-space term
+    ``q_i q_j erfc(alpha r) / r`` (pair it with :func:`pme_coulomb`'s
+    ``include_real_space=False`` and its ``ewald_alpha``).  ``exclude``:
+    an (n, n) bool matrix or (E, 2) pair list, masked out of the pair sum
+    itself (never subtracted after: a bonded pair sits in the LJ core).
+
+    The energy and its gradient come from one call of the cell-pair
+    kernel on the card (its plain version on the CPU); autograd scales
+    that gradient.  ``energy.stress(nl, x)`` (the configurational
+    pressure tensor) and ``energy.heat_flux(nl, x, v, masses)`` (refused
+    with exclusions) run plain PyTorch on the per-atom candidate layout;
+    ``energy.cell_pair_inputs(nl, x)`` returns the kernel's
+    ``(args, kwargs)``.  ``mesh=`` is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"a mesh-sharded cell grid is not ported yet ({_LATER}: "
+            "mesh-sharded cell grid over torch.distributed)")
+    if skin < 0:
+        raise ValueError(f"skin must be >= 0; got {skin}")
+    dev = default_device(device)
+    rc_build = float(cutoff) + float(skin)
+    box_np = np.asarray(box, np.float64)
+    n_grid = np.maximum(np.floor(box_np / rc_build).astype(np.int64), 1)
+    if (n_grid < 3).any():
+        raise ValueError(
+            f"box {box_np.tolist()} fits {n_grid.tolist()} cells of edge "
+            f">= cutoff+skin {rc_build}; need >= 3 per dimension (use the "
+            "dense lennard_jones for small boxes)")
+    cell_size = box_np / n_grid
+    n_cells = int(n_grid.prod())
+    strides_np = np.array([n_grid[1] * n_grid[2], n_grid[2], 1], np.int64)
+    offs = np.stack(np.meshgrid(*[[-1, 0, 1]] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    g3 = np.stack(np.unravel_index(np.arange(n_cells), n_grid), -1)
+    raw = g3[:, None, :] + offs[None, :, :]              # (n_cells, 27, 3)
+    cell_nb = torch.as_tensor((raw % n_grid) @ strides_np, device=dev)
+    box_t = _f32(box_np, dev)
+    cell_t = _f32(cell_size, dev)
+    grid_max = torch.as_tensor(n_grid - 1, dtype=torch.int32, device=dev)
+    strides = torch.as_tensor(strides_np, dtype=torch.int32, device=dev)
+    offs_t = torch.as_tensor(offs, dtype=torch.int32, device=dev)
+    n_grid_t = torch.as_tensor(n_grid, dtype=torch.int32, device=dev)
+    rc2 = float(cutoff) * float(cutoff)
+    drift2_max = (float(skin) / 2.0) ** 2
+
+    sigma_np = np.asarray(sigma, np.float64)
+    epsilon_np = np.asarray(epsilon, np.float64)
+    if sigma_np.ndim > 1 or epsilon_np.ndim > 1:
+        raise ValueError(
+            "cell-list LJ supports scalar or per-atom (n,) sigma/epsilon"
+            " (Lorentz-Berthelot); use the dense lennard_jones for"
+            " (n, n) pair matrices")
+    per_atom = sigma_np.ndim == 1 or epsilon_np.ndim == 1
+    if per_atom:
+        n_spec = max(sigma_np.size if sigma_np.ndim else 1,
+                     epsilon_np.size if epsilon_np.ndim else 1)
+        sig_at = _f32(np.broadcast_to(sigma_np, (n_spec,)), dev)
+        seps_at = _f32(np.sqrt(np.broadcast_to(epsilon_np, (n_spec,))), dev)
+        sigma = epsilon = None
+    else:
+        n_spec = None
+        sigma, epsilon = float(sigma_np), float(epsilon_np)
+
+    if charges is not None:
+        q_np = np.asarray(charges, np.float64)
+        if q_np.ndim != 1:
+            raise ValueError(f"charges must be (n,); got {q_np.shape}")
+        if coulomb_alpha is None:
+            raise ValueError(
+                "charges need coulomb_alpha: use the SAME alpha as the "
+                "reciprocal part (pme_coulomb(...).ewald_alpha)")
+        if per_atom and q_np.size != n_spec:
+            raise ValueError(f"charges has {q_np.size} atoms but "
+                             f"sigma/epsilon has {n_spec}")
+        q_at = _f32(q_np, dev)
+        c_alpha = float(coulomb_alpha)
+    else:
+        q_at, c_alpha = None, 0.0
+
+    # Bonded exclusions: a per-atom partner table, masked in the sum.
+    if exclude is not None:
+        ex_np = np.asarray(exclude)
+        if ex_np.dtype == bool:
+            if ex_np.ndim != 2 or ex_np.shape[0] != ex_np.shape[1]:
+                raise ValueError(f"bool exclude must be a square "
+                                 f"(n, n) matrix; got {ex_np.shape}")
+            if not (ex_np == ex_np.T).all():
+                raise ValueError("exclude matrix must be symmetric")
+            ex_i, ex_j = np.nonzero(np.triu(ex_np, k=1))
+        else:
+            pr = ex_np.astype(np.int64).reshape(-1, 2)
+            lo = np.minimum(pr[:, 0], pr[:, 1])
+            hi = np.maximum(pr[:, 0], pr[:, 1])
+            if (lo == hi).any():
+                raise ValueError("exclude pair list contains self pairs")
+            if lo.size and lo.min() < 0:
+                raise ValueError("exclude pair indices must be >= 0")
+            pairs = np.unique(np.stack([lo, hi], 1), axis=0)
+            ex_i, ex_j = pairs[:, 0], pairs[:, 1]
+        ex_max = int(max(ex_i.max(), ex_j.max())) if ex_i.size else -1
+        if n_spec is not None and ex_max >= n_spec:
+            raise ValueError(f"exclude references atom {ex_max} but "
+                             f"per-atom sigma/epsilon has {n_spec}")
+        if q_at is not None and ex_max >= q_at.shape[0]:
+            raise ValueError(f"exclude references atom {ex_max} but "
+                             f"charges has {q_at.shape[0]}")
+        if ex_i.size == 0:
+            exclude = None
+    if exclude is not None:
+        deg = np.zeros(ex_max + 1, np.int64)
+        np.add.at(deg, ex_i, 1)
+        np.add.at(deg, ex_j, 1)
+        ex_deg = int(deg.max())
+        excl_tab0 = np.full((ex_max + 1, ex_deg), -1, np.int32)
+        fill = np.zeros(ex_max + 1, np.int64)
+        for a, b in zip(ex_i.tolist(), ex_j.tolist()):
+            excl_tab0[a, fill[a]] = b
+            fill[a] += 1
+            excl_tab0[b, fill[b]] = a
+            fill[b] += 1
+    else:
+        ex_max, ex_deg, excl_tab0 = -1, 0, None
+    excl_tabs = {}
+
+    def _excl_tab(n):
+        """(n, D) int32 excluded-partner ids (-1 padding) for n > ex_max
+        atoms (``_check_n``)."""
+        if n not in excl_tabs:
+            pad = np.full((n - excl_tab0.shape[0], ex_deg), -1, np.int32)
+            excl_tabs[n] = torch.as_tensor(
+                np.concatenate([excl_tab0, pad]), device=dev)
+        return excl_tabs[n]
+
+    def _check_n(n):
+        if per_atom and n != n_spec:
+            raise ValueError(f"coords have {n} atoms but per-atom "
+                             f"sigma/epsilon has {n_spec}")
+        if q_at is not None and n != q_at.shape[0]:
+            raise ValueError(f"coords have {n} atoms but charges has "
+                             f"{q_at.shape[0]}")
+        if ex_max >= n:
+            raise ValueError(f"exclude references atom {ex_max} but "
+                             f"coords have {n} atoms")
+
+    def _wrap(x):
+        return x - box_t * torch.floor(x / box_t)
+
+    def _cells3(xw):
+        return torch.minimum((xw / cell_t).to(torch.int32).clamp_min(0),
+                             grid_max)
+
+    def build(x: Tensor) -> CellNeighborList:
+        """Sort atoms into cells (stably, by cell id) and pad each cell to
+        ``capacity`` slots."""
+        n = x.shape[0]
+        xw = _wrap(x)
+        cid = (_cells3(xw) * strides).sum(-1, dtype=torch.int32)
+        order = torch.argsort(cid, stable=True)
+        cid_sorted = cid[order]
+        grid = torch.arange(n_cells, dtype=torch.int32, device=x.device)
+        start = torch.searchsorted(cid_sorted, grid)
+        count = torch.searchsorted(cid_sorted, grid, right=True) - start
+        overflow = count.max() > capacity
+        slots = torch.arange(capacity, device=x.device)
+        slot = (start[:, None] + slots[None, :]).clamp(0, n - 1)
+        cell_atoms = torch.where(slots[None, :] < count[:, None],
+                                 order[slot], n).to(torch.int32)
+        slot_sorted = (torch.arange(n, device=x.device)
+                       - start[cid_sorted.long()])
+        atom_slot = torch.empty(n, dtype=torch.int32, device=x.device)
+        atom_slot[order] = (cid_sorted * capacity + slot_sorted).to(
+            torch.int32)
+        return CellNeighborList(
+            x_ref=xw, cell_atoms=cell_atoms,
+            nb_cid=torch.zeros((0,), dtype=torch.int32, device=x.device),
+            mask=torch.zeros((0,), dtype=torch.bool, device=x.device),
+            overflow=overflow, atom_slot=atom_slot)
+
+    def _invalid(nl, xw):
+        """Overflow at build, or an atom drifted past skin/2 (strict >,
+        so any motion invalidates a zero-skin list)."""
+        d = xw - nl.x_ref
+        d = d - box_t * torch.round(d / box_t)
+        return nl.overflow | ((d * d).sum(-1).max() > drift2_max)
+
+    def cell_pair_inputs(nl: CellNeighborList, x: Tensor):
+        """The cell-pair kernel's ``(args, kwargs)`` at coordinates x:
+        positions, ids and the optional species, charge and exclusion
+        blocks gathered into cell layout."""
+        return _inputs(nl, _wrap(x))
+
+    def _inputs(nl, xw):
+        n = xw.shape[0]
+        _check_n(n)
+        cells = nl.cell_atoms.long().clamp(0, n - 1)
+        cell_x = xw[cells]                               # (n_cells, C, 3)
+        cxt = cell_x.transpose(1, 2).contiguous()
+        nxt = cell_x[cell_nb].reshape(n_cells, 27 * capacity, 3).transpose(
+            1, 2).contiguous()
+        cid = nl.cell_atoms.reshape(n_cells, 1, capacity)
+        nid = nl.cell_atoms[cell_nb].reshape(n_cells, 1, 27 * capacity)
+
+        def blocks(per_atom_t):
+            c = per_atom_t[cells]
+            return (c.reshape(n_cells, 1, capacity),
+                    c[cell_nb].reshape(n_cells, 1, 27 * capacity))
+
+        species = charge = exclusion = None
+        if per_atom:
+            (csig, nsig), (cse, nse) = blocks(sig_at), blocks(seps_at)
+            species = (csig, nsig, cse, nse)
+        if q_at is not None:
+            charge = blocks(q_at)
+        if exclude is not None:
+            # Padding slots (id n, clipped to n - 1) gather a real atom's
+            # partners; the kernel's i < n mask drops them first.
+            exclusion = _excl_tab(n)[cells].transpose(1, 2).contiguous()
+        kwargs = dict(n_atoms=n, sigma=1.0 if sigma is None else sigma,
+                      epsilon=1.0 if epsilon is None else epsilon,
+                      cutoff=float(cutoff), box=tuple(box_np.tolist()),
+                      shift=shift, coulomb_alpha=c_alpha)
+        return (cxt, nxt, cid, nid, species, charge, exclusion), kwargs
+
+    def _impl(nl, x):
+        xw = _wrap(x)
+        args, kwargs = _inputs(nl, xw)
+        e_cells, grad_t = cell_pair_energy_force(*args, **kwargs)
+        bad = _invalid(nl, xw)
+        # An overflowed build's atom_slot runs past the last slot: clamp
+        # (the result is NaN anyway) rather than index out of bounds.
+        grad = grad_t.transpose(1, 2).reshape(n_cells * capacity, 3)[
+            nl.atom_slot.long().clamp(max=n_cells * capacity - 1)]
+        nan = torch.where(bad, torch.nan, 1.0)
+        return e_cells.sum() * nan, grad * nan
+
+    def energy(nl: CellNeighborList, x: Tensor) -> Tensor:
+        return _CellEnergy.apply(x, _impl, nl)
+
+    # ---- the per-atom candidate layout: stress and heat flux ----
+    def _nb_cid_mask(nl, n):
+        """Per-atom neighbour-cell ids and candidate masks: stored on a
+        JAX XLA-path build, recomputed from the frozen x_ref binning
+        otherwise."""
+        if nl.nb_cid.numel():
+            return nl.nb_cid.long(), nl.mask
+        nb3 = (_cells3(nl.x_ref)[:, None, :] + offs_t[None]) % n_grid_t
+        nb_cid = (nb3 * strides).sum(-1).long()
+        cand = nl.cell_atoms[nb_cid].reshape(n, 27 * capacity)
+        mask = (cand < n) & (cand != torch.arange(n, device=cand.device)[
+            :, None])
+        if exclude is not None:
+            tab = _excl_tab(n)
+            for k in range(ex_deg):
+                mask = mask & (cand != tab[:, k:k + 1])
+        return nb_cid, mask
+
+    def _cand(nl, per_atom_t, nb_cid, n):
+        cells = nl.cell_atoms.long().clamp(0, n - 1)
+        return per_atom_t[cells][nb_cid].reshape(n, -1, *per_atom_t.shape[1:])
+
+    def _pairs(nl, xw):
+        """Min-image displacements and distances from the current
+        positions to every frozen candidate, the cutoff folded into the
+        mask (masked pairs get r = 1)."""
+        n = xw.shape[0]
+        nb_cid, nb_mask = _nb_cid_mask(nl, n)
+        d = xw[:, None, :] - _cand(nl, xw, nb_cid, n)
+        d = d - box_t * torch.round(d / box_t)
+        r2 = (d * d).sum(-1)
+        mask = nb_mask & (r2 < rc2)
+        r = torch.sqrt(torch.where(mask, r2, 1.0).clamp_min(_EPS))
+        return d, r, mask, nb_cid
+
+    def _pair_params(nl, nb_cid, n):
+        if not per_atom:
+            return sigma, epsilon
+        return (0.5 * (sig_at[:, None] + _cand(nl, sig_at, nb_cid, n)),
+                seps_at[:, None] * _cand(nl, seps_at, nb_cid, n))
+
+    def _pair_u_of(nl, r, nb_cid, n):
+        """Per-candidate pair energy u(r), unmasked."""
+        sig_p, eps_p = _pair_params(nl, nb_cid, n)
+        rcore = 0.3 * sig_p
+        slope = SLOPE_F * eps_p / sig_p
+        sr6 = (sig_p / r.clamp(min=rcore)) ** 6
+        u = 4.0 * eps_p * (sr6 * sr6 - sr6)
+        u = u + torch.where(r < rcore, slope * (r - rcore), 0.0)
+        if shift:
+            sc6 = (sig_p / cutoff) ** 6
+            u = u - 4.0 * eps_p * (sc6 * sc6 - sc6)
+        if q_at is not None:
+            qq = q_at[:, None] * _cand(nl, q_at, nb_cid, n)
+            u = u + qq * torch.special.erfc(c_alpha * r) / r
+        return u
+
+    def _pair_dudr(nl, xw):
+        """Per-candidate (d, r, mask, du/dr): the analytic core of the
+        stress tensor and the heat flux."""
+        n = xw.shape[0]
+        d, r, mask, nb_cid = _pairs(nl, xw)
+        sig_p, eps_p = _pair_params(nl, nb_cid, n)
+        rcore = 0.3 * sig_p
+        sr6 = (sig_p / r) ** 6
+        dudr = 24.0 * eps_p / r * (sr6 - 2.0 * sr6 * sr6)
+        dudr = torch.where(r < rcore, SLOPE_F * eps_p / sig_p, dudr)
+        if q_at is not None:
+            qq = q_at[:, None] * _cand(nl, q_at, nb_cid, n)
+            dudr = dudr - qq * (torch.special.erfc(c_alpha * r) / (r * r)
+                                + _TWO_OPI * c_alpha
+                                * torch.exp(-(c_alpha * r) ** 2) / r)
+        return d, r, mask, torch.where(mask, dudr, 0.0), nb_cid
+
+    vol = float(box_np.prod())
+
+    def stress(nl: CellNeighborList, x: Tensor) -> Tensor:
+        """Configurational pressure tensor
+        ``P_ab = -(1/2V) sum_{i != j} (du/dr) d_a d_b / r``, (3, 3); NaN
+        under the drift and overflow contract."""
+        _check_n(x.shape[0])
+        xw = _wrap(x)
+        d, r, _, dudr, _ = _pair_dudr(nl, xw)
+        sig = -0.5 * torch.einsum("nk,nka,nkb->ab", dudr / r, d, d) / vol
+        return sig * torch.where(_invalid(nl, xw), torch.nan, 1.0)
+
+    def heat_flux(nl: CellNeighborList, x: Tensor, v: Tensor,
+                  masses=1.0) -> Tensor:
+        """Energy flux ``J = (sum_i e_i v_i + (1/2) sum_{i<j} (f_ij .
+        (v_i + v_j)) d_ij) / V`` (Irving-Kirkwood pair form), (3,); NaN
+        under the drift and overflow contract."""
+        n = x.shape[0]
+        _check_n(n)
+        xw = _wrap(x)
+        d, r, mask, dudr, nb_cid = _pair_dudr(nl, xw)
+        u = torch.where(mask, _pair_u_of(nl, r, nb_cid, n), 0.0)
+        vc = _cand(nl, v, nb_cid, n)
+        m = torch.as_tensor(masses, dtype=v.dtype, device=v.device)
+        m_col = m[:, None] if m.ndim == 1 else m
+        e_i = 0.5 * (m_col * v * v).sum(-1) + 0.5 * u.sum(-1)
+        conv = (e_i[:, None] * v).sum(0)
+        fdotv = -(dudr / r) * torch.einsum("nka,nka->nk", d,
+                                           v[:, None, :] + vc)
+        vir = 0.25 * torch.einsum("nk,nka->a", fdotv, d)
+        return ((conv + vir) / vol) * torch.where(_invalid(nl, xw),
+                                                  torch.nan, 1.0)
+
+    def heat_flux_refused(*a, **k):
+        raise NotImplementedError(
+            "heat_flux with bonded exclusions is not supported: the "
+            "Irving-Kirkwood pair form needs ALL interatomic forces "
+            "(including the bonded terms that motivate exclusions), "
+            "which this nonbonded potential does not see")
+
+    energy.stress = stress
+    energy.heat_flux = heat_flux if exclude is None else heat_flux_refused
+    energy.cell_pair_inputs = cell_pair_inputs
+    return build, energy
+
+
+def lennard_jones_cell(sigma=1.0, epsilon=1.0, *, box: Sequence[float],
+                       cutoff: float, capacity: int = 24, shift: bool = True,
+                       device=None) -> Callable[[Tensor], Tensor]:
+    """Cell-list Lennard-Jones built anew at every call
+    (:func:`lennard_jones_cell_neighbor` at skin 0), over coordinates
+    (..., n, 3); NaN where a cell overflows ``capacity``."""
+    build, energy_nl = lennard_jones_cell_neighbor(
+        sigma, epsilon, box=box, cutoff=cutoff, skin=0.0,
+        capacity=capacity, shift=shift, device=device)
+
+    def energy(x: Tensor) -> Tensor:
+        if x.ndim == 2:
+            return energy_nl(build(x), x)
+        flat = x.reshape((-1,) + x.shape[-2:])
+        return torch.stack([energy_nl(build(xi), xi)
+                            for xi in flat]).reshape(x.shape[:-2])
+
+    return energy
+
+
+def _bspline_weights(order: int, t: Tensor) -> Tensor:
+    """Cardinal B-spline weights ``M_order(t + j)``, j = 0..order-1, as a
+    trailing axis (the PME coefficient recurrence, Essmann et al. 1995
+    eq. 4.1); ``t`` in [0, 1)."""
+    if order < 2:
+        raise ValueError("spline order must be >= 2")
+    w = [1.0 - t, t] + [torch.zeros_like(t) for _ in range(order - 2)]
+    for k in range(3, order + 1):
+        div = 1.0 / (k - 1)
+        w[k - 1] = div * t * w[k - 2]
+        for j in range(1, k - 1):
+            w[k - 1 - j] = div * ((t + j) * w[k - 2 - j]
+                                  + (k - j - t) * w[k - 1 - j])
+        w[0] = div * (1.0 - t) * w[0]
+    return torch.stack(w[::-1], dim=-1)
+
+
+def _bspline_integer_values(order: int) -> np.ndarray:
+    """``M_order`` at the integers 1..order-1 (numpy) for the Euler
+    exponential-spline factors."""
+    xs = np.arange(1, order, dtype=np.float64)
+
+    def mn(n, x):
+        if n == 2:
+            return np.where((x >= 0) & (x <= 2), 1.0 - np.abs(x - 1.0), 0.0)
+        return (x * mn(n - 1, x) + (n - x) * mn(n - 1, x - 1.0)) / (n - 1)
+
+    return mn(order, xs)
+
+
+def _next_smooth(n: int) -> int:
+    """The least 5-smooth even size >= max(n, 4): a fast FFT length."""
+    cand = max(int(n), 4)
+    while True:
+        m = cand
+        for p in (2, 3, 5):
+            while m % p == 0:
+                m //= p
+        if m == 1 and cand % 2 == 0:
+            return cand
+        cand += 1
+
+
+def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
+                cell=None, r_cutoff: float,
+                grid_shape: Optional[Sequence[int]] = None, order: int = 6,
+                exclude: Optional[np.ndarray] = None,
+                alpha: Optional[float] = None, tolerance: float = 1e-5,
+                include_real_space: bool = True, mesh=None, device=None
+                ) -> Callable[[Tensor], Tensor]:
+    """Smooth particle-mesh Ewald (Essmann et al. 1995) on an orthorhombic
+    ``box``: B-spline charge spreading (one ``index_add``), a real 3-D FFT
+    (``torch.fft.rfftn``), and the influence function
+    ``4 pi / k^2 e^{-k^2 / 4 alpha^2} / |b|^2`` built at construction;
+    plus the self, background and exclusion corrections and, with
+    ``include_real_space``, the dense erfc pair sum.  Forces by autograd
+    through the scatter and the FFT.
+
+    ``alpha`` defaults to ``sqrt(-ln tolerance) / r_cutoff``;
+    ``grid_shape`` to the least 5-smooth even size with spacing <= pi /
+    (1.5 k_cut) per axis (the JAX package's rule).  ``exclude`` (an (n,
+    n) bool matrix or (E, 2) pair list) removes each excluded pair's
+    Coulomb interaction, real and reciprocal.  ``energy.ewald_alpha``
+    and ``energy.grid_shape`` give the chosen values.  ``cell=``
+    (triclinic) and ``mesh=`` are not ported yet."""
+    if cell is not None:
+        raise NotImplementedError(
+            f"triclinic PME (cell=) is not ported yet ({_LATER}); pass "
+            "box= for an orthorhombic box")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh-sharded PME is not ported yet ({_LATER}: PME over "
+            "torch.distributed)")
+    q_np = np.asarray(charges, np.float64)
+    if q_np.ndim != 1:
+        raise ValueError(f"charges must be (n,); got {q_np.shape}")
+    if box is None:
+        raise ValueError("pass box= (orthorhombic lengths)")
+    box_np = np.asarray(box, np.float64)
+    if box_np.shape != (3,):
+        raise ValueError(f"box must be 3 lengths; got {box_np.shape}")
+    if not r_cutoff * 2.0 <= box_np.min():
+        raise ValueError(
+            f"r_cutoff {r_cutoff} must be <= half the smallest box "
+            f"edge ({box_np.min() / 2}) for minimum-image validity")
+    if order < 3:
+        raise ValueError("PME needs spline order >= 3 for usable "
+                         "accuracy (4 is standard)")
+    dev = default_device(device)
+    ln_tol = float(np.sqrt(-np.log(tolerance)))
+    alpha_v = float(alpha) if alpha is not None else ln_tol / float(r_cutoff)
+    k_cut = 2.0 * alpha_v * ln_tol
+    if grid_shape is None:
+        need = np.ceil(1.5 * k_cut * box_np / np.pi).astype(int)
+        grid_shape = tuple(_next_smooth(g) for g in need)
+    gx, gy, gz = (int(g) for g in grid_shape)
+    for g in (gx, gy, gz):
+        if g < 2 * order:
+            raise ValueError(f"grid_shape {grid_shape} too coarse for "
+                             f"order {order} (need >= {2 * order})")
+
+    # Influence function on the rfft half-spectrum, built with numpy.
+    def axis_modes(g):
+        m = np.arange(g)
+        return np.where(m <= g // 2, m, m - g)
+
+    mx, my, mz = axis_modes(gx), axis_modes(gy), np.arange(gz // 2 + 1)
+    kx = 2 * np.pi * mx / box_np[0]
+    ky = 2 * np.pi * my / box_np[1]
+    kz = 2 * np.pi * mz / box_np[2]
+    k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+          + kz[None, None, :] ** 2)
+
+    def euler_b2(g, m_signed):
+        """|b(m)|^2 per axis mode (Essmann eq. 4.4); an even-order spline
+        cannot represent the Nyquist mode of an even grid: dropped."""
+        mvals = _bspline_integer_values(order)
+        kk = np.arange(order - 1)
+        ph = np.exp(2j * np.pi * m_signed[:, None] * kk[None, :] / g)
+        b2 = 1.0 / np.maximum(np.abs((mvals[None, :] * ph).sum(1)) ** 2,
+                              1e-300)
+        if order % 2 == 0 and g % 2 == 0:
+            b2 = np.where(np.abs(m_signed) == g // 2, 0.0, b2)
+        return b2
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        infl = (4 * np.pi / k2) * np.exp(-k2 / (4 * alpha_v * alpha_v))
+    infl[0, 0, 0] = 0.0
+    infl = infl * (euler_b2(gx, mx)[:, None, None]
+                   * euler_b2(gy, my)[None, :, None]
+                   * euler_b2(gz, mz)[None, None, :])
+    # Half-spectrum: double every mode whose conjugate is not stored.
+    dbl = np.full(mz.size, 2.0)
+    dbl[0] = 1.0
+    if gz % 2 == 0:
+        dbl[-1] = 1.0
+    vol = float(np.prod(box_np))
+    infl_t = _f32(0.5 / vol * infl * dbl[None, None, :], dev)
+
+    q = _f32(q_np, dev)
+    n_q = q_np.size
+    box_t = _f32(box_np, dev)
+    grid_t = _f32([gx, gy, gz], dev)
+    sizes = torch.as_tensor([gx, gy, gz], device=dev)
+    j_order = torch.arange(order, device=dev)
+    excl_pairs = real_mask = None
+    if exclude is not None:
+        m_host = _exclude_matrix(exclude, n_q)
+        pairs = np.argwhere(np.triu(m_host, 1))
+        if pairs.size:
+            excl_pairs = (torch.as_tensor(pairs[:, 0], device=dev),
+                          torch.as_tensor(pairs[:, 1], device=dev))
+    if include_real_space:
+        m = np.triu(np.ones((n_q, n_q), bool), k=1)
+        if exclude is not None:
+            m &= ~_exclude_matrix(exclude, n_q)
+        real_mask = torch.as_tensor(m, device=dev)
+    rc2 = float(r_cutoff) * float(r_cutoff)
+
+    def _minimg(d):
+        return d - box_t * torch.round(d / box_t)
+
+    def _spread(x: Tensor) -> Tensor:
+        """Charges on the (gx, gy, gz) grid: order^3 B-spline points per
+        atom, summed by one index_add."""
+        s = x / box_t
+        u = (s - torch.floor(s)) * grid_t
+        base = torch.floor(u)
+        w = _bspline_weights(order, u - base)            # (n, 3, order)
+        pts = (base.long()[..., None] - j_order) % sizes[:, None]
+        wq = (q[:, None, None, None] * w[:, 0, :, None, None]
+              * w[:, 1, None, :, None] * w[:, 2, None, None, :])
+        flat = ((pts[:, 0, :, None, None] * gy + pts[:, 1, None, :, None])
+                * gz + pts[:, 2, None, None, :])
+        grid = torch.zeros(gx * gy * gz, dtype=x.dtype, device=x.device)
+        grid = grid.index_add(0, flat.reshape(-1), wq.reshape(-1))
+        return grid.reshape(gx, gy, gz)
+
+    def energy(x: Tensor) -> Tensor:
+        n = x.shape[-2]
+        if n != n_q:
+            raise ValueError(f"coords have {n} atoms but charges has {n_q}")
+        if x.ndim > 2:
+            flat = x.reshape((-1,) + x.shape[-2:])
+            return torch.stack([energy(xi) for xi in flat]).reshape(
+                x.shape[:-2])
+        f = torch.fft.rfftn(_spread(x))
+        u_recip = (infl_t * (f.real ** 2 + f.imag ** 2)).sum()
+        xw = x - box_t * torch.floor(x / box_t)
+        total = u_recip
+        if include_real_space:
+            d = _minimg(xw[:, None, :] - xw[None, :, :])
+            r2 = (d * d).sum(-1)
+            mask = real_mask & (r2 < rc2)
+            r = torch.sqrt(torch.where(mask, r2, 1.0).clamp_min(_EPS))
+            qq = q[:, None] * q[None, :]
+            total = total + torch.where(
+                mask, qq * torch.special.erfc(alpha_v * r) / r, 0.0).sum()
+        total = total - alpha_v / math.sqrt(math.pi) * (q * q).sum()
+        total = total - math.pi / (2 * vol * alpha_v * alpha_v) * q.sum() ** 2
+        if excl_pairs is not None:
+            pi, pj = excl_pairs
+            de = _minimg(xw[pi] - xw[pj])
+            re = torch.sqrt((de * de).sum(-1).clamp_min(_EPS))
+            total = total - (q[pi] * q[pj] * torch.special.erf(alpha_v * re)
+                             / re).sum()
+        return total
+
+    energy.ewald_alpha = alpha_v
+    energy.grid_shape = (gx, gy, gz)
+    return energy
+
+
+def composite(*terms: Callable[[Tensor], Tensor]
+              ) -> Callable[[Tensor], Tensor]:
+    """The sum of potential terms (a force field)."""
+    if not terms:
+        raise ValueError("composite needs at least one term")
+
+    def energy(x: Tensor) -> Tensor:
+        total = terms[0](x)
+        for t in terms[1:]:
+            total = total + t(x)
+        return total
+
+    return energy
