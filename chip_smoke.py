@@ -8,8 +8,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    process per source, in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the paths below, with the tolerances stated beside
-   each check, and times both (the MAF block also against its unfused
-   route, and by torch.profiler's device time);
+   each check, and times both by CUDA events behind a device spin, so
+   that the host's enqueue does not count (the MAF block also against
+   its unfused route and by torch.profiler's device time; the one-row
+   MAF conditioner also against the library chain addmm, tanh, addmm);
+   the dense-stack checks name the regime the kernel ran, and the build
+   prints ptxas's registers and spills of the dense-stack and MAF-block
+   kernels;
 3. checks the proposal kernel's own Philox draws: the plain version on
    the same seed, the densities of its samples recomputed through the
    model's distribution objects, and the moments of the normals it drew;
@@ -18,7 +23,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    target at 10k and 50k chains: the generic ``make_mcmc_step`` (dense
    stack + RQS kernels) and ``make_fused_vae_step`` (proposal kernel),
    and checks acceptance, finiteness, the chains' second moment and the
-   counters;
+   counters, with the device busy time per step of a profiled window;
 5. trains the flagship VAE by its ELBO through ``train.fit`` at batch
    10k on 100k two-mode 2-D points (dense stack + RQS kernels), and an
    8-D RQS-spline MAF flow model (reference widths: hidden 200, 32 bins
@@ -89,11 +94,12 @@ from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
 from vaemolsim_tpu_torch.ops import cell_lj, maf_fused, rqs
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
-                                               dense_stack_plain)
+                                               dense_stack_plain,
+                                               stack_regime)
 from vaemolsim_tpu_torch.train import fit
 
 SIZES = (10_000, 50_000)
-WARMUP_STEPS, TIMED_STEPS = 20, 200
+WARMUP_STEPS, TIMED_STEPS, MC_PROFILED = 20, 200, 20
 TRAIN_N, TRAIN_BATCH, TRAIN_EPOCHS = 100_000, 10_000, 5
 FLOW_D = 8
 BM_SITES, BM_FRAMES, BM_BATCH, BM_EPOCHS = 10_000, 2_000, 128, 5
@@ -110,6 +116,8 @@ MOL_SHAPE = "molecular coulomb+exclusion"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# The H100 SXM's boost SM clock, to turn a spin time into cycles.
+SM_HZ = 1.98e9
 RESULTS = {"checks": [], "mc": [], "train": []}
 
 
@@ -119,11 +127,21 @@ def fail_unless(cond, what):
 
 
 def timed(fn, reps=20):
-    """Mean device milliseconds of fn() over reps, after a warm-up."""
+    """Mean device milliseconds of fn() over reps back-to-back calls,
+    after a warm-up, by CUDA events.  The device first spins for 1.5x the
+    host's time to enqueue the reps calls (``torch.cuda._sleep``, capped
+    at 0.2 s), so that where the host keeps ahead of the device the
+    events time the launches and not the host's enqueue between them."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host, 0.2) * SM_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -150,7 +168,8 @@ def record(kernel, shape, max_err, ms=None, plain_ms=None, **extra):
                               "max_abs_err": max_err, "ms": ms,
                               "plain_ms": plain_ms, **extra})
     t = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-    t += "".join(f"  {k} {v:.4f}" for k, v in extra.items() if v is not None)
+    t += "".join(f"  {k} {v:.4f}" if isinstance(v, float) else f"  {k} {v}"
+                 for k, v in extra.items() if v is not None)
     print(f"check {kernel:12s} {shape:44s} max_abs_err {max_err:.3e}{t}",
           flush=True)
 
@@ -261,9 +280,13 @@ def check_rqs(vae, gen, dev):
 def check_dense_stack(vae, gen, dev):
     """The flagship encoder (2->200->2 relu) and decoder (1->200->4 relu)
     with their own weights; 1->200->95 tanh with and without a 3-wide
-    conditional input; and the one-row merged MAF conditioner
-    (1->600->95 tanh).  Float32 sums of up to 600 terms in another
-    order than cuBLAS's: 1e-4 + 1e-4|y|."""
+    conditional input; the backmapping decoder's widths (20->40->9 relu);
+    and the one-row merged MAF conditioner (1->600->95 tanh), also at 16
+    and 17 rows (the small-N regime's limit and one past it).  Float32
+    sums of up to 600 terms in another order than cuBLAS's: 1e-4 +
+    1e-4|y|.  Each check names the regime the kernel ran; the one-row
+    conditioner is timed against the library chain that computes it
+    (``torch.addmm``, ``tanh``, ``torch.addmm``) in the same run."""
     def weights(dims, cond_dim=0):
         ks = [torch.randn(a, b, generator=gen, device=dev) / math.sqrt(a)
               for a, b in zip(dims[:-1], dims[1:])]
@@ -290,9 +313,11 @@ def check_dense_stack(vae, gen, dev):
          SIZES),
         ("1->200->95 tanh cond 3", 1, weights([1, 200, 95], 3),
          ["tanh", None], 3, SIZES),
+        ("backmapping decoder 20->40->9 relu", 20,
+         weights([20, 40, 9]), ["relu", None], 0, (BM_BATCH, BM_SITES)),
         ("MAF conditioner 1->600->95 tanh", 1,
          ([k1.detach(), k2.detach()], [b1.detach(), b2.detach()], None),
-         ["tanh", None], 0, (1,)),
+         ["tanh", None], 0, (1, 16, 17)),
     ]
     for name, din, (ks, bs, cks), acts, dc, sizes in cases:
         for n in sizes:
@@ -303,11 +328,18 @@ def check_dense_stack(vae, gen, dev):
             want = dense_stack_plain(x, ks, bs, acts, c, cks)
             err = compare(name, got, want, 1e-4, 1e-4)
             ms = plain_ms = None
-            if n == SIZES[-1] or sizes == (1,):
+            extra = {}
+            if n in (SIZES[-1], 1):
                 ms = timed(lambda: dense_stack_cuda(x, ks, bs, acts, c, cks))
                 plain_ms = timed(lambda: dense_stack_plain(x, ks, bs, acts,
                                                            c, cks))
-            record("dense_stack", f"{name} N={n}", err, ms, plain_ms)
+            if n == 1:
+                (w1, w2), (c1, c2) = ks, bs
+                extra["library_ms"] = timed(lambda: torch.addmm(
+                    c2, torch.tanh(torch.addmm(c1, x, w1)), w2))
+            regime = stack_regime(n, [din] + [k.shape[1] for k in ks], dc)[0]
+            record("dense_stack", f"{name} N={n}", err, ms, plain_ms,
+                   regime=regime, **extra)
 
 
 def _proposal_args(vae):
@@ -421,13 +453,18 @@ def check_maf_block(flow, gen, dev, label=""):
         cond = layer.conditioner
         params = [p.detach() for p in cond.merged_params() if p is not None]
         D, K = cond.w_net.event_size, cond.num_bins
+        deg = cond.w_net.input_order_static
         for n in sizes:
             y = 4.0 * torch.randn(n, D, generator=gen, device=dev)
             ctx = torch.randn(n, dc, generator=gen, device=dev) if dc else None
             for inverse in (True, False):
                 args = (y, params, ctx, D, K, cond.bin_min, cond.bin_max,
                         inverse)
-                got = maf_fused.maf_block_cuda(*args)
+
+                def kernel():
+                    return maf_fused.maf_block_cuda(*args, degrees=deg)
+
+                got = kernel()
                 want = maf_fused.maf_block_plain(*args)
                 err = max(compare(f"maf_block {name} x", got[0], want[0],
                                   1e-4, 1e-4, 1e-4),
@@ -442,15 +479,14 @@ def check_maf_block(flow, gen, dev, label=""):
                     compare(f"unfused {name} ldj", unf[1], want[1], 1e-3,
                             1e-4, 1e-4)
                     if not label:
-                        ms = timed(lambda: maf_fused.maf_block_cuda(*args))
+                        ms = timed(kernel)
                         plain_ms = timed(
                             lambda: maf_fused.maf_block_plain(*args))
                         extra["unfused_ms"] = timed(
                             lambda: layer.unfused_and_log_det(y, ctx,
                                                               inverse))
                         _, extra["device_us"] = device_us(
-                            lambda: maf_fused.maf_block_cuda(*args),
-                            "maf_block_kernel")
+                            kernel, "maf_block_kernel")
                         extra["plain_device_us"], _ = device_us(
                             lambda: maf_fused.maf_block_plain(*args), "")
                         extra["unfused_device_us"], _ = device_us(
@@ -618,13 +654,29 @@ def run_path(name, step, dev):
         fail_unless(int(state.num_trials) == n * steps,
                     f"{name} N={n}: {int(state.num_trials)} trials")
         rate = n * TIMED_STEPS / dt
-        RESULTS["mc"].append({"path": name, "chains": n, "steps":
-                              TIMED_STEPS, "seconds": dt,
-                              "proposals_per_s": rate, "acceptance": acc,
-                              "second_moment": m2})
+        row = {"path": name, "chains": n, "steps": TIMED_STEPS,
+               "seconds": dt, "proposals_per_s": rate, "acceptance": acc,
+               "second_moment": m2}
+        busy = ""
+        if n == SIZES[-1]:
+            # Device busy per step from a profiled window of MC_PROFILED
+            # steps (the profiler adds host time: the window's own wall
+            # time gives the idle share).
+            window_s, prof = profiled(lambda: run_mcmc(step, state,
+                                                       MC_PROFILED))
+            busy_us, _ = device_time(prof)
+            window_ms = 1e3 * window_s / MC_PROFILED
+            if busy_us is not None:
+                row["device_busy_ms_per_step"] = busy_us / 1e3 / MC_PROFILED
+                row["device_idle_share"] = (
+                    1.0 - row["device_busy_ms_per_step"] / window_ms)
+                busy = (f"  device busy {row['device_busy_ms_per_step']:.3f}"
+                        f" of {window_ms:.3f} ms/step profiled "
+                        f"({row['device_idle_share']:.3f} idle)")
+        RESULTS["mc"].append(row)
         print(f"mc {name:8s} N={n:6d} {rate:14.1f} proposals/s  "
               f"({dt * 1e3 / TIMED_STEPS:.3f} ms/step)  acceptance "
-              f"{acc:.4f}  E[x^2] {m2:.4f}", flush=True)
+              f"{acc:.4f}  E[x^2] {m2:.4f}{busy}", flush=True)
     return _build.launch_counts()
 
 
@@ -1352,14 +1404,15 @@ def bounds(vae, flow):
     masked = sum(int(m.sum()) for n in cond.nets for m in n.masks)
     spline = nf * D * (2 * 3 * Kf + spline_flops(Kf))
     out["maf_block"] = _bound(maf_bytes, 2 * nf * masked + spline)
-    # The forward repeats the conditioner and the spline D times on the
-    # same rows and weights.
-    out["maf_block forward"] = _bound(maf_bytes,
-                                      D * (2 * nf * masked + spline))
+    # The forward (the D-pass fixed point) needs each DOF's outputs and
+    # each hidden unit once, from final inputs: the inverse's work.  The
+    # D-pass count (the plain version's, and the first design of kernel
+    # 3's) is kept beside it.
+    out["maf_block forward"] = _bound(maf_bytes, 2 * nf * masked + spline)
+    out["maf_block forward D-pass"] = _bound(
+        maf_bytes, D * (2 * nf * masked + spline))
     out["maf_block block-diagonal"] = _bound(
         maf_bytes, 2 * nf * (D * 3 * H + head) + spline)
-    out["maf_block forward block-diagonal"] = _bound(
-        maf_bytes, D * (2 * nf * (D * 3 * H + head) + spline))
     # The flagship prior's one-row merged conditioner: its weights.
     w = [t for t in vae.prior.flow.blocks[0].conditioner.merged_params()
          if t is not None]
@@ -1406,6 +1459,11 @@ def main():
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for src in ("dense_stack", "maf_block"):
+        for line in _build.BUILD_LOGS.get(src, "(cached)").splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "(cached)")):
+                print(f"ptxas {src}: {line.strip()}", flush=True)
 
     vae = flagship_experiment_config().build(dev)
     flow = ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(

@@ -83,6 +83,48 @@ def test_dense_stack_kernel_matches_plain(dev, act, cond_dim):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def _stack(gen, dev, dims, dc):
+    ks = [torch.randn(a, b, generator=gen, device=dev) / a ** 0.5
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
+    cks = ([0.3 * torch.randn(dc, b, generator=gen, device=dev)
+            for b in dims[1:]] if dc else None)
+    return ks, bs, cks
+
+
+@pytest.mark.parametrize("dims,dc,acts", [
+    ([1, 600, 95], 0, ["tanh", None]),          # the one-row conditioner
+    ([2, 200, 2], 0, ["relu", None]),           # encoder
+    ([20, 40, 9], 3, ["relu", "tanh"]),         # backmapping widths, cond
+    ([4, 64, 8], 3, ["tanh", "relu"]),          # streaming, cond on both
+    ([3, 64, 48, 33, 17, 9, 5, 4, 2], 2,        # 8 layers
+     ["tanh", "relu", None, "tanh", "relu", "tanh", "relu", None]),
+    ([5, 300, 95], 4, ["tanh", None]),          # wide head, cond
+])
+def test_dense_stack_regimes_match_plain(dev, dims, dc, acts):
+    """Every regime of the kernel and its edges: N = 0, 1, 2 and the
+    small-N limit 16 +- 1 (one cluster), 31, 33 (one tile +- 1), 777 and
+    50k (streaming or tiled), each against the plain version, 1e-4 +
+    1e-4|y|, one launch per call; ``stack_regime`` names the regime."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ks, bs, cks = _stack(gen, dev, dims, dc)
+    seen = set()
+    for n in (0, 1, 2, 15, 16, 17, 31, 33, 777, 50_000):
+        x = torch.randn(n, dims[0], generator=gen, device=dev)
+        c = torch.randn(n, dc, generator=gen, device=dev) if dc else None
+        before = fused_mlp.KERNEL.launches
+        with torch.no_grad():
+            got = fused_dense_stack(x, ks, bs, acts, c, cks)
+        assert fused_mlp.KERNEL.launches == before + 1
+        want = dense_stack_plain(x, ks, bs, acts, c, cks)
+        assert got.shape == (n, dims[-1])
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=n: f"N={n}: {m}")
+        seen.add(fused_mlp.stack_regime(n, dims, dc)[0])
+    assert "small" in seen and seen & {"stream", "tiled"}
+
+
 def test_dense_stack_gradient_recomputes_through_plain(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     W1 = torch.randn(3, 16, generator=gen, device=dev).requires_grad_()
@@ -149,6 +191,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fused_dense_stack(torch.zeros(4, 1, device=dev), wide,
                           [torch.zeros(30000, device=dev),
                            torch.zeros(1, device=dev)], ["relu", None])
+    # What the wrapper mirrors, the kernel refuses itself: the same stack
+    # straight through the launch returns cudaErrorInvalidValue.
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    import ctypes
+    x4, out = torch.zeros(4, 1, device=dev), torch.zeros(4, 1, device=dev)
+    ptrs = ctypes.c_void_p * 2
+    with pytest.raises(RuntimeError, match="dense_stack kernel launch"):
+        fused_mlp.KERNEL.launch(
+            dev, x4.data_ptr(), None, out.data_ptr(), 4, 2,
+            (ctypes.c_int * 3)(1, 30000, 1), (ctypes.c_int * 2)(2, 0),
+            ptrs(wide[0].data_ptr(), wide[1].data_ptr()),
+            ptrs(wide[0].data_ptr(), out.data_ptr()), ptrs(None, None), 0)
     assert set(_build.launch_counts()) == {"rqs", "dense_stack",
                                            "vae_proposal", "maf_block",
                                            "pair_attention", "cell_lj"}
@@ -190,11 +244,51 @@ def test_maf_block_kernel_matches_plain(dev, inverse, D, cond_dim, n):
         args = (y, params, ctx, D, cond.num_bins, cond.bin_min, cond.bin_max,
                 inverse)
         before = maf_fused.KERNEL.launches
-        got = maf_fused.maf_block_cuda(*args)
+        got = maf_fused.maf_block_cuda(
+            *args, degrees=cond.w_net.input_order_static)
         assert maf_fused.KERNEL.launches == before + 1
         want = maf_fused.maf_block_plain(*args)
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("order", ["left-to-right", "right-to-left",
+                                   "random"])
+@pytest.mark.parametrize("D,cond_dim", [(2, None), (3, None), (8, None),
+                                        (2, 4), (3, 20), (8, 5)])
+def test_maf_block_kernel_orders_and_sizes(dev, order, D, cond_dim):
+    """The redesigned kernel (hidden units sorted by degree, the forward
+    making each DOF once in order of degree) at D = 2, 3, 8, with and
+    without a context, in all three input orders, at N = 1, 777 and 10k,
+    both directions, against the plain version: values 1e-4 + 1e-4|v|,
+    log-dets 1e-3 + 1e-4|v|; a fraction 1e-4 may land in a neighbouring
+    bin at a knot."""
+    from chip_smoke import compare
+    gen = torch.Generator(device=dev).manual_seed(10 + D)
+    io = (torch.randperm(D, generator=torch.Generator().manual_seed(D))
+          .add(1).tolist() if order == "random" else order)
+    cond = MaskedSplineConditioner.create(
+        gen, D, bin_range=(-6.0, 6.0), num_bins=16, hidden_dim=64,
+        conditional=cond_dim is not None, conditional_event_shape=cond_dim,
+        input_order=io, device=dev)
+    with torch.no_grad():
+        for net in cond.nets:
+            for k in net.kernels:
+                k.mul_(4.0)
+            for b in net.biases:
+                b.add_(0.2 * torch.randn(b.shape, generator=gen, device=dev))
+        params = [p for p in cond.merged_params() if p is not None]
+        for n in (1, 777, 10_000):
+            y = 3.0 * torch.randn(n, D, generator=gen, device=dev)
+            ctx = (torch.randn(n, cond_dim, generator=gen, device=dev)
+                   if cond_dim else None)
+            for inverse in (True, False):
+                args = (y, params, ctx, D, 16, -6.0, 6.0, inverse)
+                got = maf_fused.maf_block_cuda(
+                    *args, degrees=cond.w_net.input_order_static)
+                want = maf_fused.maf_block_plain(*args)
+                compare("x", got[0], want[0], 1e-4, 1e-4, 1e-4)
+                compare("ldj", got[1], want[1], 1e-3, 1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("kind", ["D3", "D1 conditional", "D1", "circular",
@@ -255,34 +349,42 @@ def test_maf_block_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev,
                                              dtype=torch.float64),
-                                 params, None, 3, 16, -6.0, 6.0, True)
+                                 params, None, 3, 16, -6.0, 6.0, True,
+                                 degrees=(1, 2, 3))
+    with pytest.raises(ValueError, match="degrees"):
+        maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev), params, None,
+                                 3, 16, -6.0, 6.0, True)
+    with pytest.raises(ValueError, match="permutation"):
+        maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev), params, None,
+                                 3, 16, -6.0, 6.0, True, degrees=(1, 1, 2))
     big = [torch.zeros(3, 3 * 6000, device=dev),
            torch.zeros(3 * 6000, device=dev),
            torch.zeros(3 * 6000, 3 * 47, device=dev),
            torch.zeros(3 * 47, device=dev)]
     with pytest.raises(RuntimeError, match="maf_block kernel launch failed"):
         maf_fused.maf_block_cuda(torch.zeros(4, 3, device=dev), big, None, 3,
-                                 16, -6.0, 6.0, True)
+                                 16, -6.0, 6.0, True, degrees=(1, 2, 3))
 
 
 @pytest.mark.parametrize("inverse", [True, False])
 def test_maf_block_kernel_reads_only_diagonal_blocks_of_k2(dev, inverse):
-    """The kernel's contract: k2 is block-diagonal over the three heads,
-    and it reads only the diagonal blocks.  With noise in the blocks off
-    the diagonal its output is the plain version's on k2 with those
-    blocks zeroed (1e-4 + 1e-4|v|, log-dets 1e-3 + 1e-4|v|)."""
+    """The kernel's contract: k2 is block-diagonal over the three heads
+    and MADE-masked, and it reads only the diagonal blocks' unmasked
+    entries.  With noise off the diagonal blocks and in the masked
+    entries its output is the plain version's on the clean k2 (1e-4 +
+    1e-4|v|, log-dets 1e-3 + 1e-4|v|)."""
     layer = _maf_layer(dev, 3)
     cond = layer.conditioner
     with torch.no_grad():
         k1, b1, k2, b2 = [p for p in cond.merged_params() if p is not None]
         gen = torch.Generator(device=dev).manual_seed(8)
-        off = torch.block_diag(
-            *[torch.ones_like(n.kernels[1]) for n in cond.nets]) == 0
+        off = torch.block_diag(*[n.masks[1] for n in cond.nets]) == 0
         noisy = torch.where(off, torch.randn(k2.shape, generator=gen,
                                              device=dev), k2)
         y = 3.0 * torch.randn(501, 3, generator=gen, device=dev)
         args = (3, cond.num_bins, cond.bin_min, cond.bin_max, inverse)
-        got = maf_fused.maf_block_cuda(y, [k1, b1, noisy, b2], None, *args)
+        got = maf_fused.maf_block_cuda(y, [k1, b1, noisy, b2], None, *args,
+                                       degrees=(1, 2, 3))
         want = maf_fused.maf_block_plain(y, [k1, b1, k2, b2], None, *args)
     assert bool(off.any())
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)

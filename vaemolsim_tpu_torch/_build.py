@@ -26,13 +26,16 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "NVCC_FLAGS", "build_all", "reset_launches",
-           "launch_counts", "call_with_plain_grad"]
+__all__ = ["Kernel", "KERNELS", "NVCC_FLAGS", "BUILD_LOGS", "build_all",
+           "reset_launches", "launch_counts", "call_with_plain_grad"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 CACHE_DIR = Path(__file__).resolve().parent / "_build_cache"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# The compiler's output of each source built in this process (ptxas's
+# registers, shared memory and spills per kernel), by source stem.
+BUILD_LOGS: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -80,6 +83,7 @@ def build_all() -> Dict[str, Path]:
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             errors.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
@@ -174,7 +178,13 @@ def require(t: torch.Tensor, what: str, shape=None,
 class _PlainGrad(torch.autograd.Function):
     """Forward through a kernel, backward by recomputing the plain
     version under autograd (the counterpart of the JAX ``custom_vjp``s
-    whose backward re-runs the XLA path)."""
+    whose backward re-runs the XLA path).
+
+    Under ``create_graph=True`` the backward runs in grad mode: it then
+    recomputes on the saved inputs themselves and keeps the graph, so
+    the gradient it returns is differentiable again (a second derivative
+    through a kernel route).  Otherwise it recomputes on detached copies
+    and keeps no graph alive."""
 
     @staticmethod
     def forward(ctx, kernel_fn, plain_fn, *tensors):
@@ -184,8 +194,12 @@ class _PlainGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        inputs = [t.detach().requires_grad_(t.requires_grad)
-                  for t in ctx.saved_tensors]
+        higher = torch.is_grad_enabled()
+        if higher:
+            inputs = list(ctx.saved_tensors)
+        else:
+            inputs = [t.detach().requires_grad_(t.requires_grad)
+                      for t in ctx.saved_tensors]
         with torch.enable_grad():
             out = ctx.plain_fn(*inputs)
         outs = out if isinstance(out, tuple) else (out,)
@@ -193,7 +207,8 @@ class _PlainGrad(torch.autograd.Function):
         need = [t for t in inputs if t.requires_grad]
         got = iter(torch.autograd.grad([o for o, _ in pairs],
                                        need, [g for _, g in pairs],
-                                       allow_unused=True))
+                                       allow_unused=True,
+                                       create_graph=higher))
         return (None, None, *[next(got) if t.requires_grad else None
                               for t in inputs])
 

@@ -15,7 +15,9 @@ MAFLayer runs a whole block through the MAF-block kernel
 (``ops/maf_fused.py``, ``csrc/maf_block.cu``) on every CUDA input that
 the kernel supports: a mergeable conditioner whose three nets share one
 hidden width, a spline that is not circular, a 2-D input (and context),
-the float32 compute dtype, and not the 1-D unconditional block, which
+the float32 compute dtype, at most ``maf_fused.MAX_DOFS`` DOFs (the
+kernel is given the conditioner's input degrees), and not the 1-D
+unconditional block, which
 keeps its constant-spline shortcut (one conditioner row for the whole
 batch).  Every other block, and every CPU input, takes the unfused route
 (conditioner through the dense-stack kernel, then the RQS kernel).
@@ -239,12 +241,14 @@ class MAFLayer(bj.Bijector, nn.Module):
         """(params, ctx) for the MAF-block kernel, or None where the
         block takes the unfused route."""
         from vaemolsim_tpu_torch.nn.core import compute_dtype
+        from vaemolsim_tpu_torch.ops import maf_fused
         cond = self.conditioner
         if not (t.is_cuda and cond.mergeable and not cond.circular
                 and t.dim() == 2
                 and (context is None or context.dim() == 2)
                 and compute_dtype() in (None, torch.float32)
                 and (cond.w_net.event_size > 1 or cond.conditional)
+                and cond.w_net.event_size <= maf_fused.MAX_DOFS
                 and len({n.kernels[0].shape[1] for n in cond.nets}) == 1):
             return None
         cond._check_conditional(context)
@@ -264,7 +268,8 @@ class MAFLayer(bj.Bijector, nn.Module):
         fn = (maf_fused.maf_block_inverse_fused if inverse
               else maf_fused.maf_block_forward_fused)
         return fn(t, params, ctx, cond.w_net.event_size, cond.num_bins,
-                  cond.bin_min, cond.bin_max)
+                  cond.bin_min, cond.bin_max,
+                  degrees=cond.w_net.input_order_static)
 
     def _spline(self, t: Tensor, context: Optional[Tensor]):
         cond = self.conditioner

@@ -13,7 +13,7 @@ runs.  Weights keep the JAX ``(in, out)`` layout.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -22,7 +22,7 @@ from vaemolsim_tpu_torch import _build
 Tensor = torch.Tensor
 
 __all__ = ["fused_dense_stack", "dense_stack_plain", "dense_stack_cuda",
-           "KERNEL"]
+           "stack_regime", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "dense_stack", "csrc/dense_stack.cu", "dense_stack_launch",
@@ -32,11 +32,44 @@ KERNEL = _build.Kernel(
     replaces="vaemolsim_tpu/ops/fused_mlp.py:106")
 
 _ACT_CODES = {None: 0, "linear": 0, "tanh": 1, "relu": 2}
-# Mirrors of csrc/dense_stack.cu's kMaxLayers, kRows and the sm_90
-# shared-memory limit (the kernel refuses the same cases itself).
+# Mirrors of csrc/dense_stack.cu's limits (the kernel refuses the same
+# cases itself): layers, the small-N regime's rows and cluster, the
+# streaming regime's record widths, the tiled regime's shared-memory
+# stride (32 rows + 4), and the sm_90 shared-memory limit.
 _MAX_LAYERS = 8
-_ROWS = 32
+_SMALL_ROWS = 16
+_CLUSTER = 8
+_STREAM_BUCKETS = ((4, 4), (8, 8))
+_TILE_STRIDE = 36
 _MAX_SMEM = 232448
+
+
+def stack_regime(n: int, dims: Sequence[int], dc: int = 0
+                 ) -> Tuple[str, int]:
+    """The regime ``csrc/dense_stack.cu`` runs ``n`` rows of a stack of
+    widths ``dims`` (input first) with a conditional input ``dc`` wide
+    in, and its dynamic shared memory in bytes: ``"small"`` (n <= 16,
+    one cluster of 8 blocks, each also holding its slice of the last
+    layer's weights), ``"stream"`` (two layers, din + dc + 1 <= 8
+    and dout <= 8, one thread per row), ``"tiled"`` (32-row tiles),
+    or ``"refused"`` where none fits; the first that fits, in that
+    order."""
+    L = len(dims) - 1
+    if n <= _SMALL_ROWS:
+        slice_ = max([-(-d // _CLUSTER) for d in dims[1:L]], default=0)
+        slab = -(-dims[L - 1] // _CLUSTER) * dims[L] if L > 1 else 0
+        small = 4 * (n * (max(dims) + slice_ + dims[-1] + dc) + slab)
+        if small <= _MAX_SMEM:
+            return "small", small
+    if L == 2:
+        for k_in, k_out in _STREAM_BUCKETS:
+            if dims[0] + dc + 1 <= k_in and dims[2] <= k_out:
+                stream = 4 * dims[1] * (k_in + k_out)
+                if stream <= _MAX_SMEM:
+                    return "stream", stream
+                break
+    tiled = 4 * _TILE_STRIDE * (2 * max(dims) + dc)
+    return ("tiled" if tiled <= _MAX_SMEM else "refused"), tiled
 
 
 def dense_stack_plain(x: Tensor, kernels: Sequence[Tensor],
@@ -100,12 +133,12 @@ def dense_stack_cuda(x: Tensor, kernels: Sequence[Tensor],
                             (n, dc))
         Cs = [_build.require(C, f"cond_kernels[{i}]", (dc, dims[i + 1]))
               for i, C in enumerate(cond_kernels)]
-    smem = 4 * _ROWS * (2 * (max(dims) | 1) + dc)
-    if smem > _MAX_SMEM:
+    regime, smem = stack_regime(n, dims, dc)
+    if regime == "refused":
         raise ValueError(
-            f"dense stack of widths {dims} (cond width {dc}) needs {smem} "
-            f"bytes of shared memory per block, more than the {_MAX_SMEM} "
-            "a block may use")
+            f"dense stack of widths {dims} (cond width {dc}) at {n} rows "
+            f"needs {smem} bytes of shared memory per block, more than the "
+            f"{_MAX_SMEM} a block may use")
     out = torch.empty((n, dims[-1]), dtype=x.dtype, device=x.device)
     ptrs = ctypes.c_void_p * n_layers
     KERNEL.launch(
@@ -115,6 +148,29 @@ def dense_stack_cuda(x: Tensor, kernels: Sequence[Tensor],
         ptrs(*[W.data_ptr() for W in Ws]), ptrs(*[b.data_ptr() for b in bs]),
         ptrs(*[_build.ptr(C) for C in Cs]), dc)
     return out.reshape(lead + (dims[-1],))
+
+
+def _call(kernel_fn, x: Tensor, kernels: Sequence[Tensor],
+          biases: Sequence[Tensor], activations: Sequence[Optional[str]],
+          cond: Optional[Tensor], cond_kernels: Optional[Sequence[Tensor]]):
+    """``kernel_fn`` on the stack, differentiable through the plain
+    version with respect to x, every weight and the conditional input."""
+    n = len(kernels)
+    acts = tuple(activations)
+    has_cond = cond is not None
+
+    def split(ts):
+        ks, bs = ts[1:1 + n], ts[1 + n:1 + 2 * n]
+        if has_cond:
+            return ts[0], ks, bs, acts, ts[1 + 2 * n], ts[2 + 2 * n:]
+        return ts[0], ks, bs, acts, None, None
+
+    tensors = [x, *kernels, *biases]
+    if has_cond:
+        tensors += [cond, *cond_kernels]
+    return _build.call_with_plain_grad(
+        lambda *ts: kernel_fn(*split(ts)),
+        lambda *ts: dense_stack_plain(*split(ts)), *tensors)
 
 
 def fused_dense_stack(x: Tensor, kernels: Sequence[Tensor],
@@ -133,19 +189,5 @@ def fused_dense_stack(x: Tensor, kernels: Sequence[Tensor],
                                  cond_kernels)
     if (cond is None) != (cond_kernels is None):
         raise ValueError("cond and cond_kernels must be provided together")
-    n = len(kernels)
-    acts = tuple(activations)
-    has_cond = cond is not None
-
-    def split(ts):
-        ks, bs = ts[1:1 + n], ts[1 + n:1 + 2 * n]
-        if has_cond:
-            return ts[0], ks, bs, acts, ts[1 + 2 * n], ts[2 + 2 * n:]
-        return ts[0], ks, bs, acts, None, None
-
-    tensors = [x, *kernels, *biases]
-    if has_cond:
-        tensors += [cond, *cond_kernels]
-    return _build.call_with_plain_grad(
-        lambda *ts: dense_stack_cuda(*split(ts)),
-        lambda *ts: dense_stack_plain(*split(ts)), *tensors)
+    return _call(dense_stack_cuda, x, kernels, biases, activations, cond,
+                 cond_kernels)

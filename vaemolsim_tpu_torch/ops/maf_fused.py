@@ -15,11 +15,14 @@ is one pass; the forward (sampling) is the D-pass fixed point.  Both
 return ``(x (N, D), ldj (N,))`` with the log-det summed over DOFs.
 ``params`` is ``(k1, b1, k2, b2)``, or ``(k1, b1, k2, b2, c1, c2)`` with
 a context ``(N, C)``; the layout is ``MaskedSplineConditioner
-.merged_params()``'s.  ``k2`` must be block-diagonal, as
-``merged_params()`` builds it: the kernel reads only its three diagonal
-blocks (rows ``[iH, (i+1)H)`` of head i's columns), while the plain
-version multiplies the whole of it, so the two agree only on such a
-``k2``.
+.merged_params()``'s.  The kernel takes the weights as
+``merged_params()`` builds them, block-diagonal and MADE-masked for the
+input ``degrees`` it is given (the conditioner's input order, a
+permutation of 1..D): it reads only the three diagonal blocks of ``k2``
+and, of each DOF's columns, only the rows of hidden units of lower
+degree (:func:`hidden_degree_starts`), while the plain version
+multiplies the whole of it, so the two agree only on such weights.  The
+forward pass makes each DOF once, in order of degree.
 
 :func:`maf_block_plain` is the plain version, on the port's plain RQS
 (knots summed left to right).  :func:`maf_block_cuda` launches
@@ -35,6 +38,7 @@ from __future__ import annotations
 import ctypes
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,13 +48,58 @@ from vaemolsim_tpu_torch.ops.rqs import rqs_forward_plain, rqs_inverse_plain
 Tensor = torch.Tensor
 
 __all__ = ["maf_block_plain", "maf_block_cuda", "maf_block_inverse_fused",
-           "maf_block_forward_fused", "KERNEL"]
+           "maf_block_forward_fused", "hidden_degrees",
+           "hidden_degree_starts", "hidden_order", "MAX_DOFS", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "maf_block", "csrc/maf_block.cu", "maf_block_launch",
     [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_int],
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+       ctypes.c_void_p],
     replaces="vaemolsim_tpu/ops/maf_fused.py:171")
+
+# csrc/maf_block.cu's kMaxDofs: the per-DOF degrees ride in the launch's
+# parameter block.
+MAX_DOFS = 64
+
+
+def hidden_degrees(data_dim: int, hidden: int) -> np.ndarray:
+    """Degrees of a one-hidden-layer MADE's hidden units, as
+    ``nn.core._made_masks`` assigns them: cycling over 1..D-1 (all 0
+    when D = 1)."""
+    if data_dim == 1:
+        return np.zeros(hidden, np.int64)
+    return np.arange(hidden) % (data_dim - 1) + 1
+
+
+def hidden_degree_starts(data_dim: int, hidden: int) -> Tuple[int, ...]:
+    """``start[g]`` for g = 0..D: the number of hidden units of degree
+    < g.  With the units sorted by degree, an output of a DOF of degree
+    p reads the prefix ``[0, start[p])`` and the units of degree g are
+    ``[start[g], start[g + 1])`` (the kernel's layout)."""
+    deg = hidden_degrees(data_dim, hidden)
+    return tuple(int((deg < g).sum()) for g in range(data_dim + 1))
+
+
+def hidden_order(data_dim: int, hidden: int) -> np.ndarray:
+    """Hidden units sorted by degree, stable: the unit at each sorted
+    position, as the kernel computes it (group g holds units g - 1 + m
+    (D - 1), or m when D = 1)."""
+    return np.argsort(hidden_degrees(data_dim, hidden), kind="stable")
+
+
+def _degree_args(degrees: Optional[Sequence[int]], D: int):
+    if degrees is None:
+        raise ValueError("the MAF-block kernel needs the MADE's input "
+                         "degrees (the conditioner's input order)")
+    deg = [int(d) for d in degrees]
+    if sorted(deg) != list(range(1, D + 1)):
+        raise ValueError(f"degrees must be a permutation of 1..{D}, got "
+                         f"{deg}")
+    if D > MAX_DOFS:
+        raise ValueError(f"the MAF-block kernel takes at most {MAX_DOFS} "
+                         f"DOFs, got {D}")
+    return deg
 
 
 def _span(bin_min: float, bin_max: float, num_bins: int) -> float:
@@ -95,12 +144,14 @@ def maf_block_plain(y: Tensor, params: Sequence[Tensor],
 
 def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
                    ctx: Optional[Tensor], data_dim: int, num_bins: int,
-                   bin_min: float, bin_max: float, inverse: bool
+                   bin_min: float, bin_max: float, inverse: bool,
+                   degrees: Optional[Sequence[int]] = None
                    ) -> Tuple[Tensor, Tensor]:
-    """Launch ``csrc/maf_block.cu`` on float32 CUDA tensors.  ``k2``'s
-    entries off its three diagonal blocks are not read (see the module
-    docstring).  A block whose 4-row tile does not fit shared memory is
-    refused by the kernel's launch, which raises."""
+    """Launch ``csrc/maf_block.cu`` on float32 CUDA tensors, for weights
+    MADE-masked for the input ``degrees`` (required; see the module
+    docstring for the entries of ``k2`` that are not read).  A block
+    whose 4-row tile does not fit shared memory is refused by the
+    kernel's launch, which raises."""
     if y.dim() != 2 or y.shape[1] != data_dim:
         raise ValueError(f"the MAF-block kernel takes (N, {data_dim}) rows, "
                          f"got {tuple(y.shape)}")
@@ -109,6 +160,7 @@ def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
         raise ValueError(f"the MAF-block kernel needs num_bins >= 2, got {K}")
     n = y.shape[0]
     y = _build.require(y.contiguous(), "y")
+    deg = _degree_args(degrees, D)
     k1 = _build.require(params[0], "k1")
     if k1.shape[0] != D or k1.shape[1] % 3:
         raise ValueError(f"k1: expected shape ({D}, 3H), got "
@@ -133,55 +185,65 @@ def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
                   b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
                   _build.ptr(c1), _build.ptr(c2), x.data_ptr(),
                   ldj.data_ptr(), n, D, H, K, C, float(bin_min),
-                  float(_span(bin_min, bin_max, K)), int(inverse))
+                  float(_span(bin_min, bin_max, K)), int(inverse),
+                  (ctypes.c_int * D)(*deg),
+                  (ctypes.c_int * (D + 1))(*hidden_degree_starts(D, H)))
     return x, ldj
 
 
 def _call(kernel_fn: Callable, y: Tensor, params: Sequence[Tensor],
           ctx: Optional[Tensor], data_dim: int, num_bins: int,
-          bin_min: float, bin_max: float, inverse: bool):
-    """``kernel_fn`` on the block, differentiable through the plain
-    version with respect to y, every merged parameter and the context."""
+          bin_min: float, bin_max: float, inverse: bool,
+          degrees: Optional[Sequence[int]] = None):
+    """``kernel_fn`` on the block (given ``degrees=`` where it takes
+    them), differentiable through the plain version with respect to y,
+    every merged parameter and the context."""
     n_par = len(params)
     has_ctx = ctx is not None
 
-    def unpack(fn):
+    def unpack(fn, **kw):
         def run(*ts):
             return fn(ts[0], ts[1:1 + n_par], ts[1 + n_par] if has_ctx
                       else None, data_dim, num_bins, bin_min, bin_max,
-                      inverse)
+                      inverse, **kw)
         return run
 
+    kw = {} if degrees is None else {"degrees": degrees}
     tensors = [y, *params] + ([ctx] if has_ctx else [])
-    return _build.call_with_plain_grad(unpack(kernel_fn),
+    return _build.call_with_plain_grad(unpack(kernel_fn, **kw),
                                        unpack(maf_block_plain), *tensors)
 
 
 def _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-              inverse):
+              inverse, degrees):
     if not y.is_cuda:
         return maf_block_plain(y, params, ctx, data_dim, num_bins, bin_min,
                                bin_max, inverse)
     return _call(maf_block_cuda, y, params, ctx, data_dim, num_bins,
-                 bin_min, bin_max, inverse)
+                 bin_min, bin_max, inverse,
+                 _degree_args(degrees, data_dim))
 
 
 def maf_block_inverse_fused(y: Tensor, params: Sequence[Tensor],
                             ctx: Optional[Tensor], data_dim: int,
-                            num_bins: int, bin_min: float, bin_max: float
+                            num_bins: int, bin_min: float, bin_max: float,
+                            degrees: Optional[Sequence[int]] = None
                             ) -> Tuple[Tensor, Tensor]:
     """The block's inverse (density) pass: (x, ldj summed over DOFs).
-    ``params[2]`` (k2) must be block-diagonal over the three heads."""
+    On CUDA the weights must be block-diagonal and MADE-masked for the
+    input ``degrees``, which the kernel then needs."""
     return _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-                     True)
+                     True, degrees)
 
 
 def maf_block_forward_fused(y: Tensor, params: Sequence[Tensor],
                             ctx: Optional[Tensor], data_dim: int,
-                            num_bins: int, bin_min: float, bin_max: float
+                            num_bins: int, bin_min: float, bin_max: float,
+                            degrees: Optional[Sequence[int]] = None
                             ) -> Tuple[Tensor, Tensor]:
     """The block's forward (sampling) pass, the D-pass fixed point:
-    (x, ldj summed over DOFs).  ``params[2]`` (k2) must be block-diagonal
-    over the three heads."""
+    (x, ldj summed over DOFs).  On CUDA the weights must be
+    block-diagonal and MADE-masked for the input ``degrees``, which the
+    kernel then needs."""
     return _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-                     False)
+                     False, degrees)

@@ -175,18 +175,26 @@ class CellNeighborList(NamedTuple):
 
 class _CellEnergy(torch.autograd.Function):
     """The cell-pair energy, whose kernel returns the gradient with it: the
-    backward scales that gradient by the incoming cotangent."""
+    backward scales that gradient by the incoming cotangent.
+
+    Under ``create_graph=True`` (grad mode in the backward) the gradient
+    is rebuilt instead by ``grad_fn(nl, x)``, a differentiable function
+    of x on the per-atom candidate layout, so that a second derivative
+    (a Hessian-vector product, force matching) sees this term."""
 
     @staticmethod
-    def forward(ctx, x, impl, nl):
+    def forward(ctx, x, impl, nl, grad_fn):
         e, grad = impl(nl, x)
-        ctx.save_for_backward(grad)
+        ctx.save_for_backward(grad, x)
+        ctx.nl, ctx.grad_fn = nl, grad_fn
         return e
 
     @staticmethod
     def backward(ctx, ct):
-        (grad,) = ctx.saved_tensors
-        return ct * grad, None, None
+        grad, x = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            grad = ctx.grad_fn(ctx.nl, x)
+        return ct * grad, None, None, None
 
 
 def lennard_jones_cell_neighbor(
@@ -441,7 +449,7 @@ def lennard_jones_cell_neighbor(
         return e_cells.sum() * nan, grad * nan
 
     def energy(nl: CellNeighborList, x: Tensor) -> Tensor:
-        return _CellEnergy.apply(x, _impl, nl)
+        return _CellEnergy.apply(x, _impl, nl, _grad)
 
     # ---- the per-atom candidate layout: stress and heat flux ----
     def _nb_cid_mask(nl, n):
@@ -516,6 +524,16 @@ def lennard_jones_cell_neighbor(
                                 + _TWO_OPI * c_alpha
                                 * torch.exp(-(c_alpha * r) ** 2) / r)
         return d, r, mask, torch.where(mask, dudr, 0.0), nb_cid
+
+    def _grad(nl, x):
+        """dE/dx as a differentiable function of x: sum over each atom's
+        candidates of (du/dr) d / r (the candidate lists are symmetric,
+        so this is the gradient of the half-counted pair sum); NaN under
+        the drift and overflow contract."""
+        xw = _wrap(x)
+        d, r, _, dudr, _ = _pair_dudr(nl, xw)
+        g = ((dudr / r)[..., None] * d).sum(1)
+        return g * torch.where(_invalid(nl, xw), torch.nan, 1.0)
 
     vol = float(box_np.prod())
 
