@@ -12,9 +12,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    that the host's enqueue does not count (the MAF block also against
    its unfused route and by torch.profiler's device time; the one-row
    MAF conditioner also against the library chain addmm, tanh, addmm);
-   the dense-stack checks name the regime the kernel ran, and the build
-   prints ptxas's registers and spills of the dense-stack and MAF-block
-   kernels;
+   the dense-stack checks name the regime the kernel ran (the tiled
+   regime at the backmapping decoder's widths also with device times and
+   its bound), and the build prints ptxas's registers and spills of the
+   dense-stack, MAF-block, cell-pair and pair-attention kernels;
 3. checks the proposal kernel's own Philox draws: the plain version on
    the same seed, the densities of its samples recomputed through the
    model's distribution objects, and the moments of the normals it drew;
@@ -39,10 +40,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    MAF-block kernels), rotation invariance of ``log_prob`` on the card,
    and ``train.fit`` at batch 128 on 2000 frames, with its gradients
    against a CPU copy.  The pair-attention kernel is also held against
-   its plain version at the notebook's shape (N = 10, H = 40, B = 2000,
-   on the path's own selections), at the compute-dense N = 50, H = 64
-   (B = 1000) and at a ragged N = 37, in both modes, with fully masked
-   rows and clouds;
+   its plain version at the notebook's shape (N = 10, H = 40, B = 2000
+   and serving's B = 10 000, on the path's own selections), at the
+   compute-dense N = 50, H = 64 (B = 1000) and at a ragged N = 37, in
+   both modes, with fully masked rows and clouds, each timed case with
+   the kernel's lane plan;
 7. runs molecular MD through ``md.baoab_neighbor`` at 8192 atoms (cell-
    pair kernel): the production molecular stack of bench.py:631 (charged
    dimers, harmonic bonds, bonded exclusions masked inside the cell-list
@@ -54,7 +56,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    kernel is held against its plain version on both paths' own gathered
    inputs, on a binary Lorentz-Berthelot mixture with charges and
    exclusions, a coincident pair and a ragged grid, and the energy's NaN
-   contract (overflowed and drifted builds) is checked on the card.
+   contract (overflowed and drifted builds) is checked on the card; its
+   bound is printed by two counts, the occupied candidate slots (the
+   least work) and every padded slot (the first design's count).
 
 Every path runs with the launch counters zeroed just before it and read
 just after.  Any failed check raises and the script exits non-zero;
@@ -105,7 +109,8 @@ FLOW_D = 8
 BM_SITES, BM_FRAMES, BM_BATCH, BM_EPOCHS = 10_000, 2_000, 128, 5
 BM_PARTICLES, PA_FRAMES = 30, 2_000
 PA_MAIN = f"row notebook path N=10 H=40 Fo=20 B={PA_FRAMES}"
-PA_DENSE, PA_RAGGED = (50, 64, 1000), (37, 40, 300)  # (N, H, B)
+# (N, H, B): compute-dense, ragged, and wider than the rows regime takes.
+PA_DENSE, PA_RAGGED, PA_WIDE = (50, 64, 1000), (37, 40, 300), (12, 300, 64)
 # Molecular MD: the production molecular stack (bench.py:631) and the
 # LJ liquid (bench.py:559), N atoms each, BAOAB with a neighbour-list
 # rebuild every MD_REBUILD steps.
@@ -329,10 +334,18 @@ def check_dense_stack(vae, gen, dev):
             err = compare(name, got, want, 1e-4, 1e-4)
             ms = plain_ms = None
             extra = {}
-            if n in (SIZES[-1], 1):
+            tiled_row = name.startswith("backmapping decoder")
+            if n in (SIZES[-1], 1) or tiled_row:
                 ms = timed(lambda: dense_stack_cuda(x, ks, bs, acts, c, cks))
                 plain_ms = timed(lambda: dense_stack_plain(x, ks, bs, acts,
                                                            c, cks))
+            if tiled_row:
+                _, extra["device_us"] = device_us(
+                    lambda: dense_stack_cuda(x, ks, bs, acts, c, cks),
+                    "dense_")
+                extra["plain_device_us"], _ = device_us(
+                    lambda: dense_stack_plain(x, ks, bs, acts, c, cks), "")
+                extra["bound_us"], extra["bound_by"] = stack_bound(n, ks, bs)
             if n == 1:
                 (w1, w2), (c1, c2) = ks, bs
                 extra["library_ms"] = timed(lambda: torch.addmm(
@@ -340,6 +353,15 @@ def check_dense_stack(vae, gen, dev):
             regime = stack_regime(n, [din] + [k.shape[1] for k in ks], dc)[0]
             record("dense_stack", f"{name} N={n}", err, ms, plain_ms,
                    regime=regime, **extra)
+
+
+def stack_bound(n, ks, bs):
+    """(bound µs, what bounds it) of a dense stack over n rows: inputs,
+    weights and biases read once and the output written once, against 2
+    operations per weight per row."""
+    nbytes = 4 * (n * (ks[0].shape[0] + ks[-1].shape[1])
+                  + sum(k.numel() for k in ks) + sum(b.numel() for b in bs))
+    return _bound(nbytes, 2 * n * sum(k.numel() for k in ks))
 
 
 def _proposal_args(vae):
@@ -544,7 +566,8 @@ def check_pair_attention(bm, gen, dev):
     H = 40, B = 2000) through the model's own block-0 and final
     attention layers, on the path's own selections and masks (timed),
     and with a random mask; the compute-dense N = 50, H = 64, B = 1000
-    (timed); a ragged N = 37, H = 40, B = 300; each in both modes."""
+    (timed); a ragged N = 37, H = 40, B = 300; H = 300 (the grid
+    regime: wider than the rows regime takes); each in both modes."""
     ref, coords, info, _ = backmapping_frames(PA_FRAMES, 21, dev)
     lpd = bm.mask_and_embed
     sel, valid, sel_info = lpd.select(coords, ref, particle_info=info)
@@ -568,10 +591,16 @@ def check_pair_attention(bm, gen, dev):
     nb = f"N=10 H=40 Fo=20 B={PA_FRAMES}"
     cases = [(f"notebook path {nb}", blocks, sel, values, valid.float(),
               True)]
+    # The same layers at serving's 10k sites (one frame each).
+    ref10, coords10, info10, _ = backmapping_frames(BM_SITES, 26, dev)
+    sel10, valid10, info10 = lpd.select(coords10, ref10, particle_info=info10)
+    cases.append((f"notebook path N=10 H=40 Fo=20 B={BM_SITES}", blocks,
+                  sel10, lpd.embed.info_net(info10), valid10.float(), True))
     cases.append((f"notebook random mask {nb}", blocks, sel, values,
                   random_mask(PA_FRAMES, 10), False))
     for label, (N, H, B), timed_case in (("dense", PA_DENSE, True),
-                                         ("ragged", PA_RAGGED, False)):
+                                         ("ragged", PA_RAGGED, False),
+                                         ("wide", PA_WIDE, False)):
         attn, c, v, m = fresh(N, H, B)
         cases.append((f"{label} N={N} H={H} Fo=20 B={B}", (attn, attn),
                       c, v, m, timed_case))
@@ -607,6 +636,14 @@ def check_pair_attention(bm, gen, dev):
                 extra["bound_us"], by = _bound(nbytes, ops)
                 extra["per_pair_head_bound_us"], _ = _bound(nbytes,
                                                             per_pair_ops)
+                plan = pa.kernel_plan(B, N, nodes[0].shape[-1],
+                                      got.shape[-1])
+                lanes = ("" if plan["regime"] == "grid" else
+                         f"{plan['lanes']} lanes x {plan['units']} units, ")
+                extra["plan"] = (f"{plan['regime']}: {lanes}"
+                                 f"{plan['frames']} frames a block, "
+                                 f"{plan['blocks']} blocks, "
+                                 f"{plan['smem']} B shared")
                 RESULTS.setdefault("pair_attention_bound_by", {})[
                     f"{'reduce' if reduce else 'row'} {shape}"] = by
             record("pair_attention",
@@ -1225,24 +1262,32 @@ def cell_lj_pairs(args, kw):
 
 
 def cell_lj_work(args, kw):
-    """(bytes, least float32 operations) of one cell-pair call on these
-    inputs.  Bytes: every input read once, e and grad written once.
-    Operations, counted from csrc/cell_lj.cu: on every slot of the block
-    (C x 27 C per cell) the minimum image (5 per axis), r^2 (5) and the
-    mask (3 compares + D exclusion compares); on each slot inside the
-    cutoff the LJ energy, its derivative, the shift, the core test and
-    the accumulation (35, an FMA as 2), +3 for species, +40 for charges
-    (erfcf counted as ~20, expf ~5)."""
+    """(bytes, least float32 operations, the operations of the padded
+    count, padded slots, occupied candidate slots, pairs) of one
+    cell-pair call on these inputs.  Bytes: every input read once, e and
+    grad written once (the gathered blocks: the kernel reads no other
+    layout).  Operations per slot tested: the minimum image (5 per axis),
+    r^2 (5) and the mask (3 compares + D exclusion compares); on each
+    slot inside the cutoff the LJ energy, its derivative, the shift, the
+    core test and the accumulation (35, an FMA as 2), +3 for species,
+    +40 for charges (erfcf counted as ~20, expf ~5).  The least work
+    tests the occupied candidates only (real centres x real neighbour
+    slots of each cell); the padded count (C x 27 C slots per cell, the
+    first design's bound) is kept beside it."""
     cxt, nxt, cid, nid, species, charge, excl = args
     ins = [cxt, nxt, cid, nid, excl, *(species or ()), *(charge or ())]
     nc, _, C = cxt.shape
     nbytes = 4 * (sum(t.numel() for t in ins if t is not None)
                   + nc + nc * 3 * C)
     D = 0 if excl is None else excl.shape[1]
+    n = kw["n_atoms"]
     slots = nc * C * nxt.shape[-1]
+    cands = int(((cid[:, 0] < n).sum(-1).double()
+                 * (nid[:, 0] < n).sum(-1).double()).sum())
     pairs = cell_lj_pairs(args, kw)
     per_pair = 35 + (3 if species else 0) + (40 if charge else 0)
-    return nbytes, slots * (23 + D) + pairs * per_pair, slots, pairs
+    return (nbytes, cands * (23 + D) + pairs * per_pair,
+            slots * (23 + D) + pairs * per_pair, slots, cands, pairs)
 
 
 def check_cell_lj_case(label, energy, nl, x, timed_case):
@@ -1280,13 +1325,18 @@ def check_cell_lj_case(label, energy, nl, x, timed_case):
         extra["plain_device_us"], _ = device_us(
             lambda: cell_lj.cell_pair_energy_force_plain(*args, **kw), "",
             reps=3)
-        nbytes, ops, slots, pairs = cell_lj_work(args, kw)
+        nbytes, ops, padded_ops, slots, cands, pairs = cell_lj_work(args, kw)
         extra["bound_us"], by = _bound(nbytes, ops)
+        extra["padded_bound_us"], padded_by = _bound(nbytes, padded_ops)
+        extra["split"] = cell_lj.cluster_split(kw["n_atoms"], nc)
         RESULTS.setdefault("cell_lj_work", {})[shape] = {
-            "bytes": nbytes, "ops": ops, "slots": slots, "pairs": pairs,
-            "bound_by": by}
-        print(f"  cell_lj {shape}: {slots} slots, {pairs} pairs inside the "
-              f"cutoff, {nbytes} bytes, {ops} operations", flush=True)
+            "bytes": nbytes, "ops": ops, "padded_ops": padded_ops,
+            "slots": slots, "candidates": cands, "pairs": pairs,
+            "bound_by": by, "padded_bound_by": padded_by}
+        print(f"  cell_lj {shape}: {slots} padded slots, {cands} occupied "
+              f"candidates, {pairs} pairs inside the cutoff, {nbytes} bytes, "
+              f"{ops} operations ({padded_ops} by the padded count); "
+              f"{extra['split']} blocks a cell", flush=True)
     record("cell_lj", shape, err, ms, plain_ms, **extra)
 
 
@@ -1431,12 +1481,19 @@ def bounds(vae, flow):
                 out["pair_attention"] = (c["bound_us"], by)
     # The cell-pair kernel: from each timed check's own inputs (the pairs
     # inside the cutoff depend on the state), by check_cell_lj_case.
+    # The old count (every padded slot tested) is kept beside the new.
     for c in RESULTS["checks"]:
         if c["kernel"] == "cell_lj" and "bound_us" in c:
-            by = RESULTS["cell_lj_work"][c["shape"]]["bound_by"]
-            out[f"cell_lj {c['shape']}"] = (c["bound_us"], by)
+            work = RESULTS["cell_lj_work"][c["shape"]]
+            out[f"cell_lj {c['shape']}"] = (c["bound_us"], work["bound_by"])
+            out[f"cell_lj {c['shape']} padded count"] = (
+                c["padded_bound_us"], work["padded_bound_by"])
             if c["shape"].startswith(MOL_SHAPE):
-                out["cell_lj"] = (c["bound_us"], by)
+                out["cell_lj"] = (c["bound_us"], work["bound_by"])
+    # The dense stack's tiled regime at the backmapping decoder's widths.
+    for c in RESULTS["checks"]:
+        if c["kernel"] == "dense_stack" and "bound_us" in c:
+            out[f"dense_stack {c['shape']}"] = (c["bound_us"], c["bound_by"])
     return out
 
 
@@ -1459,7 +1516,7 @@ def main():
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for src in ("dense_stack", "maf_block"):
+    for src in ("dense_stack", "maf_block", "cell_lj", "pair_attention"):
         for line in _build.BUILD_LOGS.get(src, "(cached)").splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "(cached)")):

@@ -391,12 +391,13 @@ def test_maf_block_kernel_reads_only_diagonal_blocks_of_k2(dev, inverse):
     torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
 
 
-def _attention(dev, N, H, B, seed, F=20, Fo=20):
+def _attention(dev, N, H, B, seed, F=20, Fo=20, activation="relu"):
     """A create()-wired layer with its parameters moved off their init,
     a cloud of spread 1.5, values and a mask with a fully masked row
     (frame 0, particle 1) and a fully masked cloud (frame 1)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    attn = VectorAttention.create(gen, F, Fo, hidden_dim=H, device=dev)
+    attn = VectorAttention.create(gen, F, Fo, hidden_dim=H, device=dev,
+                                  activation=activation)
     with torch.no_grad():
         for p in attn.parameters():
             p.add_(0.1 * torch.randn(p.shape, generator=gen, device=dev))
@@ -428,6 +429,104 @@ def test_pair_attention_kernel_matches_plain(dev, reduce, N, H, B):
     assert float(got[1].abs().max()) == 0.0
     if not reduce:
         assert float(got[0, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh", "linear"])
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("N,H,B", [
+    (10, 40, 2000),   # 8 lanes of 5 units, 3 frames a block, B % 3 = 2
+    (10, 64, 301),    # 16 lanes of 4 units
+    (10, 20, 97),     # 4 lanes of 5 units
+    (7, 16, 55),      # 4 lanes of 4 units
+    (5, 3, 40),       # one lane a row, 4 units of which 1 is padding
+    (12, 100, 64),    # 32 lanes of 4 units, 28 of them padding
+    (6, 256, 33),     # 32 lanes of 8 units
+    (50, 64, 20),     # the grid regime (one rows block of 16 groups)
+    (37, 40, 9)])     # ragged N, one frame a block
+def test_pair_attention_regimes_and_activations(dev, act, reduce, N, H, B):
+    """Every lane-group shape the plan picks from H, frames per block
+    from N and B, the grid regime at N = 50, H = 64, each activation, both
+    modes: 1e-5 + 1e-5|v|; the fully masked row and cloud exactly zero."""
+    attn, c, v, m = _attention(dev, N, H, B, 7 * N + H, activation=act)
+    attn.reduce = reduce
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        got = pa.pair_attention_cuda(c_, *nodes, mf_, *weights, **kw)
+        want = pa.pair_attention_plain(c_, *nodes, mf_, *weights, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert float(got[1].abs().max()) == 0.0
+    if not reduce:
+        assert float(got[0, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("regime", ["rows", "grid"])
+@pytest.mark.parametrize("N,H,B", [
+    (10, 40, 2000),   # the notebook's layer
+    (24, 64, 97),     # between the regimes' shapes
+    (37, 40, 9),      # ragged N
+    (50, 64, 20)])    # compute-dense
+def test_pair_attention_both_regimes(dev, monkeypatch, regime, reduce, N, H,
+                                     B):
+    """Each regime forced at shapes the rule gives to either one: 1e-5 +
+    1e-5|v| against the plain version; the fully masked row and cloud
+    exactly zero."""
+    plan = pa.kernel_plan
+    monkeypatch.setattr(pa, "kernel_plan",
+                        lambda *a: plan(*a, regime=regime))
+    attn, c, v, m = _attention(dev, N, H, B, 3 * N + H)
+    attn.reduce = reduce
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        got = pa.pair_attention_cuda(c_, *nodes, mf_, *weights, **kw)
+        want = pa.pair_attention_plain(c_, *nodes, mf_, *weights, **kw)
+    assert pa.kernel_plan(B, N, H, 20)["regime"] == regime
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert float(got[1].abs().max()) == 0.0
+    if not reduce:
+        assert float(got[0, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh", "linear"])
+@pytest.mark.parametrize("reduce", [False, True])
+def test_pair_attention_takes_more_than_256_hidden_units(dev, act, reduce):
+    """H = 300 is wider than a warp's lanes hold in the rows regime: the
+    grid regime runs it, and a create()-wired VectorAttention launches the
+    kernel once: 1e-5 + 1e-5|v| against the plain version."""
+    attn, c, v, m = _attention(dev, 12, 300, 40, 5, activation=act)
+    attn.reduce = reduce
+    assert attn.kernel_wiring
+    assert pa.kernel_plan(40, 12, 300, 20)["regime"] == "grid"
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        want = pa.pair_attention_plain(c_, *nodes, mf_, *weights, **kw)
+        _build.reset_launches()
+        out = attn(c, v, m > 0.5)
+    assert _build.launch_counts()["pair_attention"] == 1
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("smem", 1024), ("lanes", 3), ("units", 3), ("frames", 9),
+    ("lanes", 4)])
+def test_pair_attention_launch_refuses_a_bad_plan(dev, monkeypatch, field,
+                                                  value):
+    """The launch validates the plan it is given: shared memory short of
+    the frames' need, lanes not a power of two, units not compiled, more
+    than 8 frames, lanes x units short of H: each raises."""
+    plan = pa.kernel_plan
+
+    def bad(*a):
+        got = dict(plan(*a))
+        got[field] = value
+        return got
+
+    monkeypatch.setattr(pa, "kernel_plan", bad)
+    attn, c, v, m = _attention(dev, 10, 40, 16, 1)
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        with pytest.raises(RuntimeError, match="pair_attention kernel"):
+            pa.pair_attention_cuda(c_, *nodes, mf_, *weights, **kw)
 
 
 @pytest.mark.parametrize("wiring", ["create", "value_d1_activation"])
@@ -621,6 +720,91 @@ def test_cell_energy_on_the_card_launches_only_kernel_6(dev):
                                atol=1e-4 * float(gw.abs().max()) + 1e-5)
 
 
+def _cell_blocks(dev, n_cells, C, K, n, *, seed, spread=6.0, real=0.6,
+                 D=0, species=False, charges=False, alpha=1.2):
+    """Hand-made cell-pair inputs (numpy-seeded): positions uniform in a
+    cube of edge ``spread`` inside a box of 12, each slot real with
+    probability ``real`` (padding id n anywhere in a block, not only at
+    its end), exclusion lists of D random ids with -1 padding."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def ids(w):
+        i = rng.integers(0, n, size=(n_cells, 1, w))
+        return np.where(rng.random((n_cells, 1, w)) < real, i, n)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    args = [f32(rng.random((n_cells, 3, C)) * spread),
+            f32(rng.random((n_cells, 3, K)) * spread), i32(ids(C)),
+            i32(ids(K)), None, None, None]
+    if species:
+        args[4] = tuple(f32(rng.uniform(lo, hi, (n_cells, 1, w)))
+                        for lo, hi, w in ((0.85, 1.0, C), (0.85, 1.0, K),
+                                          (0.7, 1.0, C), (0.7, 1.0, K)))
+    if charges:
+        args[5] = (f32(rng.choice([-0.5, 0.5], (n_cells, 1, C))),
+                   f32(rng.choice([-0.5, 0.5], (n_cells, 1, K))))
+    if D:
+        ex = rng.integers(0, n, size=(n_cells, D, C))
+        args[6] = i32(np.where(rng.random(ex.shape) < 0.7, ex, -1))
+    kw = dict(n_atoms=n, sigma=1.0, epsilon=1.0, cutoff=2.5,
+              box=(12.0, 12.0, 12.0), shift=True,
+              coulomb_alpha=alpha if charges else 0.0)
+    return args, kw
+
+
+@pytest.mark.parametrize("case", [
+    "dense cluster", "empty cells", "full cells", "ragged C and K",
+    "exclusions D=3", "coincident", "one block a cell",
+    "eight blocks a cell"])
+def test_cell_lj_kernel_schedule_cases(dev, case):
+    """The compacted scan, the per-warp queue and the block split on
+    hand-made blocks: every slot of a cluster inside the cutoff (the
+    queue flushes every 32 pairs), cells with no real slot, cells with no
+    padding, C = 37 and K = 999 (neither a multiple of the warp or of the
+    block's 8 warps), exclusion lists of D = 3, coincident atoms, and the
+    split at 1 and at 8 blocks a cell (from n_atoms / n_cells): same
+    tolerances as on the paths' inputs."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    kw = dict(seed=sum(map(ord, case)))
+    shape = dict(n_cells=6, C=24, K=27 * 24, n=400)
+    if case == "dense cluster":
+        kw.update(spread=1.2, real=1.0, species=True, charges=True, D=1)
+    elif case == "empty cells":
+        kw.update(real=0.0)
+    elif case == "full cells":
+        kw.update(real=1.0, charges=True)
+    elif case == "ragged C and K":
+        shape.update(C=37, K=999)
+        kw.update(species=True, charges=True, D=2)
+    elif case == "exclusions D=3":
+        shape.update(n=60)
+        kw.update(D=3, spread=3.0)
+    elif case == "one block a cell":
+        shape.update(n_cells=50, n=100)
+    elif case == "eight blocks a cell":
+        shape.update(n_cells=4, n=5000)
+    args, ckw = _cell_blocks(dev, shape["n_cells"], shape["C"], shape["K"],
+                             shape["n"], **kw)
+    if case == "coincident":
+        args[1][:, :, 5] = args[0][:, :, 2]
+        args[1][:, :, 9] = args[1][:, :, 5]
+    if case == "empty cells":
+        args[2].fill_(shape["n"])
+    got = cell_lj.cell_pair_energy_force_cuda(*args, **ckw)
+    want = cell_lj.cell_pair_energy_force_plain(*args, **ckw)
+    if case == "empty cells":
+        assert float(got[0].abs().max()) == 0.0
+        assert float(got[1].abs().max()) == 0.0
+    else:
+        _assert_cell_close(got, want)
+
+
 def test_cell_lj_kernel_refuses_what_it_does_not_take(dev):
     from vaemolsim_tpu_torch.ops import cell_lj
     build, energy, x = _cell_system(dev, "scalar")
@@ -629,10 +813,32 @@ def test_cell_lj_kernel_refuses_what_it_does_not_take(dev):
         cell_lj.cell_pair_energy_force_cuda(cxt.double(), nxt, cid, nid, **kw)
     with pytest.raises(TypeError):
         cell_lj.cell_pair_energy_force_cuda(cxt, nxt, cid.long(), nid, **kw)
-    # 27 * 600 neighbour slots need 259 KB of shared memory: refused.
+    # 27 * 600 neighbour slots need 282 KB of shared memory: refused.
     big = torch.zeros(2, 3, 600, device=dev)
     ids = torch.zeros(2, 1, 600, dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="cell_lj kernel launch failed"):
         cell_lj.cell_pair_energy_force_cuda(
             big, torch.zeros(2, 3, 16200, device=dev), ids,
             torch.zeros(2, 1, 16200, dtype=torch.int32, device=dev), **kw)
+
+
+def test_cell_lj_kernel_takes_wide_blocks(dev):
+    """27 * 400 = 10 800 neighbour slots a cell (more than 32 occupancy
+    bits a thread cover) fit shared memory: the kernel takes them, within
+    the paths' tolerances."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    args, ckw = _cell_blocks(dev, 2, 400, 27 * 400, 3000, seed=11,
+                             charges=True)
+    got = cell_lj.cell_pair_energy_force_cuda(*args, **ckw)
+    want = cell_lj.cell_pair_energy_force_plain(*args, **ckw)
+    _assert_cell_close(got, want)
+
+
+@pytest.mark.parametrize("split", [0, 9])
+def test_cell_lj_launch_refuses_a_bad_split(dev, monkeypatch, split):
+    """The launch validates the blocks per cell it is given (1 to 8)."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    monkeypatch.setattr(cell_lj, "cluster_split", lambda *a: split)
+    args, ckw = _cell_blocks(dev, 3, 24, 27 * 24, 100, seed=2)
+    with pytest.raises(RuntimeError, match="cell_lj kernel launch failed"):
+        cell_lj.cell_pair_energy_force_cuda(*args, **ckw)

@@ -1,8 +1,10 @@
-"""What the dense-stack and MAF-block kernels take from Python, on the
-CPU: the MADE's hidden-unit degrees and their sorted order (which the
-MAF-block kernel prunes by), a plain-PyTorch emulation of the kernel's
-pruned passes against the plain version and JAX, and the dense-stack
-regimes that the wrapper mirrors to raise where the kernel refuses.
+"""What the dense-stack, MAF-block and pair-attention kernels take from
+Python, on the CPU: the MADE's hidden-unit degrees and their sorted
+order (which the MAF-block kernel prunes by), a plain-PyTorch emulation
+of the kernel's pruned passes against the plain version and JAX, the
+dense-stack regimes that the wrapper mirrors to raise where the kernel
+refuses, and the pair-attention kernel's lane plan with an emulation of
+its once-per-(pair, unit) order against the plain version and JAX.
 
 The emulation follows ``csrc/maf_block.cu`` step by step: hidden units
 sorted by degree; each DOF's heads over the prefix of units of lower
@@ -21,9 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from vaemolsim_tpu.flows import spline_flows as jsf
+from vaemolsim_tpu.nn import attention as ja
 from vaemolsim_tpu.ops import maf_fused as jmf
+from vaemolsim_tpu_torch.convert import from_jax
 from vaemolsim_tpu_torch.flows.spline_flows import MaskedSplineConditioner
 from vaemolsim_tpu_torch.nn.core import _made_masks
+from vaemolsim_tpu_torch.ops import attention as tpa
 from vaemolsim_tpu_torch.ops import fused_mlp as tfm
 from vaemolsim_tpu_torch.ops import maf_fused as tmf
 from vaemolsim_tpu_torch.ops.rqs import rqs_forward_plain, rqs_inverse_plain
@@ -252,3 +257,161 @@ def test_dense_stack_wrapper_refuses_where_the_kernel_would():
         tfm.dense_stack_cuda(x, wide, [torch.zeros(30000), torch.zeros(1)],
                              ["relu", None])
     assert tfm.stack_regime(4, [1, 30000, 1])[1] > tfm._MAX_SMEM
+
+
+# ---------------------------------------------------------------------------
+# The pair-attention kernel: lane plan and the once-per-(pair, unit) order
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,H,B,plan", [
+    (10, 40, 2000, ("rows", 8, 5, 3, 667)),     # the notebook's layer
+    (10, 40, 10_000, ("rows", 8, 5, 3, 3334)),  # serving at 10k sites
+    (10, 40, 128, ("rows", 8, 5, 1, 128)),      # training: a frame a block
+    (50, 64, 1000, ("grid", None, None, 1, 1000)),  # compute-dense
+    (37, 40, 300, ("rows", 8, 5, 1, 300)),      # ragged
+    (44, 64, 1000, ("rows", 16, 4, 1, 1000)),   # two 96 KB blocks an SM
+    (50, 40, 1000, ("rows", 8, 5, 1, 1000)),
+    (64, 40, 1000, ("rows", 8, 5, 1, 1000)),    # one block of 32 groups
+    (37, 128, 1000, ("grid", None, None, 1, 1000)),  # one block of 8
+    (6, 16, 5000, ("rows", 4, 4, 8, 625)),      # at most 8 frames a block
+    (5, 3, 40, ("rows", 1, 4, 1, 40)),
+    (6, 100, 33, ("rows", 32, 4, 1, 33)),
+    (6, 256, 33, ("rows", 32, 8, 1, 33)),
+    (6, 300, 33, ("grid", None, None, 1, 33)),  # wider than a warp's units
+])
+def test_pair_attention_plan(N, H, B, plan):
+    """Regime, lanes per row, units per lane, frames per block and
+    blocks, as ``kernel_plan`` decides them for ``csrc/pair_attention.cu``
+    (whose launch only validates them): rows where H <= 256 and two
+    blocks fit an SM or a block holds 32 lane groups, the grid otherwise;
+    the notebook shape fits several blocks of
+    34 KB on an SM; a frame too large for shared memory is refused."""
+    got = tpa.kernel_plan(B, N, H, 20)
+    assert (got["regime"], got["lanes"], got["units"], got["frames"],
+            got["blocks"]) == plan
+    assert not got["refused"] and got["smem"] <= tpa._MAX_SMEM
+    if got["regime"] == "rows":
+        assert got["lanes"] * got["units"] >= H
+    if (N, H) == (10, 40):
+        assert got["smem"] < 48 * 1024
+    assert tpa.kernel_plan(1, 400, 64, 20)["refused"]
+    forced = tpa.kernel_plan(B, N, H, 20, regime="grid")
+    assert forced["regime"] == "grid"
+    if H <= 256:
+        assert tpa.kernel_plan(B, N, H, 20, regime="rows")["regime"] == "rows"
+
+
+def _group_sum(v):
+    """The lane group's xor-shuffle sum over the last axis (lanes)."""
+    L = v.shape[-1]
+    o = L // 2
+    while o:
+        v = v + v[..., torch.arange(L) ^ o]
+        o //= 2
+    return v[..., 0]
+
+
+def emulate_pair_attention(coords, ni_s, nj_s, ni_v, nj_v, mask, wq_s,
+                           b1_s, w2_s, b2_s, wq_v, b1_v, ln_g, ln_b, w2_v,
+                           b2_v, *, reduce, act=None, ln_eps=1e-3):
+    """``csrc/pair_attention.cu``'s order of operations in plain PyTorch:
+    lane b of a row's group holds units b + L m (m < U, zero weights past
+    H); per pair each lane's units of the score trunk, summed over its
+    units in m order and over the group by the butterfly; per pair of
+    non-zero weight the value trunk evaluated once per unit, the
+    LayerNorm's mean and variance as two group sums of the held values,
+    act(LN) applied once and accumulated with alpha over j in order; the
+    value head once per row (folded through the contraction)."""
+    B, N, _ = coords.shape
+    H, Fo = wq_s.shape[1], w2_v.shape[1]
+    plan = tpa.kernel_plan(B, N, H, Fo, regime="rows")
+    L, U = plan["lanes"], plan["units"]
+    k = torch.arange(L)[None, :] + L * torch.arange(U)[:, None]  # (U, L)
+    ok = k < H
+    kc = k.clamp(max=H - 1)
+
+    def units(w):       # (..., H) -> (..., U, L), zero past H
+        return torch.where(ok, w[..., kc], 0.0)
+
+    act_fn = {"relu": torch.relu, "tanh": torch.tanh}.get(act, lambda v: v)
+    q = tpa.pair_invariants(coords)                          # (B, N, N, 4)
+
+    def trunk(ni, nj, wq, b1):
+        h = (units(ni + b1)[:, :, None] + units(nj)[:, None, :])
+        for m in range(4):
+            h = h + q[..., m, None, None] * units(wq[m])
+        return h                                             # (B,N,N,U,L)
+
+    pm = mask[:, :, None] * mask[:, None, :]
+    hs = act_fn(trunk(ni_s, nj_s, wq_s, b1_s)) * units(w2_s)
+    part = hs[..., 0, :]
+    for m in range(1, U):
+        part = part + hs[..., m, :]
+    s = torch.where(pm > 0.5, _group_sum(part) + b2_s[0], -1e9)
+    if reduce:
+        e = torch.exp(s - s.amax((1, 2), keepdim=True)) * pm
+        alpha = e / e.sum((1, 2), keepdim=True).clamp_min(1e-30)
+    else:
+        e = torch.exp(s - s.amax(-1, keepdim=True)) * pm
+        alpha = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    hv = trunk(ni_v, nj_v, wq_v, b1_v)
+    tot = hv[..., 0, :]
+    for m in range(1, U):
+        tot = tot + hv[..., m, :]
+    mu = _group_sum(tot) / H
+    d = hv - mu[..., None, None]
+    sq = torch.where(ok, d * d, 0.0)
+    var = sq[..., 0, :]
+    for m in range(1, U):
+        var = var + sq[..., m, :]
+    rs = 1.0 / torch.sqrt(_group_sum(var) / H + ln_eps)
+    t = act_fn(d * rs[..., None, None] * units(ln_g) + units(ln_b))
+    acc = torch.zeros(B, N, U, L)
+    for j in range(N):
+        a = alpha[:, :, j, None, None]
+        acc = torch.where(a != 0, acc + a * t[:, :, j], acc)
+    A = torch.zeros(B, N, H)
+    A[..., kc[ok]] = acc[..., ok]
+    rsum = alpha.sum(-1)
+    if reduce:
+        return A.sum(1) @ w2_v + b2_v * rsum.sum(-1, keepdim=True)
+    return A @ w2_v + b2_v * rsum[..., None]
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+@pytest.mark.parametrize("act,H", [("relu", 40), ("tanh", 16),
+                                   ("linear", 20), ("relu", 3)])
+def test_pair_attention_order_matches_plain_and_jax(reduce, act, H):
+    """The emulated order against the plain version, and at the
+    notebook's H = 40 against the JAX Pallas kernel in interpret mode, at
+    1e-5 + 1e-5|v| (the kernel's card tolerance), with a fully masked row
+    and a fully masked cloud exactly zero; H = 40 and 20 fill lane groups
+    of 8 and 4 exactly, H = 16 and 3 leave padding units."""
+    jattn = ja.VectorAttention.create(jax.random.PRNGKey(H), 5, 7,
+                                      hidden_dim=H, reduce=reduce,
+                                      activation=act)
+    leaves, tree = jax.tree_util.tree_flatten(jattn)
+    rng = np.random.default_rng(H)
+    jattn = jax.tree_util.tree_unflatten(tree, [
+        leaf + 0.1 * rng.normal(size=leaf.shape).astype(np.float32)
+        for leaf in leaves])
+    tattn = from_jax(jattn, "cpu")
+    c = (1.3 * rng.normal(size=(4, 7, 3))).astype(np.float32)
+    v = rng.normal(size=(4, 7, 5)).astype(np.float32)
+    m = (rng.random((4, 7)) > 0.3).astype(np.float32)
+    m[0, 1] = 0.0
+    m[1] = 0.0
+    with torch.no_grad():
+        (c_, *nodes, mf_, weights), kw = tattn.pair_args(t(c), t(v), t(m))
+        got = emulate_pair_attention(c_, *nodes, mf_, *weights, **kw)
+        want = tpa.pair_attention_plain(c_, *nodes, mf_, *weights, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    if H == 40:
+        pallas = np.asarray(ja._va_fused_impl(jattn, j(c), j(v), j(m),
+                                              interpret=True))
+        np.testing.assert_allclose(got.numpy(), pallas, atol=1e-5,
+                                   rtol=1e-5)
+    assert float(got[1].abs().max()) == 0.0
+    if not reduce:
+        assert float(got[0, 1].abs().max()) == 0.0

@@ -12,27 +12,74 @@
 //     e = exp(s - max) m_i m_j,  alpha = e / max(sum e, 1e-30)
 // with the max and the sum per row i (out (B, N, Fo) = sum_j alpha v)
 // or over the whole grid (reduce: out (B, Fo)).  Float32, no TF32.
-//
-// Bound on the H100: float32 arithmetic.  The grid's work is ~30 H
-// operations per pair against 4 N (3 + 1 + 4 H) bytes of inputs per
-// frame, so at N = 10, H = 40 about 12k operations per 6.6 KB: far
-// above the card's ops-per-byte line outside the tensor cores.  The
-// value head is linear, so it is folded through the contraction:
+// The value head is linear, so it is folded through the contraction:
 //     out_i = (sum_j alpha_ij act(LN(h_v,ij))) @ w2_v + b2_v sum_j alpha_ij,
-// which is the same function (the sums taken in another order) and
-// moves the 2 H Fo head products per pair to once per row.  Design
-// (simple first): a block of 256 threads owns T frames (enough for about
-// 512 pairs; T = 1 at N = 50); weights, coordinates, mask and the four
-// node projections (row stride H | 1, so that the rows of one column
-// fall in distinct banks) are staged in dynamic shared memory, opted in
-// above 48 KB.  Phase A, a thread per pair: the invariants, the score,
-// and the value trunk's LayerNorm mean and 1/std (two passes over H,
-// recomputing h_v).  Phase B, a warp per row (per frame with reduce):
-// max, exp, sum and alpha with shuffles.  Phase C, a thread per (row,
-// hidden unit): A[i][k] = sum_j alpha_ij act(LN(h_v,ijk)), skipping
-// pairs of zero weight (masked ones).  Phase D, a thread per output:
-// A @ w2_v + b2_v sum alpha.  No atomics: every sum has one order.
-// Neither wgmma, TMA nor TF32 is used.
+// the same function with the sums taken in another order, and the 2 H Fo
+// head products per pair move to once per row.
+//
+// Bound on the H100: at the notebook shape the bytes of the inputs (four
+// (B, N, H) node projections) and the float32 operations of the pair grid
+// (~32 H per pair) take about the same least time, 4.4 and 3.9 µs at
+// B = 2000 (chip_smoke.py's count).  The first design evaluated each value
+// trunk three times per (pair, hidden unit) (twice for the LayerNorm's two
+// passes, once more for the accumulation), loaded about a dozen
+// shared-memory words per (pair, unit) that are the same for every pair,
+// split its work into four phases of uneven width between block barriers,
+// and fitted two blocks of 84 KB on an SM: at B = 2000 a second wave of 22
+// blocks.
+//
+// Two regimes, chosen by the caller from the shapes (ops/attention.py
+// `kernel_plan`, which also picks the lanes, units, frames per block and
+// shared memory that this file's launch only validates):
+//
+// Rows (H <= 256, all but the largest frames): a group of L lanes owns a
+// row i of a frame; lane b of the group owns the hidden units k = b + L m,
+// m < U (L U >= H, U in {2, 4, 5, 8}: 8 lanes of 5 units at H = 40), and
+// keeps their weights and the row's node projections in registers while
+// it walks over j.
+// - Scores: per pair, each lane's U units of the score trunk, a sum over
+//   the group (shuffles), then the row's softmax by the same group.  With
+//   reduce, the softmax over the frame's grid waits for a block barrier
+//   and is shared by the block's warps (8 / T a frame).
+// - Values: per pair of non-zero weight, each lane evaluates its units of
+//   the value trunk once and keeps them in registers; the LayerNorm's
+//   mean and variance are two group sums over them (two passes, as the
+//   plain version takes them); act(LN) is applied once and accumulated
+//   with alpha_ij in registers.  The score and value loops run one after
+//   the other over a group's rows, so that the two trunks' weights are
+//   never held in registers at once.
+// - Occupancy: a block of 256 threads holds 256 / L groups and T frames
+//   (T N rows <= groups where N allows), staged by cp.async with the
+//   invariants (34 KB at the notebook shape, 80 registers a thread: 3
+//   blocks an SM).  The value head runs once per row after the only other
+//   block barrier.
+// Measured on the H100 at the notebook shape (N = 10, H = 40, B = 2000):
+// staging a fifth of the time, the score loop a fifth, the value loop
+// (two dependent group sums, a square root and the LayerNorm per pair) two
+// fifths.  The loops are bound by latency: each pair waits on its group's
+// shuffles, and the registers that hold a row's weights limit a block to
+// 3 an SM.
+//
+// Grid (the first design's arithmetic; H > 256, and large frames of wide
+// layers): a block owns T frames (about 512 pairs; T = 1 at N = 50),
+// staged by cp.async.  Phase A, a thread per pair: the invariants, the
+// score, and the value trunk's LayerNorm mean and 1/std (two passes over
+// H, recomputing h_v).  Phase B, a warp per row (per frame with reduce):
+// the softmax.  Phase C, a thread per (row, hidden unit): A[i][k] = sum_j
+// alpha_ij act(LN(h_v,ijk)).  Phase D, a thread per output: the value
+// head.  Its frames are large, so an SM holds one block: the launch
+// bounds say so, and the registers they free took 7% off the first
+// design's time at N = 50, H = 64 (B = 1000: 0.90 against 0.97 ms on the
+// H100, chip_turns.py).  The choice between the regimes (chip_turns.py's
+// sweep over N = 6 to 64, H = 16 to 200, both modes) is the faster one, or
+// one within 4% of it, at every shape: the grid wins where an SM holds
+// only one rows block and that block only 16 or 8 lane groups, as at N =
+// 50, H = 64 (0.90 against 1.21 ms).
+//
+// No atomics in either regime: every sum has one order.  Neither wgmma,
+// TMA nor TF32 is used.
+#include <cuda_pipeline.h>
+
 #include <cfloat>
 
 #include "common.cuh"
@@ -42,8 +89,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxFrames = 8;
-constexpr int kPairsPerBlock = 512;
-constexpr int kMinBlocks = 264;  // two per SM of the H100's 132
+static_assert(kMaxFrames <= kWarps, "the reduce softmax takes a warp a frame");
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e9f;
 
 enum Act { kLinear = 0, kRelu = 1, kTanh = 2 };
@@ -74,22 +121,343 @@ struct Args {
   const float* b2_v;    // (Fo,)
   float* out;           // (B, N, Fo), or (B, Fo) with reduce
   long long B;
-  int N, H, Fo, T, ld;
+  int N, H, Fo, T, L, ld;  // L: lanes per row (rows); ld: row stride (grid)
   float eps;
 };
 
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Rows regime: the value head's weights and biases, and a partial per
+// warp for the reduce softmax; per frame, the invariants (float4 per
+// pair), four node projections, scores-then-alpha, the row accumulators,
+// coordinates, mask, row sums.
 __host__ __device__ inline int weight_floats(int H, int Fo) {
+  return round4(H * Fo + Fo) + kWarps;
+}
+
+__host__ __device__ inline int frame_floats(int N, int H) {
+  return round4(4 * N * N + 4 * N * H + N * N + N * H + 3 * N + N + N);
+}
+
+// Grid regime: all weights; per frame, coordinates, mask, four node
+// projections (row stride ld = H | 1, so that the rows of one column fall
+// in distinct banks), the invariants (4 planes), score-then-alpha, LN
+// mean, LN 1/std, the row accumulators and the row sums.
+__host__ __device__ inline int grid_weight_floats(int H, int Fo) {
   return 13 * H + H * Fo + Fo + 1;
 }
 
-// Per frame: coordinates, mask, four node projections, the invariants
-// (4 planes), score-then-alpha, LN mean, LN 1/std, A and the row sums.
-__host__ __device__ inline int frame_floats(int N, int H, int ld) {
+__host__ __device__ inline int grid_frame_floats(int N, int H, int ld) {
   return 4 * N + 4 * N * ld + 7 * N * N + N * H + N;
 }
 
-// h = ni + nj + b1 + sum_m q_m w_m, in one fixed order wherever it is
-// evaluated, so that phase C sees the h_v whose statistics phase A took.
+// Sums and maxima over a group of L lanes (unrolled, the steps past the
+// group's width predicated off).
+__device__ __forceinline__ float group_sum(float v, unsigned mask, int L) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < L) v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float group_max(float v, unsigned mask, int L) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < L) v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
+template <int A, bool kReduce, int U>
+__global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel(Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N, H = p.H, Fo = p.Fo, T = p.T, L = p.L;
+  const int NN = N * N;
+  float* w2v = smem;
+  float* b2v = w2v + H * Fo;
+  float* frames = smem + weight_floats(H, Fo);
+  float* part = frames - kWarps;  // the reduce softmax's partials
+  const int per_frame = frame_floats(N, H);
+  const long long b0 = blockIdx.x * static_cast<long long>(T);
+
+  auto Q = [&](int f) {
+    return reinterpret_cast<float4*>(frames + f * per_frame);
+  };
+  auto proj = [&](int f, int which) {
+    return frames + f * per_frame + 4 * NN + which * N * H;
+  };
+  auto S = [&](int f) { return proj(f, 4); };     // (N, N)
+  auto Acc = [&](int f) { return S(f) + NN; };    // (N, H)
+  auto xyz = [&](int f) { return Acc(f) + N * H; };
+  auto msk = [&](int f) { return xyz(f) + 3 * N; };
+  auto rsum = [&](int f) { return msk(f) + N; };
+
+  // Staging by asynchronous copies (cp.async), all in flight at once; a
+  // frame past B is zero-filled (its mask masks every pair).
+  const int tid = threadIdx.x;
+  for (int t = tid; t < H * Fo; t += kThreads)
+    __pipeline_memcpy_async(w2v + t, p.w2_v + t, sizeof(float));
+  for (int t = tid; t < Fo; t += kThreads)
+    __pipeline_memcpy_async(b2v + t, p.b2_v + t, sizeof(float));
+  const float* src[4] = {p.ni_s, p.nj_s, p.ni_v, p.nj_v};
+  for (int f = 0; f < T; ++f) {
+    const long long b = b0 + f;
+    if (b >= p.B) {
+      for (int t = tid; t < 3 * N; t += kThreads) xyz(f)[t] = 0.f;
+      for (int t = tid; t < N; t += kThreads) msk(f)[t] = 0.f;
+      for (int t = tid; t < 4 * N * H; t += kThreads) proj(f, 0)[t] = 0.f;
+      continue;
+    }
+    for (int t = tid; t < 3 * N; t += kThreads)
+      __pipeline_memcpy_async(xyz(f) + t, p.coords + b * 3 * N + t,
+                              sizeof(float));
+    for (int t = tid; t < N; t += kThreads)
+      __pipeline_memcpy_async(msk(f) + t, p.mask + b * N + t, sizeof(float));
+    // The four projections, 16 bytes a copy where a frame's N H floats
+    // allow it.
+    const int step = N * H % 4 == 0 ? 4 : 1;
+    for (int w = 0; w < 4; ++w) {
+      float* dst = proj(f, w);
+      const float* s = src[w] + b * static_cast<long long>(N) * H;
+      for (int t = step * tid; t < N * H; t += step * kThreads) {
+        if (step == 4)
+          __pipeline_memcpy_async(dst + t, s + t, 16);
+        else
+          __pipeline_memcpy_async(dst + t, s + t, 4);
+      }
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // The invariants, a thread per pair.
+  for (int it = tid; it < T * NN; it += kThreads) {
+    const int f = it / NN, pr = it - f * NN, i = pr / N, j = pr - i * N;
+    const float* x = xyz(f);
+    const float xi = x[3 * i], yi = x[3 * i + 1], zi = x[3 * i + 2];
+    const float xj = x[3 * j], yj = x[3 * j + 1], zj = x[3 * j + 2];
+    const float cx = yi * zj - zi * yj, cy = zi * xj - xi * zj,
+                cz = xi * yj - yi * xj;
+    Q(f)[pr] = make_float4(xi * xj + yi * yj + zi * zj,
+                           sqrtf(cx * cx + cy * cy + cz * cz + 1e-12f),
+                           xi * xi + yi * yi + zi * zi,
+                           xj * xj + yj * yj + zj * zj);
+  }
+  __syncthreads();
+
+  // Lane groups: group g owns rows g, g + G, ...; lane b of it the hidden
+  // units b + L m.
+  const int G = kThreads / L;
+  const int grp = tid / L, b = tid - grp * L, lane = tid & 31;
+  const unsigned gmask =
+      L == 32 ? kFull : (((1u << L) - 1u) << (lane & ~(L - 1)));
+  const int R = T * N;
+  const float inv_h = 1.f / H;
+
+  // Scores of row i of frame f into S; padding units have zero weights.
+  auto scores = [&](int f, int i) {
+    float wq[4][U], w2[U], a[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int k = b + L * m;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wq[c][m] = k < H ? p.wq_s[c * H + k] : 0.f;
+      w2[m] = k < H ? p.w2_s[k] : 0.f;
+      a[m] = k < H ? proj(f, 0)[i * H + k] + p.b1_s[k] : 0.f;
+    }
+    const float b2 = p.b2_s[0];
+    const float mi = msk(f)[i];
+    const float* njs = proj(f, 1);
+    const float4* q = Q(f) + i * N;
+    float* s_row = S(f) + i * N;
+    for (int j = 0; j < N; ++j) {
+      float s = kNegInf;
+      if (mi * msk(f)[j] > 0.5f) {
+        const float4 qq = q[j];
+        float part = 0.f;
+#pragma unroll
+        for (int m = 0; m < U; ++m) {
+          const int k = b + L * m;
+          float h = a[m] + (k < H ? njs[j * H + k] : 0.f);
+          h = fmaf(qq.x, wq[0][m], h);
+          h = fmaf(qq.y, wq[1][m], h);
+          h = fmaf(qq.z, wq[2][m], h);
+          h = fmaf(qq.w, wq[3][m], h);
+          part = fmaf(activate<A>(h), w2[m], part);
+        }
+        s = group_sum(part, gmask, L) + b2;
+      }
+      if (b == 0) s_row[j] = s;
+    }
+  };
+
+  // Softmax weights over n scores s[0..n) with pair masks pm(t), in place,
+  // by the lanes of one group; returns sum alpha.
+  auto softmax = [&](float* s, int n, unsigned mask, int width, int lid,
+                     auto pm) {
+    float mx = -FLT_MAX;
+    for (int t = lid; t < n; t += width) mx = fmaxf(mx, s[t]);
+    mx = group_max(mx, mask, width);
+    float sum = 0.f;
+    for (int t = lid; t < n; t += width) {
+      const float e = expf(s[t] - mx) * pm(t);
+      s[t] = e;
+      sum += e;
+    }
+    const float inv = 1.f / fmaxf(group_sum(sum, mask, width), 1e-30f);
+    float asum = 0.f;
+    for (int t = lid; t < n; t += width) {
+      const float a = s[t] * inv;
+      s[t] = a;
+      asum += a;
+    }
+    return group_sum(asum, mask, width);
+  };
+
+  // Row i of frame f's accumulators, sum_j alpha_ij act(LN(h_v,ij)).
+  auto values = [&](int f, int i) {
+    float wq[4][U], g[U], beta[U], a[U], acc[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int k = b + L * m;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wq[c][m] = k < H ? p.wq_v[c * H + k] : 0.f;
+      g[m] = k < H ? p.ln_g[k] : 0.f;
+      beta[m] = k < H ? p.ln_b[k] : 0.f;
+      a[m] = k < H ? proj(f, 2)[i * H + k] + p.b1_v[k] : 0.f;
+      acc[m] = 0.f;
+    }
+    const float* njv = proj(f, 3);
+    const float4* q = Q(f) + i * N;
+    const float* a_row = S(f) + i * N;
+    for (int j = 0; j < N; ++j) {
+      const float alpha = a_row[j];
+      if (alpha == 0.f) continue;
+      const float4 qq = q[j];
+      float h[U];
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < U; ++m) {
+        const int k = b + L * m;
+        float v = a[m] + (k < H ? njv[j * H + k] : 0.f);
+        v = fmaf(qq.x, wq[0][m], v);
+        v = fmaf(qq.y, wq[1][m], v);
+        v = fmaf(qq.z, wq[2][m], v);
+        h[m] = fmaf(qq.w, wq[3][m], v);
+        sum += h[m];  // padding units hold exactly 0
+      }
+      const float mu = group_sum(sum, gmask, L) * inv_h;
+      float var = 0.f;
+#pragma unroll
+      for (int m = 0; m < U; ++m) {
+        h[m] -= mu;
+        if (b + L * m < H) var = fmaf(h[m], h[m], var);
+      }
+      const float rs = rsqrtf(fmaf(group_sum(var, gmask, L), inv_h, p.eps));
+#pragma unroll
+      for (int m = 0; m < U; ++m)
+        acc[m] = fmaf(alpha, activate<A>(fmaf(h[m] * rs, g[m], beta[m])),
+                      acc[m]);
+    }
+    float* out = Acc(f) + i * H;
+#pragma unroll
+    for (int m = 0; m < U; ++m)
+      if (b + L * m < H) out[b + L * m] = acc[m];
+  };
+
+  if (kReduce) {
+    for (int r = grp; r < R; r += G) scores(r / N, r % N);
+    __syncthreads();
+    // The softmax over each frame's grid by W = kWarps / T warps: each
+    // takes a strided share of the N^2 scores, and their partial maxima
+    // and sums meet in `part` in warp order.
+    const int warp = tid >> 5, W = kWarps / T;
+    const int f = warp / W, w = warp - f * W;
+    const bool live = f < T;
+    float* s = live ? S(f) : nullptr;
+    const float* m = live ? msk(f) : nullptr;
+    auto combine = [&](float v, bool is_max) {
+      if (lane == 0) part[warp] = v;
+      __syncthreads();
+      float tot = live ? part[f * W] : 0.f;
+      for (int u = 1; live && u < W; ++u)
+        tot = is_max ? fmaxf(tot, part[f * W + u]) : tot + part[f * W + u];
+      __syncthreads();  // part is written again by the next step
+      return tot;
+    };
+    float mx = -FLT_MAX;
+    for (int t = w * 32 + lane; live && t < NN; t += W * 32)
+      mx = fmaxf(mx, s[t]);
+    mx = combine(group_max(mx, kFull, 32), true);
+    float sum = 0.f;
+    for (int t = w * 32 + lane; live && t < NN; t += W * 32) {
+      const float e = expf(s[t] - mx) * (m[t / N] * m[t % N]);
+      s[t] = e;
+      sum += e;
+    }
+    const float inv = 1.f / fmaxf(combine(group_sum(sum, kFull, 32), false),
+                                  1e-30f);
+    float asum = 0.f;
+    for (int t = w * 32 + lane; live && t < NN; t += W * 32) {
+      const float a = s[t] * inv;
+      s[t] = a;
+      asum += a;
+    }
+    asum = combine(group_sum(asum, kFull, 32), false);
+    if (live && w == 0 && lane == 0) rsum(f)[0] = asum;
+    for (int r = grp; r < R; r += G) values(r / N, r % N);
+  } else {
+    // Two loops over the group's rows, so that the score trunk's weights
+    // and the value trunk's are never held in registers at once.
+    for (int r = grp; r < R; r += G) {
+      const int f = r / N, i = r - f * N;
+      scores(f, i);
+      __syncwarp(gmask);
+      const float* m = msk(f);
+      const float mi = m[i];
+      const float asum = softmax(S(f) + i * N, N, gmask, L, b,
+                                 [&](int t) { return mi * m[t]; });
+      if (b == 0) rsum(f)[i] = asum;
+    }
+    __syncwarp(gmask);
+    for (int r = grp; r < R; r += G) values(r / N, r % N);
+  }
+  __syncthreads();
+
+  // The value head, once per row (or once per frame).
+  if (kReduce) {
+    for (int it = tid; it < T * H; it += kThreads) {
+      const int f = it / H, k = it - f * H;
+      float* acc = Acc(f);
+      float v = 0.f;
+      for (int i = 0; i < N; ++i) v += acc[i * H + k];
+      acc[k] = v;
+    }
+    __syncthreads();
+    for (int it = tid; it < T * Fo; it += kThreads) {
+      const int f = it / Fo, o = it - f * Fo;
+      if (b0 + f >= p.B) continue;
+      const float* acc = Acc(f);
+      float v = 0.f;
+      for (int k = 0; k < H; ++k) v = fmaf(acc[k], w2v[k * Fo + o], v);
+      p.out[(b0 + f) * Fo + o] = fmaf(b2v[o], rsum(f)[0], v);
+    }
+  } else {
+    for (int it = tid; it < T * N * Fo; it += kThreads) {
+      const int f = it / (N * Fo), r = it - f * N * Fo, i = r / Fo,
+                o = r - i * Fo;
+      if (b0 + f >= p.B) continue;
+      const float* acc = Acc(f) + i * H;
+      float v = 0.f;
+      for (int k = 0; k < H; ++k) v = fmaf(acc[k], w2v[k * Fo + o], v);
+      p.out[((b0 + f) * N + i) * Fo + o] = fmaf(b2v[o], rsum(f)[i], v);
+    }
+  }
+}
+
+// Grid regime: h = ni + nj + b1 + sum_m q_m w_m, in one fixed order
+// wherever it is evaluated, so that phase C sees the h_v whose statistics
+// phase A took.
 __device__ __forceinline__ float trunk(float ni, float nj, float b1,
                                        const float q[4], const float* wq,
                                        int H, int k) {
@@ -100,17 +468,6 @@ __device__ __forceinline__ float trunk(float ni, float nj, float b1,
   return fmaf(q[3], wq[3 * H + k], h);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // Softmax weights over n entries s[0..n) with pair masks pm(idx), in
 // place (s becomes alpha); returns sum alpha.  Called by a whole warp.
 template <typename PM>
@@ -118,26 +475,27 @@ __device__ __forceinline__ float warp_softmax(float* s, int n, PM pm) {
   const int lane = threadIdx.x & 31;
   float mx = -FLT_MAX;
   for (int t = lane; t < n; t += 32) mx = fmaxf(mx, s[t]);
-  mx = warp_max(mx);
+  mx = group_max(mx, kFull, 32);
   float sum = 0.f;
   for (int t = lane; t < n; t += 32) {
     const float e = expf(s[t] - mx) * pm(t);
     s[t] = e;
     sum += e;
   }
-  const float denom = fmaxf(warp_sum(sum), 1e-30f);
+  const float denom = fmaxf(group_sum(sum, kFull, 32), 1e-30f);
   float asum = 0.f;
   for (int t = lane; t < n; t += 32) {
     const float a = s[t] / denom;
     s[t] = a;
     asum += a;
   }
-  return warp_sum(asum);
+  return group_sum(asum, kFull, 32);
 }
 
 template <int A, bool kReduce>
-__global__ void __launch_bounds__(kThreads) pair_attention_kernel(Args p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 1) pair_attention_kernel_grid(
+    Args p) {
+  extern __shared__ __align__(16) float smem[];
   const int N = p.N, H = p.H, Fo = p.Fo, T = p.T, ld = p.ld;
   const int NN = N * N;
   float* wqs = smem;
@@ -150,11 +508,10 @@ __global__ void __launch_bounds__(kThreads) pair_attention_kernel(Args p) {
   float* w2v = lnb + H;
   float* b2v = w2v + H * Fo;
   float* b2s = b2v + Fo;
-  float* frames = smem + weight_floats(H, Fo);
-  const int per_frame = frame_floats(N, H, ld);
+  float* frames = smem + grid_weight_floats(H, Fo);
+  const int per_frame = grid_frame_floats(N, H, ld);
   const long long b0 = blockIdx.x * static_cast<long long>(T);
 
-  // Per-frame regions.
   auto xyz = [&](int f) { return frames + f * per_frame; };
   auto msk = [&](int f) { return xyz(f) + 3 * N; };
   auto proj = [&](int f, int which) { return msk(f) + N + which * N * ld; };
@@ -165,37 +522,47 @@ __global__ void __launch_bounds__(kThreads) pair_attention_kernel(Args p) {
   auto Acc = [&](int f) { return RS(f) + NN; };  // (N, H)
   auto RSUM = [&](int f) { return Acc(f) + N * H; };
 
+  // Staging by cp.async; a frame past B is zero-filled (its mask masks
+  // every pair).
   const int tid = threadIdx.x;
+  auto copy = [](float* dst, const float* src) {
+    __pipeline_memcpy_async(dst, src, sizeof(float));
+  };
   for (int t = tid; t < 4 * H; t += kThreads) {
-    wqs[t] = p.wq_s[t];
-    wqv[t] = p.wq_v[t];
+    copy(wqs + t, p.wq_s + t);
+    copy(wqv + t, p.wq_v + t);
   }
   for (int t = tid; t < H; t += kThreads) {
-    b1s[t] = p.b1_s[t];
-    w2s[t] = p.w2_s[t];
-    b1v[t] = p.b1_v[t];
-    lng[t] = p.ln_g[t];
-    lnb[t] = p.ln_b[t];
+    copy(b1s + t, p.b1_s + t);
+    copy(w2s + t, p.w2_s + t);
+    copy(b1v + t, p.b1_v + t);
+    copy(lng + t, p.ln_g + t);
+    copy(lnb + t, p.ln_b + t);
   }
-  for (int t = tid; t < H * Fo; t += kThreads) w2v[t] = p.w2_v[t];
-  for (int t = tid; t < Fo; t += kThreads) b2v[t] = p.b2_v[t];
-  if (tid == 0) b2s[0] = p.b2_s[0];
-
+  for (int t = tid; t < H * Fo; t += kThreads) copy(w2v + t, p.w2_v + t);
+  for (int t = tid; t < Fo; t += kThreads) copy(b2v + t, p.b2_v + t);
+  if (tid == 0) copy(b2s, p.b2_s);
   const float* src[4] = {p.ni_s, p.nj_s, p.ni_v, p.nj_v};
   for (int f = 0; f < T; ++f) {
     const long long b = b0 + f;
-    const bool live = b < p.B;
+    if (b >= p.B) {
+      for (int t = tid; t < 3 * N; t += kThreads) xyz(f)[t] = 0.f;
+      for (int t = tid; t < N; t += kThreads) msk(f)[t] = 0.f;
+      for (int t = tid; t < 4 * N * ld; t += kThreads) proj(f, 0)[t] = 0.f;
+      continue;
+    }
     for (int t = tid; t < 3 * N; t += kThreads)
-      xyz(f)[t] = live ? p.coords[b * 3 * N + t] : 0.f;
-    for (int t = tid; t < N; t += kThreads)
-      msk(f)[t] = live ? p.mask[b * N + t] : 0.f;
+      copy(xyz(f) + t, p.coords + b * 3 * N + t);
+    for (int t = tid; t < N; t += kThreads) copy(msk(f) + t, p.mask + b * N + t);
     for (int w = 0; w < 4; ++w) {
       float* dst = proj(f, w);
+      const float* sw = src[w] + b * static_cast<long long>(N) * H;
       for (int t = tid; t < N * H; t += kThreads)
-        dst[(t / H) * ld + t % H] =
-            live ? src[w][b * static_cast<long long>(N) * H + t] : 0.f;
+        copy(dst + (t / H) * ld + t % H, sw + t);
     }
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   // Phase A: a thread per pair.
@@ -321,21 +688,43 @@ __global__ void __launch_bounds__(kThreads) pair_attention_kernel(Args p) {
   }
 }
 
-template <int A, bool kReduce>
-cudaError_t launch(const Args& p, unsigned blocks, size_t smem,
+template <typename K>
+cudaError_t launch(K kernel, const Args& p, unsigned blocks, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t err = allow_smem(pair_attention_kernel<A, kReduce>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  pair_attention_kernel<A, kReduce><<<blocks, kThreads, smem, stream>>>(p);
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <int A, bool kReduce>
+cudaError_t launch_regime(bool grid, int units, const Args& p,
+                          unsigned blocks, size_t smem, cudaStream_t stream) {
+  if (grid)
+    return launch(pair_attention_kernel_grid<A, kReduce>, p, blocks, smem,
+                  stream);
+  if (units == 2)
+    return launch(pair_attention_kernel<A, kReduce, 2>, p, blocks, smem,
+                  stream);
+  if (units == 4)
+    return launch(pair_attention_kernel<A, kReduce, 4>, p, blocks, smem,
+                  stream);
+  if (units == 5)
+    return launch(pair_attention_kernel<A, kReduce, 5>, p, blocks, smem,
+                  stream);
+  return launch(pair_attention_kernel<A, kReduce, 8>, p, blocks, smem,
+                stream);
+}
+
 template <bool kReduce>
-cudaError_t launch_act(int act, const Args& p, unsigned blocks, size_t smem,
-                       cudaStream_t stream) {
-  if (act == kRelu) return launch<kRelu, kReduce>(p, blocks, smem, stream);
-  if (act == kTanh) return launch<kTanh, kReduce>(p, blocks, smem, stream);
-  return launch<kLinear, kReduce>(p, blocks, smem, stream);
+cudaError_t launch_act(int act, bool grid, int units, const Args& p,
+                       unsigned blocks, size_t smem, cudaStream_t stream) {
+  if (act == kRelu)
+    return launch_regime<kRelu, kReduce>(grid, units, p, blocks, smem, stream);
+  if (act == kTanh)
+    return launch_regime<kTanh, kReduce>(grid, units, p, blocks, smem, stream);
+  return launch_regime<kLinear, kReduce>(grid, units, p, blocks, smem,
+                                         stream);
 }
 
 }  // namespace
@@ -343,9 +732,13 @@ cudaError_t launch_act(int act, const Args& p, unsigned blocks, size_t smem,
 // coords (B, N, 3); ni_s, nj_s, ni_v, nj_v (B, N, H); mask (B, N);
 // wq_s, wq_v (4, H); b1_s, w2_s, b1_v, ln_g, ln_b (H,); b2_s (1,);
 // w2_v (H, Fo); b2_v (Fo,); out (B, N, Fo), or (B, Fo) with reduce.
-// act: 0 linear, 1 relu, 2 tanh.  Returns cudaErrorInvalidValue for a
-// shape the kernel does not take (bad sizes, or one frame that does not
-// fit shared memory).
+// act: 0 linear, 1 relu, 2 tanh.  The plan is the caller's: regime (0
+// rows, 1 grid), lanes per row and units per lane (rows), frames per
+// block and the dynamic shared memory in bytes.  Returns
+// cudaErrorInvalidValue for bad sizes and for a plan that the kernel
+// cannot run: lanes not a power of two up to 32, units not compiled or
+// lanes x units < H, frames outside [1, 8], or shared memory short of the
+// frames' need or above the card's limit.
 extern "C" int pair_attention_launch(
     const float* coords, const float* ni_s, const float* nj_s,
     const float* ni_v, const float* nj_v, const float* mask,
@@ -353,30 +746,32 @@ extern "C" int pair_attention_launch(
     const float* b2_s, const float* wq_v, const float* b1_v,
     const float* ln_g, const float* ln_b, const float* w2_v,
     const float* b2_v, float* out, long long B, int N, int H, int Fo,
-    int act, int reduce, float eps, cudaStream_t stream) {
-  if (B < 0 || N < 1 || H < 1 || Fo < 1 || act < kLinear || act > kTanh)
+    int act, int reduce, float eps, int regime, int lanes, int units,
+    int frames, long long smem, cudaStream_t stream) {
+  if (B < 0 || N < 1 || H < 1 || Fo < 1 || act < kLinear || act > kTanh ||
+      regime < 0 || regime > 1 || frames < 1 || frames > kMaxFrames ||
+      smem < 0 || smem > kMaxDynamicSmem)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool grid = regime == 1;
   const int ld = H | 1;
-  auto bytes = [&](int frames) {
-    return sizeof(float) *
-           (static_cast<size_t>(weight_floats(H, Fo)) +
-            static_cast<size_t>(frames) * frame_floats(N, H, ld));
-  };
-  int T = (kPairsPerBlock + N * N - 1) / (N * N);
-  if (T > kMaxFrames) T = kMaxFrames;
-  // Fewer frames per block where B is small, to keep kMinBlocks blocks.
-  const long long spread = B / kMinBlocks;
-  if (spread < T) T = spread > 1 ? static_cast<int>(spread) : 1;
-  while (T > 1 && bytes(T) > static_cast<size_t>(kMaxDynamicSmem)) --T;
-  const size_t smem = bytes(T);
-  if (smem > static_cast<size_t>(kMaxDynamicSmem))
+  const long long need =
+      grid ? 4LL * (grid_weight_floats(H, Fo) +
+                    static_cast<long long>(frames) * grid_frame_floats(N, H, ld))
+           : 4LL * (weight_floats(H, Fo) +
+                    static_cast<long long>(frames) * frame_floats(N, H));
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  const bool units_ok = units == 2 || units == 4 || units == 5 || units == 8;
+  if (smem < need ||
+      (!grid && (!lanes_ok || !units_ok || lanes * units < H)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   Args p{coords, ni_s, nj_s, ni_v, nj_v, mask, wq_s, b1_s, w2_s, b2_s,
-         wq_v, b1_v, ln_g, ln_b, w2_v, b2_v, out, B, N, H, Fo, T, ld, eps};
-  const unsigned blocks = static_cast<unsigned>((B + T - 1) / T);
+         wq_v, b1_v, ln_g, ln_b, w2_v, b2_v, out, B, N, H, Fo, frames,
+         grid ? 32 : lanes, ld, eps};
+  const unsigned blocks = static_cast<unsigned>((B + frames - 1) / frames);
+  const size_t bytes = static_cast<size_t>(smem);
   const cudaError_t err =
-      reduce ? launch_act<true>(act, p, blocks, smem, stream)
-             : launch_act<false>(act, p, blocks, smem, stream);
+      reduce ? launch_act<true>(act, grid, units, p, blocks, bytes, stream)
+             : launch_act<false>(act, grid, units, p, blocks, bytes, stream);
   return static_cast<int>(err);
 }

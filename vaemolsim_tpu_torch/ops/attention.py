@@ -40,16 +40,92 @@ from vaemolsim_tpu_torch import _build
 Tensor = torch.Tensor
 
 __all__ = ["pair_invariants", "pair_attention_plain", "pair_attention_cuda",
-           "pair_attention", "ACT_CODES", "KERNEL"]
+           "pair_attention", "kernel_plan", "ACT_CODES", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "pair_attention", "csrc/pair_attention.cu", "pair_attention_launch",
     [ctypes.c_void_p] * 17 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-    + [ctypes.c_float],
+    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_longlong],
     replaces="vaemolsim_tpu/ops/attention_pallas.py:53")
 
 ACT_CODES = {None: 0, "linear": 0, "relu": 1, "tanh": 2}
 _NEG_INF = -1e9
+# The kernel's launch: 256 threads a block, at most 8 frames a block, at
+# least 264 blocks (two an SM of the H100's 132) where B allows, the card's
+# dynamic shared memory per block, and per SM (228 KB, 1 KB of it reserved
+# per block).  The rows regime: lanes hold 2, 4, 5 or 8 hidden units each,
+# at most a warp a row (H <= 256); the grid regime about 512 pairs a block.
+_THREADS, _MAX_FRAMES, _MIN_BLOCKS, _MAX_SMEM = 256, 8, 264, 232448
+_SM_SMEM, _BLOCK_RESERVE = 233472, 1024
+_UNITS = (2, 4, 5, 8)
+_GRID_PAIRS = 512
+
+
+def _frames(B: int, want: int, smem_of) -> int:
+    """Frames per block: ``want`` (1 to 8), fewer where B is small (to
+    keep _MIN_BLOCKS blocks) or shared memory runs out."""
+    T = min(max(want, 1), _MAX_FRAMES)
+    if B // _MIN_BLOCKS < T:
+        T = max(B // _MIN_BLOCKS, 1)
+    while T > 1 and smem_of(T) > _MAX_SMEM:
+        T -= 1
+    return T
+
+
+def kernel_plan(B: int, N: int, H: int, Fo: int,
+                regime: str | None = None) -> dict:
+    """How ``csrc/pair_attention.cu`` runs a call, decided here and only
+    validated by the kernel's launch.  ``regime`` "rows" where H <= 256
+    and either two of its blocks of one frame fit an SM's shared memory
+    or a block holds 32 lane groups (or the grid regime's frame does not
+    fit): a group of ``lanes`` per row (a power of two, the fewest holding
+    H units at <= 5 each, at most a warp), ``units`` per lane (the
+    smallest compiled count, 2, 4, 5 or 8, that covers H), as many
+    ``frames`` per block as give each lane group a row; "grid" otherwise:
+    a thread per pair, about 512 pairs a block.  The rule is the H100's:
+    over N = 6 to 64 and H = 16 to 200, in both modes, it picks the faster
+    regime or one within 4% of it (chip_turns.py's sweep); the grid wins
+    where an SM holds one rows block of 16 or 8 lane groups (N = 50 and 64
+    at H = 64, N = 50 at H = 100, N = 37 and 50 at H = 128, N = 37 at H =
+    200).  ``smem`` bytes per block, ``blocks``;
+    ``refused`` where no regime fits one frame in shared memory.  A
+    given ``regime`` is taken where the shapes allow it (to measure or
+    test one regime at a shape the rule gives the other)."""
+    def r4(v):
+        return (v + 3) & ~3
+
+    lanes = 1
+    while lanes < 32 and lanes * 5 < H:
+        lanes *= 2
+    need = -(-H // lanes)
+    units = next((u for u in _UNITS if u >= need), None)
+    ld = H | 1
+
+    def rows_smem(T):
+        return 4 * (r4(H * Fo + Fo) + _THREADS // 32
+                    + T * r4(4 * N * N + 4 * N * H + N * N + N * H + 5 * N))
+
+    def grid_smem(T):
+        return 4 * (13 * H + H * Fo + Fo + 1
+                    + T * (4 * N + 4 * N * ld + 7 * N * N + N * H + N))
+
+    rows_ok = units is not None and rows_smem(1) <= _MAX_SMEM
+    if regime is None:
+        two = 2 * (rows_smem(1) + _BLOCK_RESERVE) <= _SM_SMEM
+        regime = ("rows" if rows_ok and (two or _THREADS // lanes >= 32
+                                         or grid_smem(1) > _MAX_SMEM)
+                  else "grid")
+    if regime == "rows" and rows_ok:
+        T = _frames(B, (_THREADS // lanes) // N, rows_smem)
+        plan = dict(regime="rows", lanes=lanes, units=units, frames=T,
+                    smem=rows_smem(T))
+    else:
+        T = _frames(B, -(-_GRID_PAIRS // (N * N)), grid_smem)
+        plan = dict(regime="grid", lanes=None, units=None, frames=T,
+                    smem=grid_smem(T))
+    plan.update(blocks=-(-B // plan["frames"]),
+                refused=plan["smem"] > _MAX_SMEM)
+    return plan
 
 
 def pair_invariants(coords: Tensor) -> Tensor:
@@ -120,9 +196,9 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
                         ln_g: Tensor, ln_b: Tensor, w2_v: Tensor,
                         b2_v: Tensor, *, reduce: bool, act=None,
                         ln_eps: float = 1e-3) -> Tensor:
-    """Launch ``csrc/pair_attention.cu`` on float32 CUDA tensors.  A
-    frame whose pair grid does not fit shared memory is refused by the
-    kernel's launch, which raises."""
+    """Launch ``csrc/pair_attention.cu`` on float32 CUDA tensors with the
+    plan of :func:`kernel_plan`.  Raises where one frame's pair grid does
+    not fit shared memory."""
     if coords.dim() != 3 or coords.shape[-1] != 3:
         raise ValueError(f"coords: expected (B, N, 3), got "
                          f"{tuple(coords.shape)}")
@@ -145,11 +221,18 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
         (b2_s, "b2_s", (1,)), (wq_v, "wq_v", (4, H)), (b1_v, "b1_v", (H,)),
         (ln_g, "ln_g", (H,)), (ln_b, "ln_b", (H,)), (w2_v, "w2_v", (H, Fo)),
         (b2_v, "b2_v", (Fo,)))]
+    plan = kernel_plan(B, N, H, Fo)
+    if plan["refused"]:
+        raise ValueError(f"pair_attention: a frame of N={N}, H={H}, Fo={Fo} "
+                         f"needs {plan['smem']} bytes of shared memory, "
+                         f"more than the card's {_MAX_SMEM}")
     out = torch.empty((B, Fo) if reduce else (B, N, Fo), dtype=coords.dtype,
                       device=coords.device)
     KERNEL.launch(coords.device, *[t.data_ptr() for t in args],
                   out.data_ptr(), B, N, H, Fo, ACT_CODES[act], int(reduce),
-                  float(ln_eps))
+                  float(ln_eps), int(plan["regime"] == "grid"),
+                  plan["lanes"] or 0, plan["units"] or 0, plan["frames"],
+                  plan["smem"])
     return out
 
 

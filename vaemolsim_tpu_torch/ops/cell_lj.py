@@ -43,13 +43,29 @@ from vaemolsim_tpu_torch import _build
 Tensor = torch.Tensor
 
 __all__ = ["cell_pair_energy_force", "cell_pair_energy_force_plain",
-           "cell_pair_energy_force_cuda", "SLOPE_F", "KERNEL"]
+           "cell_pair_energy_force_cuda", "cluster_split", "SLOPE_F",
+           "KERNEL"]
 
 KERNEL = _build.Kernel(
     "cell_lj", "csrc/cell_lj.cu", "cell_lj_launch",
     [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-    + [ctypes.c_float] * 13,
+    + [ctypes.c_float] * 13 + [ctypes.c_int],
     replaces="vaemolsim_tpu/ops/cell_lj_pallas.py:62")
+
+# The kernel's blocks: 8 warps, split over a cluster of up to 8 blocks per
+# cell (the split is decided here and only validated by the launch),
+# aiming at 2 centres per warp.
+WARPS, MAX_SPLIT, CENTRES_PER_WARP = 8, 8, 2
+
+
+def cluster_split(n_atoms: int, n_cells: int) -> int:
+    """Blocks per cell that ``csrc/cell_lj.cu`` is launched with:
+    enough warps for CENTRES_PER_WARP centres each at the mean occupancy
+    ``n_atoms / n_cells``, between 1 and MAX_SPLIT."""
+    per = WARPS * CENTRES_PER_WARP
+    want = -(-n_atoms // (n_cells * per)) if n_cells else 1
+    return min(max(want, 1), MAX_SPLIT)
+
 
 _SRC6 = (1.0 / 0.3) ** 6
 # Linear-core slope factor: with rcore = 0.3 sigma_ij the slope of u at
@@ -135,8 +151,9 @@ def cell_pair_energy_force_cuda(
         shift: bool = True, coulomb_alpha: float = 0.0
         ) -> Tuple[Tensor, Tensor]:
     """Launch ``csrc/cell_lj.cu`` (same arguments and outputs as the plain
-    version).  A cell whose neighbour block does not fit shared memory
-    is refused by the kernel's launch, which raises."""
+    version), split over :func:`cluster_split` blocks per cell.  A
+    neighbour block of more than 16384 slots, or one that does not fit
+    shared memory, is refused by the kernel's launch, which raises."""
     if cxt.dim() != 3 or cxt.shape[1] != 3:
         raise ValueError(f"cxt: expected (n_cells, 3, C), got "
                          f"{tuple(cxt.shape)}")
@@ -172,7 +189,8 @@ def cell_pair_energy_force_cuda(
                   float(sigma), float(epsilon), float(cutoff) ** 2,
                   1.0 / float(cutoff) ** 6,
                   SLOPE_F * float(epsilon) / float(sigma), SLOPE_F,
-                  float(coulomb_alpha), *box, *[1.0 / b for b in box])
+                  float(coulomb_alpha), *box, *[1.0 / b for b in box],
+                  cluster_split(int(n_atoms), nc))
     return e, grad
 
 
