@@ -14,8 +14,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    MAF conditioner also against the library chain addmm, tanh, addmm);
    the dense-stack checks name the regime the kernel ran (the tiled
    regime at the backmapping decoder's widths also with device times and
-   its bound), and the build prints ptxas's registers and spills of the
-   dense-stack, MAF-block, cell-pair and pair-attention kernels;
+   its bound), the RQS and proposal checks print each timed case's launch
+   plan and time both at 10k and 50k, the launch floor (the device time
+   of an empty ``torch.cuda._sleep(0)``, timed the same way) is printed
+   beside the RQS kernel's bound, and the build prints ptxas's registers
+   and spills of every kernel;
 3. checks the proposal kernel's own Philox draws: the plain version on
    the same seed, the densities of its samples recomputed through the
    model's distribution objects, and the moments of the normals it drew;
@@ -272,14 +275,13 @@ def check_rqs(vae, gen, dev):
                                   1e-4),
                           compare("rqs ldj", got[1], want[1], 1e-4, 0.0,
                                   1e-4))
-                ms = plain_ms = None
-                if n == SIZES[-1]:
-                    ms = timed(lambda: rqs.rqs_cuda(x, *params, range_min,
-                                                    inverse))
-                    plain_ms = timed(lambda: plain(x, *params, range_min))
+                ms = timed(lambda: rqs.rqs_cuda(x, *params, range_min,
+                                                inverse))
+                plain_ms = timed(lambda: plain(x, *params, range_min))
                 shape = (f"{'inverse' if inverse else 'forward'} {pname} "
                          f"N={n} K={K}")
-                record("rqs", shape, err, ms, plain_ms)
+                record("rqs", shape, err, ms, plain_ms,
+                       plan=rqs.kernel_plan(n, K, params[0].shape[0]))
 
 
 def check_dense_stack(vae, gen, dev):
@@ -397,12 +399,12 @@ def check_proposal(vae, gen, dev):
                 dens = name in ("fwd", "rev")
                 err = max(err, compare(f"proposal {mode} {name}", g, w,
                                        1e-3 if dens else 1e-4, 1e-4, 1e-4))
-            ms = plain_ms = None
-            if n == SIZES[-1]:
-                ms = timed(lambda: mf.vae_proposal_cuda(*args))
-                plain_ms = timed(lambda: mf.vae_proposal_plain(*args))
-            record("vae_proposal", f"{mode} N={n} H=200 K=32 B=2", err, ms,
-                   plain_ms)
+            ms = timed(lambda: mf.vae_proposal_cuda(*args))
+            plain_ms = timed(lambda: mf.vae_proposal_plain(*args))
+            H, (B, K) = enc_w[0].shape[1], tables[0].shape
+            record("vae_proposal", f"{mode} N={n} H={H} K={K} B={B}", err,
+                   ms, plain_ms,
+                   plan=mf.kernel_plan(n, spec.d_x, H, B, K))
     return x1, seed, (enc_w, dec_w, tables, base, spec)
 
 
@@ -566,7 +568,7 @@ def check_pair_attention(bm, gen, dev):
     H = 40, B = 2000) through the model's own block-0 and final
     attention layers, on the path's own selections and masks (timed),
     and with a random mask; the compute-dense N = 50, H = 64, B = 1000
-    (timed); a ragged N = 37, H = 40, B = 300; H = 300 (the grid
+    and a ragged N = 37, H = 40, B = 300 (both timed); H = 300 (the grid
     regime: wider than the rows regime takes); each in both modes."""
     ref, coords, info, _ = backmapping_frames(PA_FRAMES, 21, dev)
     lpd = bm.mask_and_embed
@@ -599,7 +601,7 @@ def check_pair_attention(bm, gen, dev):
     cases.append((f"notebook random mask {nb}", blocks, sel, values,
                   random_mask(PA_FRAMES, 10), False))
     for label, (N, H, B), timed_case in (("dense", PA_DENSE, True),
-                                         ("ragged", PA_RAGGED, False),
+                                         ("ragged", PA_RAGGED, True),
                                          ("wide", PA_WIDE, False)):
         attn, c, v, m = fresh(N, H, B)
         cases.append((f"{label} N={N} H={H} Fo=20 B={B}", (attn, attn),
@@ -1422,7 +1424,9 @@ def bounds(vae, flow):
     bytes read once and written once over HBM bandwidth against float32
     operations over the peak outside the tensor cores."""
     n, K = SIZES[-1], 32
-    out = {"rqs": _bound(4 * (3 * n + 3 * K - 1), n * spline_flops(K))}
+    out = {"rqs": _bound(4 * (3 * n + 3 * K - 1), n * spline_flops(K)),
+           f"rqs N={SIZES[0]}": _bound(4 * (3 * SIZES[0] + 3 * K - 1),
+                                       SIZES[0] * spline_flops(K))}
     enc_w, _, _, _ = mf._extract_mlp(vae.encoder, "encoder")
     dec_w, _, _, _ = mf._extract_mlp(vae.decoder, "decoder")
     ew = (enc_w[0].shape[0] * enc_w[0].shape[1]
@@ -1436,9 +1440,11 @@ def bounds(vae, flow):
     # Whole proposal: two encoder and two decoder passes and 2B = 4
     # spline walks per chain; x1 in, x2 and four scalars out.
     d_x = dec_w[2].shape[1] // 2
-    out["vae_proposal"] = _bound(4 * n * (d_x + d_x + 4),
-                                 n * (2 * 2 * ew + 2 * 2 * dw
-                                      + 4 * spline_flops(K)))
+    for m, key in ((n, "vae_proposal"),
+                   (SIZES[0], f"vae_proposal N={SIZES[0]}")):
+        out[key] = _bound(4 * m * (d_x + d_x + 4),
+                          m * (2 * 2 * ew + 2 * 2 * dw
+                               + 4 * spline_flops(K)))
     cond = flow.flowed_dist.flow.blocks[0].conditioner
     D, H, Kf = (cond.w_net.event_size, cond.w_net.kernels[0].shape[1],
                 cond.num_bins)
@@ -1516,7 +1522,8 @@ def main():
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for src in ("dense_stack", "maf_block", "cell_lj", "pair_attention"):
+    for src in ("rqs", "dense_stack", "vae_proposal", "maf_block",
+                "cell_lj", "pair_attention"):
         for line in _build.BUILD_LOGS.get(src, "(cached)").splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "(cached)")):
@@ -1532,6 +1539,9 @@ def main():
         check_dense_stack(vae, gen, dev)
         x1, seed, args = check_proposal(vae, gen, dev)
         check_philox_samples(vae, x1, seed, args)
+        # The launch floor: an empty kernel's device time, by the same
+        # events behind a device spin as every kernel's.
+        RESULTS["launch_floor_ms"] = timed(lambda: torch.cuda._sleep(0))
         check_maf_block(flow, gen, dev)
         check_pair_attention(backmapping_experiment_config().build(dev),
                              gen, dev)
@@ -1561,8 +1571,11 @@ def main():
                 "md_molecular": mol_row["launches"],
                 "md_lj": lj_row["launches"]}
     bound = bounds(vae, flow)
+    floor_us = 1e3 * RESULTS["launch_floor_ms"]
     for name, (us, by) in bound.items():
-        print(f"bound {name:36s} {us:10.4f} us ({by})", flush=True)
+        floor = (f"; launch floor {floor_us:.4f} us (torch.cuda._sleep(0))"
+                 if name.startswith("rqs") else "")
+        print(f"bound {name:36s} {us:10.4f} us ({by}){floor}", flush=True)
     kernels = []
     n = SIZES[-1]
     main_shape = {"rqs": f"forward broadcast N={n}",

@@ -1,15 +1,19 @@
-"""Kernels 5 and 6 of this checkout against another checkout's, on one
-H100, in turns: the other, this, this, the other (twice over for the
-paths' wall times).
+"""Kernels of this checkout against another checkout's, on one H100, in
+turns: the other, this, this, the other (twice over for the paths' wall
+times).
 
-    python3 chip_turns.py OTHER_DIR [--out chiprun_out/chip_turns.json]
+    python3 chip_turns.py OTHER_DIR [--targets md,backmapping,mc]
+                          [--out chiprun_out/chip_turns.json]
 
 OTHER_DIR holds another commit's tree, for example the parent's,
 unpacked by ``git archive <commit> | tar -x -C OTHER_DIR`` into a
-directory that git ignores.  Its ``csrc/cell_lj.cu`` and
-``csrc/pair_attention.cu`` and their wrappers ``ops/cell_lj.py`` and
-``ops/attention.py`` are built and loaded beside this checkout's.  In
-one process, it measures:
+directory that git ignores.  Each target builds the other's sources of
+its kernels and loads their wrappers beside this checkout's: ``md``
+kernel 6 (``csrc/cell_lj.cu``, ``ops/cell_lj.py``), ``backmapping``
+kernel 5 (``csrc/pair_attention.cu``, ``ops/attention.py``), ``mc``
+kernels 4 and 1 (``csrc/vae_proposal.cu``, ``mcmc/fused.py``;
+``csrc/rqs.cu``, ``ops/rqs.py``).  All three by default.  In one
+process, it measures:
 
 - kernel 6 at both MD paths' final states (the molecular stack and the
   LJ liquid of chip_smoke.py), kernel 5 at the backmapping notebook's
@@ -26,7 +30,19 @@ one process, it measures:
 - the MD steps' wall ms per step (MD_TIMED steps ending in a sync) and
   device busy per step of a profiled rebuild chunk, and backmapping
   ``predict``'s wall ms per call at 10k sites and its device busy, with
-  each checkout's kernel swapped into the path.
+  each checkout's kernel swapped into the path;
+- ``mc``: kernel 4 on the flagship (d_x = 2, H = 200, K = 32, B = 2,
+  relu) at 10k and 50k chains in Philox and noise-input modes, kernel 1
+  on the flagship prior's row at 10k and 50k (broadcast, both
+  directions) and on per-element rows at 50k, the same three ways as
+  kernels 5 and 6, each case with its launch plan; the launch floor (an
+  empty ``torch.cuda._sleep(0)``, timed the same way); the phase splits
+  of kernel 4 and of kernel 1 on the broadcast row; kernel 1's threads
+  a block swept on the broadcast row, by events; the generic and fused
+  MC steps at 50k chains (wall ms per step over 200 steps, device busy
+  per step of 20 profiled steps) and the ELBO train step at batch 10k
+  (wall ms per step over 2 epochs, device busy per step of a profiled
+  epoch), with each checkout's kernels 1 and 4 swapped into the paths.
 
 Prints the card's name and power limit first; writes every number to
 the JSON file.  Needs one card and nvcc, as chip_smoke.py does.
@@ -47,10 +63,17 @@ import torch
 
 import chip_smoke as cs
 from vaemolsim_tpu_torch import _build, md, potentials
-from vaemolsim_tpu_torch.config import backmapping_experiment_config
+from vaemolsim_tpu_torch.config import (OptimizerConfig,
+                                        backmapping_experiment_config,
+                                        flagship_experiment_config)
+from vaemolsim_tpu_torch.mcmc import (MCMCState, make_fused_vae_step,
+                                      make_mcmc_step, run_mcmc,
+                                      vae_proposal_fns)
+from vaemolsim_tpu_torch.mcmc import fused as mf
 from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
-from vaemolsim_tpu_torch.ops import cell_lj
+from vaemolsim_tpu_torch.ops import cell_lj, rqs
+from vaemolsim_tpu_torch.train import fit
 
 HERE = Path(__file__).resolve().parent
 BUILD = HERE / "vaemolsim_tpu_torch" / "_build_cache" / "turns"
@@ -58,6 +81,11 @@ ORDER = ("other", "this", "this", "other")
 DEVICE, SWEEP_B = "cuda:0", 1000
 SWEEP_H, SWEEP_N = (16, 40, 64, 100, 128, 200), (6, 10, 20, 37, 50, 64)
 OUT: dict = {"kernels": {}, "sweep": {}, "phases": {}, "paths": {}}
+# Each target: {source stem: wrapper module path under the package}.
+TARGETS = {"md": {"cell_lj": "ops/cell_lj.py"},
+           "backmapping": {"pair_attention": "ops/attention.py"},
+           "mc": {"vae_proposal": "mcmc/fused.py", "rqs": "ops/rqs.py"}}
+ELBO_EPOCHS = 2
 
 # Phase-split copies: {source stem: {label: [(old, new), ...]}}; every old
 # text must occur in the source.
@@ -101,6 +129,49 @@ PHASES = {
              ", v);\n      p.out[((b0 + f) * N + i) * Fo + o]",
              "      p.out[((b0 + f) * N + i) * Fo + o]")],
     },
+    "rqs": {
+        "load and store only": [
+            ("  for (int t = threadIdx.x; t < 3 * K - 1; t += blockDim.x)\n"
+             "    raw[t] = t < K ? w[t] : t < 2 * K ? h[t - K] : "
+             "s[t - 2 * K];\n  __syncthreads();\n"
+             "  for (int k = threadIdx.x; k <= K; k += blockDim.x)\n"
+             "    rqs_table_knot(raw, raw + K, raw + 2 * K, K, range_min, k, "
+             "tab);\n  __syncthreads();\n", ""),
+            ("  if (i < n) rqs_eval_table<kInverse>(v, tab, K, range_min, "
+             "y[i], ldj[i]);", "  if (i < n) y[i] = v, ldj[i] = 0.f;")],
+        "+ staging and knot table": [
+            ("  if (i < n) rqs_eval_table<kInverse>(v, tab, K, range_min, "
+             "y[i], ldj[i]);",
+             "  if (i < n) y[i] = v + tab[0], ldj[i] = 0.f;")],
+        "no search (bin 0)": [
+            ("  if (i < n) rqs_eval_table<kInverse>(v, tab, K, range_min, "
+             "y[i], ldj[i]);",
+             "  const int kp = rqs_knot_stride(K);\n"
+             "  const float4* b = reinterpret_cast<const float4*>(tab + 2 * "
+             "kp);\n  if (i < n)\n    rqs_apply<kInverse>(v, b[0].x, b[0].y, "
+             "b[0].z, b[0].w, b[1].x, b[1].y, range_min,\n"
+             "                        tab[(kInverse ? kp : 0) + K], y[i], "
+             "ldj[i]);")],
+    },
+    "vae_proposal": {
+        "staging + knot tables only": [
+            ("                   tabs + b * TF);\n  }\n",
+             "                   tabs + b * TF);\n  }\n  return;\n")],
+        "no Philox, Box-Muller": [
+            ("draw_normals<kNoise>(i, p.seed, eps);",
+             "for (int j = 0; j < kNoise; ++j) eps[j] = 0.25f * j - 0.5f;")],
+        "no encoder passes": [
+            ("mlp<R, DX, 2, S::kEnc, R>(xin, enc, Hp,",
+             "mlp<R, DX, 2, S::kEnc, R>(xin, enc, 0,")],
+        "no decoder pass": [
+            ("mlp<2 * R, 1, 2 * DX, S::kDec, R>(zin, dec, Hp,",
+             "mlp<2 * R, 1, 2 * DX, S::kDec, R>(zin, dec, 0,")],
+        "no spline walks (search + rqs_apply)": [
+            ("rqs_eval_table<false>(zf, tabs + b * TF, K, p.range_min, zf, "
+             "lf);", "lf = 0.f;"),
+            ("rqs_eval_table<true>(zi, tabs + (B - 1 - b) * TF, K, "
+             "p.range_min, zi, li);", "li = 0.f;")],
+    },
 }
 
 
@@ -132,13 +203,13 @@ def bind(proc: subprocess.Popen, path: Path, kernel: _build.Kernel):
 
 
 def load_other(other: Path, module: str, proc, path):
-    """The other checkout's wrapper module ``ops/<module>.py``, its
-    kernel bound to the library that ``proc`` built from its source; the
-    launch-count registry keeps this checkout's kernels."""
+    """The other checkout's wrapper module (``module``, a path under the
+    package), its kernel bound to the library that ``proc`` built from
+    its source; the launch-count registry keeps this checkout's
+    kernels."""
     saved = dict(_build.KERNELS)
     spec = importlib.util.spec_from_file_location(
-        f"other_{module}", other / "vaemolsim_tpu_torch" / "ops"
-        / f"{module}.py")
+        f"other_{Path(module).stem}", other / "vaemolsim_tpu_torch" / module)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     _build.KERNELS.clear()
@@ -372,12 +443,238 @@ def regime_sweep(gen, dev):
                       + f" us  rule: {row['rule']}", flush=True)
 
 
+def proposal_cases(dev):
+    """(label, args) of kernel 4 on the flagship: 10k and 50k chains,
+    Philox and noise-input modes."""
+    vae = flagship_experiment_config().build(dev)
+    enc_w, dec_w, tables, base, spec = cs._proposal_args(vae)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for n in cs.SIZES:
+        x1 = torch.randn(n, spec.d_x, generator=gen, device=dev)
+        seed = torch.tensor([11, -12], dtype=torch.int32, device=dev)
+        noise = torch.randn(n, 2 + spec.d_x, generator=gen, device=dev)
+        for mode, nz in (("philox", None), ("noise input", noise)):
+            cases.append((f"vae_proposal {mode} N={n}",
+                          (x1, seed, enc_w, dec_w, tables, base, spec, nz)))
+    return vae, cases
+
+
+RQS_SWEEP_T = (32, 64, 96, 128, 192, 256)
+
+
+def rqs_sweep(label, x, params, range_min, inverse):
+    """Kernel 1 on one broadcast row at each forced thread count, by
+    events; the rule's own plan named."""
+    plan = rqs.kernel_plan
+    n, K = x.numel(), params[0].shape[-1]
+    row = {"rule": plan(n, K, 1)}
+    for T in RQS_SWEEP_T:
+        rqs.kernel_plan = lambda *a, T=T: plan(*a, threads=T)
+        try:
+            us = 1e3 * cs.timed(lambda: rqs.rqs_cuda(x, *params, range_min,
+                                                     inverse))
+        finally:
+            rqs.kernel_plan = plan
+        row[f"T={T}"] = us
+    OUT["sweep"][label] = row
+    print(f"sweep {label}: " + "  ".join(
+        f"{k} {v:.3f}" for k, v in row.items() if k != "rule")
+        + f" us; rule {row['rule']}", flush=True)
+
+
+def mc_kernels(vae, cases, dev, other_mf, other_rqs, tables):
+    """Kernels 4 and 1 in turns (each checked against the plain version
+    first, at chip_smoke.py's tolerances), their phase splits, kernel 1's
+    plan sweep and the launch floor."""
+    names = ("x2", "fwd", "rev", "z1", "z2")
+    for label, args in cases:
+        want = mf.vae_proposal_plain(*args)
+        for which, mod in (("this", mf), ("other", other_mf)):
+            got = mod.vae_proposal_cuda(*args)
+            err = max(cs.compare(f"{label} {which} {nm}", g, w,
+                                 1e-3 if nm in ("fwd", "rev") else 1e-4,
+                                 1e-4, 1e-4)
+                      for nm, g, w in zip(names, got, want))
+            print(f"kernel 4 {label} {which}: err {err:.3e}", flush=True)
+        x1, spec, splines = args[0], args[6], args[4]
+        plan = mf.kernel_plan(x1.shape[0], spec.d_x, args[2][0].shape[1],
+                              *splines[0].shape)
+        turns(label, {"other": lambda: other_mf.vae_proposal_cuda(*args),
+                      "this": lambda: mf.vae_proposal_cuda(*args)},
+              "vae_proposal_kernel")
+        OUT["kernels"][label].append({"plan": plan})
+        print(f"plan {label}: {plan}", flush=True)
+        if label == f"vae_proposal philox N={cs.SIZES[-1]}":
+            phases(label, mf.KERNEL, tables["vae_proposal"],
+                   lambda: mf.vae_proposal_cuda(*args),
+                   "vae_proposal_kernel")
+
+    splines, range_min = mf._extract_prior(vae.prior)[0]()
+    K = splines[0].shape[-1]
+    shared = tuple(t[0:1] for t in splines)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for n in cs.SIZES:
+        x = torch.rand(n, 1, generator=gen, device=dev) * 14.0 - 7.0
+        rows = [("broadcast", shared)]
+        if n == cs.SIZES[-1]:
+            rand = [torch.randn(n, 1, k, generator=gen, device=dev)
+                    for k in (K, K, K - 1)]
+            rows.append(("per-row", (
+                cs._bin_positions(rand[0], -5.0, 5.0, K),
+                cs._bin_positions(rand[1], -5.0, 5.0, K),
+                cs._slopes(rand[2]))))
+        for pname, params in rows:
+            for inverse in (False, True):
+                plain = (rqs.rqs_inverse_plain if inverse
+                         else rqs.rqs_forward_plain)
+                want = plain(x, *params, range_min)
+                label = (f"rqs {'inverse' if inverse else 'forward'} "
+                         f"{pname} N={n} K={K}")
+                for which, mod in (("this", rqs), ("other", other_rqs)):
+                    got = mod.rqs_cuda(x, *params, range_min, inverse)
+                    err = max(cs.compare(f"{label} {which}", got[0], want[0],
+                                         1e-5, 1e-5, 1e-4),
+                              cs.compare(f"{label} {which} ldj", got[1],
+                                         want[1], 1e-4, 0.0, 1e-4))
+                    print(f"kernel 1 {label} {which}: err {err:.3e}",
+                          flush=True)
+                plan = rqs.kernel_plan(n, K, params[0].shape[0])
+                turns(label, {
+                    "other": lambda: other_rqs.rqs_cuda(x, *params,
+                                                        range_min, inverse),
+                    "this": lambda: rqs.rqs_cuda(x, *params, range_min,
+                                                 inverse)}, "rqs_")
+                OUT["kernels"][label].append({"plan": plan})
+                print(f"plan {label}: {plan}", flush=True)
+                if pname == "broadcast":
+                    if not inverse:
+                        phases(label, rqs.KERNEL, tables["rqs"],
+                               lambda: rqs.rqs_cuda(x, *params, range_min,
+                                                    inverse), "rqs_")
+                    rqs_sweep(label, x, params, range_min, inverse)
+
+    floor = []
+    for _ in ORDER:
+        ms = cs.timed(lambda: torch.cuda._sleep(0))
+        total, _ = cs.device_us(lambda: torch.cuda._sleep(0), "")
+        floor.append({"event_us": 1e3 * ms, "device_us": total})
+        print(f"launch floor torch.cuda._sleep(0): events {1e3 * ms:.3f} us"
+              f"  device {total} us", flush=True)
+    OUT["kernels"]["launch floor"] = floor
+
+
+class kernels_of:
+    """Within the block, kernels 1 and 4 of ``which`` checkout run on the
+    paths (the wrappers the dispatchers look up at call time)."""
+
+    def __init__(self, which, other_mf, other_rqs):
+        self.sub = ({} if which == "this" else
+                    {(mf, "vae_proposal_cuda"): other_mf.vae_proposal_cuda,
+                     (rqs, "rqs_cuda"): other_rqs.rqs_cuda})
+
+    def __enter__(self):
+        self.saved = {k: getattr(*k) for k in self.sub}
+        for (mod, name), fn in self.sub.items():
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def mc_turns(vae, dev, other_mf, other_rqs):
+    """The generic and fused MC steps at 50k chains: wall ms per step of
+    TIMED_STEPS steps ending in a sync, device busy per step of
+    MC_PROFILED profiled steps, each checkout's kernels on the path;
+    ORDER twice."""
+    n = cs.SIZES[-1]
+    for path, step in (
+            ("generic", make_mcmc_step(*vae_proposal_fns(vae),
+                                       cs.log_target)),
+            ("fused", make_fused_vae_step(vae, cs.log_target))):
+        rows = []
+        for which in ORDER + ORDER:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            x0 = torch.randn(n, 2, generator=gen, device=dev)
+            state = MCMCState.create(x0, cs.log_target(x0), torch.Generator(
+                device=dev).manual_seed(2))
+            with kernels_of(which, other_mf, other_rqs):
+                state, _ = run_mcmc(step, state, cs.WARMUP_STEPS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = run_mcmc(step, state, cs.TIMED_STEPS)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / cs.TIMED_STEPS
+                window, prof = cs.profiled(lambda: run_mcmc(
+                    step, state, cs.MC_PROFILED))
+            busy, _ = cs.device_time(prof)
+            row = {"which": which, "wall_ms_per_step": wall,
+                   "busy_ms_per_step": (None if busy is None else
+                                        busy / 1e3 / cs.MC_PROFILED),
+                   "profiled_ms_per_step": 1e3 * window / cs.MC_PROFILED,
+                   "acceptance": float(state.acceptance_rate)}
+            rows.append(row)
+            print(f"path mc {path:8s} {which:5s} wall {wall:.4f} ms/step; "
+                  f"device busy {row['busy_ms_per_step']} ms/step of "
+                  f"{row['profiled_ms_per_step']:.3f} profiled", flush=True)
+        OUT["paths"][f"mc {path} N={n}"] = rows
+
+
+def elbo_turns(dev, other_mf, other_rqs):
+    """The flagship's ELBO train step at batch TRAIN_BATCH: wall ms per
+    step over ELBO_EPOCHS epochs ending in a sync after a warm-up epoch,
+    device busy per step of a profiled epoch, each checkout's kernel 1 on
+    the path; ORDER twice."""
+    vae = flagship_experiment_config().build(dev)
+    data = cs.two_mode_data(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    adam = OptimizerConfig("adam", 1e-3).build()
+    per_epoch = data.shape[0] // cs.TRAIN_BATCH
+
+    def loss(m, b, g):
+        return m.elbo_loss(b, g)
+
+    def epochs(k):
+        return fit(vae, loss, data, generator=gen, num_epochs=k,
+                   batch_size=cs.TRAIN_BATCH, optimizer=adam)
+
+    rows = []
+    for which in ORDER + ORDER:
+        with kernels_of(which, other_mf, other_rqs):
+            epochs(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epochs(ELBO_EPOCHS)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / (ELBO_EPOCHS
+                                                       * per_epoch)
+            window, prof = cs.profiled(lambda: epochs(1))
+        busy, k1 = cs.device_time(prof, "rqs_")
+        row = {"which": which, "wall_ms_per_step": wall,
+               "busy_ms_per_step": (None if busy is None
+                                    else busy / 1e3 / per_epoch),
+               "rqs_us_per_step": None if k1 is None else k1 / per_epoch,
+               "profiled_ms_per_step": 1e3 * window / per_epoch}
+        rows.append(row)
+        print(f"path elbo {which:5s} wall {wall:.4f} ms/step; device busy "
+              f"{row['busy_ms_per_step']} ms/step (kernel 1 "
+              f"{row['rqs_us_per_step']} us) of "
+              f"{row['profiled_ms_per_step']:.3f} profiled", flush=True)
+    OUT["paths"][f"elbo batch {cs.TRAIN_BATCH}"] = rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path)
+    ap.add_argument("--targets", default=",".join(TARGETS),
+                    help="comma-separated, of " + ", ".join(TARGETS))
     ap.add_argument("--out", type=Path,
                     default=HERE / "chiprun_out" / "chip_turns.json")
     opts = ap.parse_args()
+    targets = opts.targets.split(",")
+    if not set(targets) <= set(TARGETS):
+        sys.exit(f"unknown target in {targets}; choose from {list(TARGETS)}")
     if not torch.cuda.is_available():
         sys.exit("chip_turns.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -392,100 +689,122 @@ def main():
     t0 = time.perf_counter()
     other = opts.other.resolve()
     other_src = other / "vaemolsim_tpu_torch" / "csrc"
+    modules = {stem: mod for t in targets for stem, mod in TARGETS[t].items()}
     procs = {stem: nvcc(other_src / f"{stem}.cu",
                         BUILD / f"other_{stem}.so", other_src)
-             for stem in ("cell_lj", "pair_attention")}
-    phase_procs = {stem: build_phases(stem) for stem in PHASES}
+             for stem in modules}
+    phase_procs = {stem: build_phases(stem) for stem in modules
+                   if stem in PHASES}
     _build.build_all()
-    for stem in ("cell_lj", "pair_attention"):
+    for stem in modules:
         for line in _build.BUILD_LOGS.get(stem, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {stem}: {line.strip()}", flush=True)
-    other_cl = load_other(other, "cell_lj", procs["cell_lj"],
-                          BUILD / "other_cell_lj.so")
-    other_pa = load_other(other, "attention", procs["pair_attention"],
-                          BUILD / "other_pair_attention.so")
-    cell_lj.KERNEL._bind()
-    pa.KERNEL._bind()
-    tables = {stem: {label: bind(proc, path, k)
+    others = {stem: load_other(other, mod, procs[stem],
+                               BUILD / f"other_{stem}.so")
+              for stem, mod in modules.items()}
+    own = {"cell_lj": cell_lj.KERNEL, "pair_attention": pa.KERNEL,
+           "vae_proposal": mf.KERNEL, "rqs": rqs.KERNEL}
+    for stem in modules:
+        own[stem]._bind()
+    tables = {stem: {label: bind(proc, path, own[stem])
                      for label, (proc, path) in phase_procs[stem].items()}
-              for stem, k in (("cell_lj", cell_lj.KERNEL),
-                              ("pair_attention", pa.KERNEL))}
+              for stem in phase_procs}
     OUT["build_s"] = time.perf_counter() - t0
     print(f"built in {OUT['build_s']:.1f} s", flush=True)
 
-    # Kernel 6 at the MD paths' final states, then the paths in turns.
-    gen = torch.Generator(device=dev).manual_seed(5)
-    for sys_fn, seed in ((cs.molecular_system, 31), (cs.lj_system, 41)):
-        sys_ = sys_fn()
-        row, s = cs.md_path(sys_, dev, seed)
-        label = sys_["name"]
-        OUT["paths"][f"md {label} chip_smoke row"] = row
-        args, kw = sys_["cell_energy"].cell_pair_inputs(sys_["build"](s.x),
-                                                        s.x)
-        want = cell_lj.cell_pair_energy_force_plain(*args, **kw)
-        for name, mod in (("this", cell_lj), ("other", other_cl)):
-            got = mod.cell_pair_energy_force_cuda(*args, **kw)
-            print(f"kernel 6 {label} {name}: e err "
-                  f"{float((got[0] - want[0]).abs().max()):.3e}, grad err "
-                  f"{float((got[1] - want[1]).abs().max()):.3e}", flush=True)
-        turns(f"cell_lj {label}", {
-            "other": lambda: other_cl.cell_pair_energy_force_cuda(*args,
-                                                                  **kw),
-            "this": lambda: cell_lj.cell_pair_energy_force_cuda(*args, **kw)},
-            "cell_lj_kernel")
-        phases(f"cell_lj {label}", cell_lj.KERNEL, tables["cell_lj"],
-               lambda: cell_lj.cell_pair_energy_force_cuda(*args, **kw),
-               "cell_lj_kernel")
-        md_turns(label, sys_, s, gen, other_cl)
-        del sys_, s, args, want
+    if "mc" in targets:
+        other_mf, other_rqs = others["vae_proposal"], others["rqs"]
+        with torch.no_grad():
+            vae, cases = proposal_cases(dev)
+            mc_kernels(vae, cases, dev, other_mf, other_rqs, tables)
+            del cases
+            mc_turns(vae, dev, other_mf, other_rqs)
+        elbo_turns(dev, other_mf, other_rqs)
         torch.cuda.empty_cache()
 
-    # Kernel 5 at the notebook's shapes, N = 50 and N = 37.
-    bm = backmapping_experiment_config().build(dev)
-    lpd = bm.mask_and_embed
-    g2 = torch.Generator(device=dev).manual_seed(9)
-    with torch.no_grad():
-        cases = []
-        for B in (cs.PA_FRAMES, cs.BM_SITES):
-            ref, coords, info, _ = cs.backmapping_frames(B, 21, dev)
-            sel, valid, sel_info = lpd.select(coords, ref, particle_info=info)
-            values = lpd.embed.info_net(sel_info)
-            for reduce in (False, True):
-                base = (lpd.embed.final_attn if reduce
-                        else lpd.embed.blocks[0].attn)
-                attn = VectorAttention(base.score_net, base.value_net, reduce)
-                cases.append((f"N=10 H=40 B={B}", reduce, attn, sel, values,
-                              valid.float()))
-        for N, H, B in (cs.PA_DENSE, cs.PA_RAGGED):
-            attn, c, v, m = fresh_attention(g2, dev, N, H, B)
-            for reduce in (False, True):
-                cases.append((f"N={N} H={H} B={B}", reduce,
-                              VectorAttention(attn.score_net, attn.value_net,
-                                              reduce), c, v, m))
-        for shape, reduce, attn, c, v, m in cases:
-            a, kw = attention_args(attn, c, v, m)
-            want = pa.pair_attention_plain(*a, **kw)
-            label = f"pair_attention {'reduce' if reduce else 'row'} {shape}"
-            plan = pa.kernel_plan(m.shape[0], m.shape[1], a[1].shape[-1], 20)
-            for name, mod in (("this", pa), ("other", other_pa)):
-                err = cs.compare(f"{label} {name}",
-                                 mod.pair_attention_cuda(*a, **kw), want,
-                                 1e-5, 1e-5)
-                print(f"kernel 5 {label} {name}: err {err:.3e}"
-                      + (f"  plan {plan}" if name == "this" else ""),
-                      flush=True)
-            turns(label, {
-                "other": lambda: other_pa.pair_attention_cuda(*a, **kw),
-                "this": lambda: pa.pair_attention_cuda(*a, **kw)},
-                "pair_attention_kernel")
-            OUT["kernels"][label].append({"plan": plan})
-            if not reduce and shape.startswith("N=10"):
-                phases(label, pa.KERNEL, tables["pair_attention"],
-                       lambda: pa.pair_attention_cuda(*a, **kw),
-                       "pair_attention_kernel")
-        regime_sweep(g2, dev)
-    predict_turns(bm, dev, other_pa)
+    if "md" in targets:
+        other_cl = others["cell_lj"]
+        # Kernel 6 at the MD paths' final states, then the paths in turns.
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for sys_fn, seed in ((cs.molecular_system, 31), (cs.lj_system, 41)):
+            sys_ = sys_fn()
+            row, s = cs.md_path(sys_, dev, seed)
+            label = sys_["name"]
+            OUT["paths"][f"md {label} chip_smoke row"] = row
+            args, kw = sys_["cell_energy"].cell_pair_inputs(sys_["build"](s.x),
+                                                            s.x)
+            want = cell_lj.cell_pair_energy_force_plain(*args, **kw)
+            for name, mod in (("this", cell_lj), ("other", other_cl)):
+                got = mod.cell_pair_energy_force_cuda(*args, **kw)
+                e_err = float((got[0] - want[0]).abs().max())
+                g_err = float((got[1] - want[1]).abs().max())
+                print(f"kernel 6 {label} {name}: e err {e_err:.3e}, grad "
+                      f"err {g_err:.3e}", flush=True)
+            turns(f"cell_lj {label}", {
+                "other": lambda: other_cl.cell_pair_energy_force_cuda(
+                    *args, **kw),
+                "this": lambda: cell_lj.cell_pair_energy_force_cuda(
+                    *args, **kw)}, "cell_lj_kernel")
+            phases(f"cell_lj {label}", cell_lj.KERNEL, tables["cell_lj"],
+                   lambda: cell_lj.cell_pair_energy_force_cuda(*args, **kw),
+                   "cell_lj_kernel")
+            md_turns(label, sys_, s, gen, other_cl)
+            del sys_, s, args, want
+            torch.cuda.empty_cache()
+
+    if "backmapping" in targets:
+        other_pa = others["pair_attention"]
+        # Kernel 5 at the notebook's shapes, N = 50 and N = 37.
+        bm = backmapping_experiment_config().build(dev)
+        lpd = bm.mask_and_embed
+        g2 = torch.Generator(device=dev).manual_seed(9)
+        with torch.no_grad():
+            cases = []
+            for B in (cs.PA_FRAMES, cs.BM_SITES):
+                ref, coords, info, _ = cs.backmapping_frames(B, 21, dev)
+                sel, valid, sel_info = lpd.select(coords, ref,
+                                                  particle_info=info)
+                values = lpd.embed.info_net(sel_info)
+                for reduce in (False, True):
+                    base = (lpd.embed.final_attn if reduce
+                            else lpd.embed.blocks[0].attn)
+                    attn = VectorAttention(base.score_net, base.value_net,
+                                           reduce)
+                    cases.append((f"N=10 H=40 B={B}", reduce, attn, sel,
+                                  values, valid.float()))
+            for N, H, B in (cs.PA_DENSE, cs.PA_RAGGED):
+                attn, c, v, m = fresh_attention(g2, dev, N, H, B)
+                for reduce in (False, True):
+                    cases.append((f"N={N} H={H} B={B}", reduce,
+                                  VectorAttention(attn.score_net,
+                                                  attn.value_net, reduce),
+                                  c, v, m))
+            for shape, reduce, attn, c, v, m in cases:
+                a, kw = attention_args(attn, c, v, m)
+                want = pa.pair_attention_plain(*a, **kw)
+                label = (f"pair_attention {'reduce' if reduce else 'row'} "
+                         f"{shape}")
+                plan = pa.kernel_plan(m.shape[0], m.shape[1], a[1].shape[-1],
+                                      20)
+                for name, mod in (("this", pa), ("other", other_pa)):
+                    err = cs.compare(f"{label} {name}",
+                                     mod.pair_attention_cuda(*a, **kw), want,
+                                     1e-5, 1e-5)
+                    print(f"kernel 5 {label} {name}: err {err:.3e}"
+                          + (f"  plan {plan}" if name == "this" else ""),
+                          flush=True)
+                turns(label, {
+                    "other": lambda: other_pa.pair_attention_cuda(*a, **kw),
+                    "this": lambda: pa.pair_attention_cuda(*a, **kw)},
+                    "pair_attention_kernel")
+                OUT["kernels"][label].append({"plan": plan})
+                if not reduce and shape.startswith("N=10"):
+                    phases(label, pa.KERNEL, tables["pair_attention"],
+                           lambda: pa.pair_attention_cuda(*a, **kw),
+                           "pair_attention_kernel")
+            regime_sweep(g2, dev)
+        predict_turns(bm, dev, other_pa)
 
     opts.out.parent.mkdir(parents=True, exist_ok=True)
     opts.out.write_text(json.dumps(OUT, indent=1, default=str))

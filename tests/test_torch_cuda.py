@@ -140,7 +140,8 @@ def test_dense_stack_gradient_recomputes_through_plain(dev):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
-def _proposal_model(gen, dev, H=64, K=16, B=2):
+def _proposal_model(gen, dev, H=64, K=16, B=2, d_x=2,
+                    acts=("relu", "tanh")):
     """Flagship-shaped proposal weights, Glorot-scaled as the model's own
     initializer makes them, and spline tables of moderate bin contrast
     (raw parameters of spread 0.5; the model's init gives near-uniform
@@ -153,12 +154,12 @@ def _proposal_model(gen, dev, H=64, K=16, B=2):
                 * (2.0 / (i + o)) ** 0.5,
                 0.1 * torch.randn(o, generator=gen, device=dev))
 
-    (ew1, eb1), (ew2, eb2) = dense(2, H), dense(H, 2)
-    (dw1, db1), (dw2, db2) = dense(1, H), dense(H, 4)
+    (ew1, eb1), (ew2, eb2) = dense(d_x, H), dense(H, 2)
+    (dw1, db1), (dw2, db2) = dense(1, H), dense(H, 2 * d_x)
     return ((ew1, eb1, ew2, eb2), (dw1, db1, dw2, db2),
             _spline(gen, dev, B, K, spread=0.5),
             torch.tensor([0.0, 1.0], device=dev),
-            mf._Spec(2, 1, "relu", "tanh", K, -5.0))
+            mf._Spec(d_x, 1, acts[0], acts[1], K, -5.0))
 
 
 def test_proposal_kernel_matches_plain(dev):
@@ -175,6 +176,124 @@ def test_proposal_kernel_matches_plain(dev):
         atol = 1e-3 if name in ("fwd", "rev") else 1e-4
         torch.testing.assert_close(g, w, atol=atol, rtol=1e-4,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+def _close_but(name, got, want, atol, rtol, frac=1e-4):
+    """got within atol + rtol|want| on all but a fraction ``frac`` of the
+    elements (a value within roundoff of a spline knot may take the
+    neighbouring bin), NaN where want is NaN."""
+    bad = ~((got == want) | ((got - want).abs() <= atol + rtol * want.abs())
+            | (got.isnan() & want.isnan()))
+    assert int(bad.sum()) <= frac * got.numel(), (
+        f"{name}: {int(bad.sum())} of {got.numel()} beyond atol={atol} "
+        f"rtol={rtol}; max err {float((got - want).abs().nan_to_num().max())}")
+
+
+@pytest.mark.parametrize("d_x", [1, 2, 5, 8])
+@pytest.mark.parametrize("H", [1, 7, 64, 200, 300])
+def test_proposal_kernel_edges(dev, d_x, H):
+    """The lane groups' edges: R = 4 (d_x <= 4) and 2, H not a multiple
+    of a step of 2R (zero-padded units), N = 1, 31 (one warp, part
+    live), 2001 and 50 003 (ragged last block); relu and tanh, B = 1-3,
+    K = 2, 16, 32, 64; noise-input and Philox modes.  All five outputs
+    against the plain version at chip_smoke.py's tolerances: samples
+    1e-4 + 1e-4|v|, log-densities 1e-3 + 1e-4|v|, a fraction 1e-4 of a
+    large N may take a neighbouring spline bin at a knot."""
+    case = [1, 2, 5, 8].index(d_x) + 4 * [1, 7, 64, 200, 300].index(H)
+    acts = [("relu", "relu"), ("tanh", "relu"), ("relu", "tanh"),
+            ("tanh", "tanh")][case % 4]
+    B, K = 1 + case % 3, (2, 16, 32, 64)[case % 4]
+    gen = torch.Generator(device=dev).manual_seed(100 + case)
+    enc, dec, tables, base, spec = _proposal_model(gen, dev, H, K, B, d_x,
+                                                   acts)
+    seed = torch.tensor([case, -7], dtype=torch.int32, device=dev)
+    for n in (1, 31, 2001, 50_003):
+        x1 = torch.randn(n, d_x, generator=gen, device=dev)
+        noise = torch.randn(n, 2 + d_x, generator=gen, device=dev)
+        for nz in (noise, None):
+            args = (x1, seed, enc, dec, tables, base, spec, nz)
+            before = mf.KERNEL.launches
+            got = mf.fused_vae_proposal(*args)
+            assert mf.KERNEL.launches == before + 1
+            want = mf.vae_proposal_plain(*args)
+            for name, g, w in zip(("x2", "fwd", "rev", "z1", "z2"), got,
+                                  want):
+                assert g.shape == w.shape
+                dens = name in ("fwd", "rev")
+                _close_but(f"N={n} {'noise' if nz is not None else 'philox'}"
+                           f" {name}", g, w, 1e-3 if dens else 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("R", 3), ("threads", 48), ("threads", 512), ("blocks", 1),
+    ("smem", 1024)])
+def test_proposal_launch_refuses_a_bad_plan(dev, monkeypatch, field, value):
+    """The launch validates the plan it is given: R other than the
+    compiled one, threads not a multiple of 32 or above 256, blocks
+    short of N, shared bytes other than the shape's: each raises."""
+    plan = mf.kernel_plan
+
+    def bad(*a):
+        got = dict(plan(*a))
+        got[field] = value
+        return got
+
+    monkeypatch.setattr(mf, "kernel_plan", bad)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    enc, dec, tables, base, spec = _proposal_model(gen, dev)
+    x1 = torch.randn(5000, 2, generator=gen, device=dev)
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="vae_proposal kernel launch"):
+        mf.vae_proposal_cuda(x1, seed, enc, dec, tables, base, spec)
+
+
+@pytest.mark.parametrize("K", [2, 8, 32, 128])
+@pytest.mark.parametrize("rows", ["per_row", "broadcast"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rqs_kernel_edges(dev, K, rows, inverse):
+    """N = 1, 3, 4097 and 50 000, an input at an offset of one float,
+    inputs on every knot of the
+    row, NaN and +-inf: against the plain version at chip_smoke.py's
+    tolerances (values 1e-5 + 1e-5|y|, log-dets 1e-4, NaN where it has
+    NaN; a fraction 1e-4 of a large N may differ more: the inverse's
+    root near a vanishing discriminant magnifies FMA contraction, 2 of
+    50 000 on per-element rows at K = 8, where the kernel walks the bins),
+    one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(K)
+    plain = rqs.rqs_inverse_plain if inverse else rqs.rqs_forward_plain
+    fn = rqs.rqs_inverse if inverse else rqs.rqs_forward
+    for n in (1, 3, 4097, 50_000):
+        params = _spline(gen, dev, n if rows == "per_row" else 1, K)
+        x = torch.rand(n + 1, generator=gen, device=dev) * 14.0 - 7.0
+        kx, ky = rqs._knots(params[0][:1], params[1][:1], -5.0)
+        on = torch.cat([kx[0], ky[0], torch.tensor(
+            [float("nan"), float("inf"), -float("inf")], device=dev)])
+        x[1:1 + min(n, on.numel())] = on[:n]
+        for xin in (x[:n], x[1:]):
+            before = rqs.KERNEL.launches
+            got = fn(xin, *params, -5.0)
+            assert rqs.KERNEL.launches == before + 1
+            want = plain(xin, *params, -5.0)
+            _close_but(f"N={n} y", got[0], want[0], 1e-5, 1e-5)
+            _close_but(f"N={n} ldj", got[1], want[1], 1e-4, 0.0)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("threads", 48), ("threads", 512), ("blocks", 1), ("smem", 1024)])
+def test_rqs_launch_refuses_a_bad_plan(dev, monkeypatch, field, value):
+    plan = rqs.kernel_plan
+
+    def bad(*a):
+        got = dict(plan(*a))
+        got[field] = value
+        return got
+
+    monkeypatch.setattr(rqs, "kernel_plan", bad)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = _spline(gen, dev, 1, 32)
+    x = torch.rand(10_000, generator=gen, device=dev)
+    with pytest.raises(RuntimeError, match="rqs kernel launch"):
+        rqs.rqs_cuda(x, *params, -5.0, False)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -37,22 +37,48 @@ from vaemolsim_tpu_torch.dists.layers import _positive
 from vaemolsim_tpu_torch.mcmc.engine import MCMCState, apply_mh, log_uniform
 from vaemolsim_tpu_torch.nn.core import resolve_activation
 from vaemolsim_tpu_torch.ops.distributions import Normal
-from vaemolsim_tpu_torch.ops.rqs import rqs_forward_plain, rqs_inverse_plain
+from vaemolsim_tpu_torch.ops.rqs import (rqs_forward_plain, rqs_inverse_plain,
+                                         table_floats)
 
 Tensor = torch.Tensor
 
 __all__ = ["make_fused_vae_step", "fused_vae_proposal", "vae_proposal_plain",
-           "vae_proposal_cuda", "philox4x32_10", "UnsupportedModelError",
-           "KERNEL"]
+           "vae_proposal_cuda", "kernel_plan", "philox4x32_10",
+           "UnsupportedModelError", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "vae_proposal", "csrc/vae_proposal.cu", "vae_proposal_launch",
     [ctypes.c_void_p] * 20 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-    + [ctypes.c_float],
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2,
     replaces="vaemolsim_tpu/mcmc/fused.py:185")
 
 _ACT_CODES = {"tanh": 1, "relu": 2}
 MAX_DX = 8  # the d_x instantiations in csrc/vae_proposal.cu
+# The H100's SMs and the most dynamic shared memory a block may take.
+_SMS, _MAX_SMEM = 132, 232448
+
+
+def kernel_plan(n: int, d_x: int, H: int, B: int, K: int) -> dict:
+    """How ``csrc/vae_proposal.cu`` runs a call, decided here and only
+    validated by the kernel's launch.  ``R`` chains a lane group of R
+    lanes (4 for d_x <= 4, 2 above, where the decoder's 2 d_x head sums
+    per chain fill the registers); chain i runs on thread i, so a group
+    is R neighbouring lanes of one warp.  Hidden units are padded
+    to ``units``, a multiple of 2R (a lane's last step takes two).
+    ``threads`` a block: the largest of 128, 64, 32 that still makes a
+    block per SM (``blocks`` >= 132), else 32.  ``smem``: bytes of the
+    unit records (``enc``, ``dec`` floats a unit), B knot tables, the raw
+    spline rows and the head biases; ``refused`` where they exceed a
+    block's shared memory."""
+    R = 4 if d_x <= 4 else 2
+    units = -(-H // (2 * R)) * 2 * R
+    enc, dec = (3 + d_x + 3) & ~3, (2 + 2 * d_x + 3) & ~3
+    smem = 4 * (units * (enc + dec) + B * (table_floats(K) + 3 * K - 1)
+                + 2 + 2 * d_x)
+    threads = next((t for t in (128, 64, 32) if -(-n // t) >= _SMS), 32)
+    return dict(R=R, units=units, enc=enc, dec=dec, threads=threads,
+                blocks=-(-n // threads), smem=smem,
+                refused=smem > _MAX_SMEM)
 
 
 class UnsupportedModelError(ValueError):
@@ -216,6 +242,11 @@ def vae_proposal_cuda(x1: Tensor, seed: Tensor, enc_w, dec_w, spline_tables,
         spline_tables, ("widths", "heights", "slopes"),
         [(B, K), (B, K), (B, K - 1)])]
     base = req(base_params.detach(), "base_params", (2,))
+    plan = kernel_plan(n, d_x, H, B, K)
+    if plan["refused"]:
+        raise ValueError(f"the proposal kernel does not take H = {H}, "
+                         f"B = {B}, K = {K}: {plan['smem']} bytes of shared "
+                         f"memory, more than the card's {_MAX_SMEM}")
     x2 = torch.empty_like(x1)
     fwd, rev, z1, z2 = (torch.empty(s, dtype=torch.float32, device=x1.device)
                         for s in ((n,), (n,), (n, 1), (n, 1)))
@@ -224,7 +255,8 @@ def vae_proposal_cuda(x1: Tensor, seed: Tensor, enc_w, dec_w, spline_tables,
                   base.data_ptr(), x2.data_ptr(), fwd.data_ptr(),
                   rev.data_ptr(), z1.data_ptr(), z2.data_ptr(), n, d_x, H, B,
                   K, _ACT_CODES[spec.enc_act], _ACT_CODES[spec.dec_act],
-                  float(spec.range_min))
+                  float(spec.range_min), plan["R"], plan["threads"],
+                  plan["blocks"], plan["smem"])
     return x2, fwd, rev, z1, z2
 
 

@@ -28,14 +28,48 @@ from vaemolsim_tpu_torch.ops.bijectors import Bijector
 Tensor = torch.Tensor
 
 __all__ = ["rqs_forward", "rqs_inverse", "rqs_forward_plain",
-           "rqs_inverse_plain", "rqs_cuda", "rqs_forward_circular",
-           "rqs_inverse_circular", "RationalQuadraticSpline", "KERNEL"]
+           "rqs_inverse_plain", "rqs_cuda", "kernel_plan", "table_floats",
+           "rqs_forward_circular", "rqs_inverse_circular",
+           "RationalQuadraticSpline", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "rqs", "csrc/rqs.cu", "rqs_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                             ctypes.c_longlong, ctypes.c_float, ctypes.c_int],
+                             ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_longlong],
     replaces="vaemolsim_tpu/ops/rqs_pallas.py:52")
+
+# The H100's SMs and the most dynamic shared memory a block may take.
+SMS, MAX_SMEM = 132, 232448
+
+
+def table_floats(K: int) -> int:
+    """Floats of one knot table (``csrc/rqs.cuh`` ``rqs_table_floats``):
+    x- and y-knots, K + 1 each rounded up to a multiple of 4, and an
+    8-float record per bin."""
+    return 2 * ((K + 4) & ~3) + 8 * K
+
+
+def kernel_plan(n: int, K: int, p_rows: int,
+                threads: int | None = None) -> dict:
+    """How ``csrc/rqs.cu`` runs a call, decided here and only validated
+    by the kernel's launch: a thread an element.  One broadcast row
+    (``p_rows == 1``): ``threads`` a block a multiple of 32, at least
+    K + 1 (each knot of the table one thread's sum) and at least 128, at
+    most 256 (128 and 256 were the fastest at 10k and 50k elements,
+    chip_turns.py's sweep); the shared bytes of the row's knot table and
+    the row itself, ``refused`` where they exceed a block's shared
+    memory (K above 4469).  A given ``threads`` is taken as it is, to
+    measure one plan at a shape.  A row per element: 256 threads a
+    block, no shared memory."""
+    if p_rows == 1:
+        if threads is None:
+            threads = min(256, max(128, 32 * -(-(K + 1) // 32)))
+        smem = 4 * (table_floats(K) + 3 * K)
+        return dict(threads=threads, blocks=-(-n // threads), smem=smem,
+                    refused=smem > MAX_SMEM)
+    return dict(threads=256, blocks=-(-n // 256), smem=0, refused=False)
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +205,16 @@ def rqs_cuda(x: Tensor, widths: Tensor, heights: Tensor, slopes: Tensor,
                        (rows, K))
     s = _build.require(_param_rows(slopes, batch, K - 1), "knot_slopes",
                        (rows, K - 1))
+    plan = kernel_plan(xf.numel(), K, rows)
+    if plan["refused"]:
+        raise ValueError(f"the RQS kernel's knot table of K = {K} bins "
+                         f"does not fit a block's shared memory")
     out = torch.empty_like(xf)
     ldj = torch.empty_like(xf)
     KERNEL.launch(x.device, xf.data_ptr(), w.data_ptr(), h.data_ptr(),
                   s.data_ptr(), out.data_ptr(), ldj.data_ptr(), xf.numel(),
-                  K, rows, float(range_min), int(inverse))
+                  K, rows, float(range_min), int(inverse), plan["threads"],
+                  plan["blocks"], plan["smem"])
     return out.reshape(batch), ldj.reshape(batch)
 
 
