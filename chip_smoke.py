@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive vaemolsim_tpu_torch's MC, training, backmapping and molecular MD
-paths on one NVIDIA GPU.
+"""Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD and
+sampling-stack paths on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -61,7 +61,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    exclusions, a coincident pair and a ragged grid, and the energy's NaN
    contract (overflowed and drifted builds) is checked on the card; its
    bound is printed by two counts, the occupied candidate slots (the
-   least work) and every padded slot (the first design's count).
+   least work) and every padded slot (the first design's count);
+8. runs the sampling stack: the 1-D ``RQSSplineRealNVP`` flow workload
+   of bench.py:368 (4 blocks, 32 bins on [-5, 5], hidden 100, built by
+   ``RealNVPConfig``; ``fit`` at batch 4096 on 100k 4-mode points for 10
+   epochs, then 10k samples; gradients against a CPU copy), the
+   sampler-statistics block of bench.py:461 on the flagship (10k chains x
+   1500 cycled VAE / MALA / random-walk steps with scales tuned on the
+   card, and its four asserted thresholds), molecular HMC on LJ7 (bench.py
+   :521: ``minimize_energy``, ``tune_scale``, 200 HMC steps at 8192
+   chains; plain PyTorch, no kernel), examples 10 and 40 at their --full
+   sizes with their own validations (EXP, BAR, AIS, the flow-FEP, MBAR;
+   a 2-D RealNVP trained by ``tfep_loss`` for 1500 steps at N = 20k,
+   then targeted EXP and BAR), replica exchange on the flagship (4
+   replicas of 1000 chains, exact swap counters) and simulated tempering
+   on a double well (every rung visited, the adapted weights against
+   quadrature); then kernels 2 and 1 at those paths' shapes and weights
+   (the one-row 1->100->95 conditioner with the library chain, the
+   1->64->47 conditioner at 20k rows, kernel 1's broadcast row and its row
+   per element at K = 16, N = 20k), each timed with its bound.  Kernel 1's
+   launches are also tallied by route (broadcast row or row per element).
 
 Every path runs with the launch counters zeroed just before it and read
 just after.  Any failed check raises and the script exits non-zero;
@@ -86,20 +105,31 @@ import torch
 from vaemolsim_tpu_torch import _build
 from vaemolsim_tpu_torch.config import (ExperimentConfig, FlowedDistConfig,
                                         FlowModelConfig, MAFConfig,
-                                        OptimizerConfig, RQSParams,
+                                        OptimizerConfig, RealNVPConfig,
+                                        RQSParams,
                                         backmapping_experiment_config,
                                         flagship_experiment_config)
-from vaemolsim_tpu_torch.flows.spline_flows import (MAFLayer,
+from vaemolsim_tpu_torch.dists import StaticFlowedDistribution
+from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
+from vaemolsim_tpu_torch.flows.spline_flows import (CouplingLayer, MAFLayer,
                                                     MaskedSplineConditioner,
                                                     _bin_positions, _slopes)
-from vaemolsim_tpu_torch.mcmc import (MCMCState, make_fused_vae_step,
-                                      make_mcmc_step, run_mcmc,
-                                      vae_proposal_fns)
+from vaemolsim_tpu_torch.mcmc import (
+    MCMCState, STState, ais, bar_free_energy, cycle_moves, exp_free_energy,
+    make_fused_vae_step, make_hmc_step, make_mala_step, make_mcmc_step,
+    make_random_walk_step, make_st_step, mbar_from_samples,
+    potential_scale_reduction, run_mcmc, run_st, targeted_bar,
+    targeted_work_values, tfep_loss, tune_scale, vae_proposal_fns,
+    work_values)
 from vaemolsim_tpu_torch.mcmc import fused as mf
 from vaemolsim_tpu_torch import md, potentials
+from vaemolsim_tpu_torch.models import FlowModel
 from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
 from vaemolsim_tpu_torch.ops import cell_lj, maf_fused, rqs
+from vaemolsim_tpu_torch.ops import distributions as dist
+from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
+                                          run_remc, temperature_ladder)
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain,
                                                stack_regime)
@@ -121,12 +151,23 @@ MD_N, MD_REBUILD, MD_TIMED, MD_NVE = 8192, 5, 200, 200
 MOL = dict(rho=0.6, cutoff=3.5, skin=0.4, capacity=72, dt=0.002)
 LJ = dict(rho=0.8, cutoff=2.5, skin=0.4, capacity=48, dt=0.004)
 MOL_SHAPE = "molecular coulomb+exclusion"
+# The sampling stack at its benchmarks' and examples' shapes: the 1-D
+# RealNVP flow workload (bench.py:368), the sampler-statistics block
+# (bench.py:461), molecular HMC (bench.py:521), examples 10 and 40 at
+# --full, REMC and simulated tempering.
+RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 10, 10_000
+STATS_CHAINS, STATS_STEPS = 10_000, 1500
+HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 200, 10
+FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 400, 96, 20
+TFEP_N, TFEP_STEPS = 20_000, 1500
+REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
+ST_RUNGS, ST_CHAINS, ST_STEPS = 6, 2000, 2000
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # The H100 SXM's boost SM clock, to turn a spin time into cycles.
 SM_HZ = 1.98e9
-RESULTS = {"checks": [], "mc": [], "train": []}
+RESULTS = {"checks": [], "mc": [], "train": [], "sampling": []}
 
 
 def fail_unless(cond, what):
@@ -800,13 +841,22 @@ def train_path(name, model, loss_fn, data, dev, batch=TRAIN_BATCH,
     return row
 
 
+def _off_knots(spline, t, inverse, margin):
+    """Rows of t (N, D) more than ``margin`` from every knot of
+    ``spline`` on its input side."""
+    x_knots, y_knots = rqs._knots(spline.bin_widths, spline.bin_heights,
+                                  spline.range_min)
+    knots = y_knots if inverse else x_knots
+    return ((t[..., None] - knots).abs().amin(-1) > margin).all(-1)
+
+
 def knot_safe(layers, y, inverse=True, margin=1e-4, context=None):
     """A CPU mask of the rows of y (N, D) whose spline input lies more
     than ``margin`` from every knot, the ends of the bin range included,
-    in every pass of the MAF ``layers`` (with their ``context`` (N, C)
-    where they are conditional) applied in turn in one direction (a
-    flow's density pass: its blocks last first, ``inverse=True``),
-    evaluated on CPU copies.  At a knot the spline is
+    in every pass of the MAF or coupling ``layers`` (with their
+    ``context`` (N, C) where they are conditional) applied in turn in one
+    direction (a flow's density pass: its blocks last first,
+    ``inverse=True``), evaluated on CPU copies.  At a knot the spline is
     C1, but its gradient with respect to the bin parameters jumps; a row
     that float32 roundoff (~1e-5 here) puts in the neighbouring bin on
     one device changes a mean gradient by O(1)/N, whichever device is
@@ -817,15 +867,18 @@ def knot_safe(layers, y, inverse=True, margin=1e-4, context=None):
     with torch.no_grad():
         for layer in layers:
             layer = copy.deepcopy(layer).to("cpu")
+            if isinstance(layer, CouplingLayer):
+                cond, rest, _ = layer._split(y)
+                keep &= _off_knots(layer._spline(cond), rest, inverse,
+                                   margin)
+                y = (layer.inverse_and_log_det if inverse
+                     else layer.forward_and_log_det)(y)[0]
+                continue
             cur = y
             for _ in range(1 if inverse
                            else layer.conditioner.w_net.event_size):
                 spline = layer._spline(cur, ctx)
-                x_knots, y_knots = rqs._knots(
-                    spline.bin_widths, spline.bin_heights, spline.range_min)
-                knots = y_knots if inverse else x_knots
-                keep &= ((y[..., None] - knots).abs().amin(-1)
-                         > margin).all(-1)
+                keep &= _off_knots(spline, y, inverse, margin)
                 cur = spline.forward(y)
             y = layer.unfused_and_log_det(y, ctx, inverse)[0]
     return keep
@@ -1402,6 +1455,610 @@ def check_cell_lj(mol, mol_x, lj, lj_x, dev):
 
 
 # ---------------------------------------------------------------------------
+# Sampling stack: RealNVP flows, local moves, REMC, tempering, free energies
+# ---------------------------------------------------------------------------
+
+
+def busy_share(fn, per):
+    """fn() once under torch.profiler: (window ms, device-busy ms, idle
+    share) per ``per`` units of work; the busy pair is None where the
+    trace holds no device time."""
+    window_s, prof = profiled(fn)
+    busy_us, _ = device_time(prof)
+    window_ms = 1e3 * window_s / per
+    if busy_us is None:
+        return window_ms, None, None
+    busy_ms = busy_us / 1e3 / per
+    return window_ms, busy_ms, 1.0 - busy_ms / window_ms
+
+
+class RqsRoutes:
+    """While active, tallies kernel 1's launches by route, from the
+    ``rows`` argument of each launch: one broadcast row, or a row per
+    element.  The launches themselves go through the wrapper as ever."""
+
+    def __enter__(self):
+        self.tally = {"broadcast": 0, "per_element": 0}
+        launch = rqs.KERNEL.launch
+
+        def spy(device, *args):
+            launch(device, *args)
+            self.tally["broadcast" if args[8] == 1 else "per_element"] += 1
+
+        rqs.KERNEL.launch = spy
+        return self.tally
+
+    def __exit__(self, *exc):
+        del rqs.KERNEL.launch
+
+
+def sampling_row(name, seconds, rate, unit, counts, busy=None, **extra):
+    """Record and print one sampling path's result."""
+    row = {"path": name, "seconds": seconds, "rate": rate, "unit": unit,
+           "launches": counts, **extra}
+    text = ""
+    if busy is not None:
+        window_ms, busy_ms, idle = busy
+        row.update(profiled_ms=window_ms, device_busy_ms=busy_ms,
+                   device_idle_share=idle)
+        text = ("  device busy not measured" if busy_ms is None else
+                f"  device busy {busy_ms:.4f} of {window_ms:.4f} ms "
+                f"profiled ({idle:.3f} idle)")
+    RESULTS["sampling"].append(row)
+    rate = "" if rate is None else f"{rate:16.1f} {unit}  "
+    print(f"sampling {name:16s} {rate}({seconds:.3f} s){text}  launches "
+          f"{counts}", flush=True)
+    return row
+
+
+def realnvp_1d_data(dev):
+    """bench.py:368's data: RNVP_N samples of the 4-mode 1-D mixture,
+    centres -3, -1, 1, 3, sigma 0.25."""
+    rng = np.random.default_rng(2)
+    x = (np.array([-3.0, -1.0, 1.0, 3.0])[rng.integers(0, 4, RNVP_N)]
+         + 0.25 * rng.normal(size=RNVP_N))
+    return torch.tensor(x[:, None], dtype=torch.float32, device=dev)
+
+
+def realnvp_1d_path(dev):
+    """bench.py:368 (the reference notebook's flow workload): a 1-D
+    RQSSplineRealNVP (4 blocks, 32 bins on [-5, 5], hidden 100) built by
+    RealNVPConfig in a FlowModel over a standard normal, trained by fit()
+    at batch 4096 for 10 epochs after a warm-up epoch, then 10k samples:
+    each block's conditioner on one row (kernel 2's small-N regime) and
+    its spline on one broadcast row (kernel 1)."""
+    model = ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(
+        RealNVPConfig(data_dim=1, num_blocks=4, rqs=RQSParams(
+            num_bins=32, hidden_dim=100, bin_range=(-5.0, 5.0))),
+        base=None, static_base_dim=1))).build(dev)
+    data = realnvp_1d_data(dev)
+    probe = torch.zeros(RNVP_SAMPLES, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    with torch.no_grad():
+        before = moment_distance(model.predict(probe, gen), data)
+    with RqsRoutes() as routes:
+        row = train_path("flow_realnvp_1d", model,
+                         lambda m, b, g: -m.log_prob(b).mean(), data, dev,
+                         batch=RNVP_BATCH, epochs=RNVP_EPOCHS)
+    fail_unless(row["launches"]["rqs"] > 0
+                and row["launches"]["dense_stack"] > 0
+                and routes["broadcast"] > 0,
+                f"1-D RealNVP training launch counts {row['launches']}, "
+                f"kernel 1 routes {routes}")
+    _build.reset_launches()
+    with torch.no_grad():
+        samples = model.predict(probe, gen)
+    sample_counts = _build.launch_counts()
+    fail_unless(sample_counts["rqs"] > 0 and sample_counts["dense_stack"] > 0,
+                f"1-D RealNVP sampling launch counts {sample_counts}")
+    fail_unless(bool(torch.isfinite(samples).all())
+                and samples.shape == (RNVP_SAMPLES, 1),
+                "1-D RealNVP samples not finite or of the wrong shape")
+    after = moment_distance(samples, data)
+    fail_unless(after < before, f"1-D RealNVP samples' moments did not move "
+                f"toward the data's: distance {before} -> {after}")
+    with torch.no_grad():
+        ms = timed(lambda: model.predict(probe, gen), reps=10)
+    row.update(routes=dict(routes), sample_launches=sample_counts,
+               samples_per_s=RNVP_SAMPLES / (ms * 1e-3), predict_ms=ms,
+               moment_distance=[before, after])
+    print(f"sample realnvp_1d N={RNVP_SAMPLES} {row['samples_per_s']:.1f} "
+          f"samples/s ({ms:.4f} ms)  moment distance {before:.4f} -> "
+          f"{after:.4f}  kernel 1 routes {dict(routes)}", flush=True)
+    x = data[:RNVP_BATCH]
+    x = x[rows_off_knots(model.flowed_dist.flow, x)]
+    check_grads("flow_realnvp_1d", model,
+                lambda m, d: -m.log_prob(x.to(d)).mean(), dev)
+    return model, row, sample_counts
+
+
+def mixture_target(dev):
+    """bench.py:461's target: an equal mixture of N(-2, 0.7^2) and
+    N(2, 0.7^2) in x0 and N(0, 1) in x1."""
+    mix = dist.MixtureSameFamily(
+        torch.zeros(2, device=dev),
+        dist.Normal(torch.tensor([-2.0, 2.0], device=dev),
+                    0.7 * torch.ones(2, device=dev)))
+
+    def log_target(x):
+        return mix.log_prob(x[..., 0]) - 0.5 * x[..., 1] ** 2
+
+    return mix, log_target
+
+
+def statistics_path(vae, dev):
+    """bench.py:461's sampler-correctness block: STATS_CHAINS chains x
+    STATS_STEPS steps of cycle_moves([generic VAE step, MALA, random
+    walk]) on the flagship (random weights), scales tuned on the card
+    (random walk, then MALA from 0.05), collected every 50 steps, with
+    its asserted thresholds."""
+    mix, log_target = mixture_target(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cfgs = torch.randn(STATS_CHAINS, 2, generator=gen, device=dev)
+    st = MCMCState.create(cfgs, log_target(cfgs), gen)
+    vae_step = make_mcmc_step(*vae_proposal_fns(vae), log_target)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    s_rw, st = tune_scale(log_target, st, kind="random_walk")
+    s_mala, st = tune_scale(log_target, st, kind="mala", init_scale=0.05)
+    step = cycle_moves([vae_step, make_mala_step(log_target, s_mala),
+                        make_random_walk_step(log_target, s_rw)])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with RqsRoutes() as routes:
+        st, traj = run_mcmc(step, st, STATS_STEPS, collect_every=50)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = _build.launch_counts()
+    fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
+                f"statistics launch counts {counts}")
+    x0 = st.configs[:, 0].double()
+    mode_balance = float((x0 > 0).double().mean())
+    m2 = float((x0 ** 2).mean())
+    want_m2 = float((mix.sample(gen, (200_000,)).double() ** 2).mean())
+    rhat = float(potential_scale_reduction(traj[..., 0]))
+    acc = float(st.acceptance_rate)
+    fail_unless(abs(mode_balance - 0.5) < 0.05, f"mode balance {mode_balance}")
+    fail_unless(abs(m2 - want_m2) / want_m2 < 0.05,
+                f"second moment {m2} against {want_m2}")
+    fail_unless(rhat < 1.05, f"R-hat {rhat}")
+    fail_unless(0.05 < acc < 0.95, f"acceptance {acc}")
+    fail_unless(int(st.num_trials) == 3 * STATS_CHAINS * STATS_STEPS,
+                f"statistics trials {int(st.num_trials)}")
+    busy = busy_share(lambda: run_mcmc(step, st, 10), 10)
+    return sampling_row(
+        "statistics", dt, STATS_CHAINS * STATS_STEPS / dt,
+        "proposals/s (chains x cycled steps / s; 3 MH trials a step)",
+        counts, busy, ms_per_step=1e3 * dt / STATS_STEPS,
+        tune_seconds=t1 - t0, routes=dict(routes),
+        mode_balance=mode_balance, second_moment=m2, want_second_moment=
+        want_m2, rhat=rhat, acceptance=acc, tuned_rw_scale=s_rw,
+        tuned_mala_eps=s_mala, chains=STATS_CHAINS, steps=STATS_STEPS)
+
+
+def molecular_hmc_path(dev):
+    """bench.py:521: composite(lennard_jones(), com_restraint(2.0)) at
+    beta 2 on HMC_CHAINS LJ7 clusters from 0.7 N(0, 1) starts, relaxed by
+    minimize_energy (1000 steps, lr 0.1), HMC tuned (init 0.05, 15
+    rounds, 10 leapfrog steps), then HMC_STEPS HMC steps.  The dense
+    O(N^2) LJ is plain PyTorch: no kernel runs on this path."""
+    pot = potentials.composite(potentials.lennard_jones(device=dev),
+                               potentials.com_restraint(2.0))
+    lp = potentials.as_log_prob(pot, beta=2.0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x0 = 0.7 * torch.randn(HMC_CHAINS, 7, 3, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    x = potentials.minimize_energy(pot, x0, steps=1000, lr=0.1)
+    with torch.no_grad():
+        e_start, e_min = pot(x0), pot(x)
+        st = MCMCState.create(x, lp(x), gen)
+    eps, st = tune_scale(lp, st, kind="hmc", init_scale=0.05, rounds=15,
+                         n_leapfrog=HMC_LEAP)
+    step = make_hmc_step(lp, step_size=eps, n_leapfrog=HMC_LEAP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, _ = run_mcmc(step, st, HMC_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = _build.launch_counts()
+    acc = float(out.acceptance_rate)
+    fail_unless(0.3 < acc <= 1.0, f"HMC acceptance {acc}")
+    fail_unless(bool(torch.isfinite(out.configs).all()
+                     and torch.isfinite(out.energies).all()),
+                "HMC chains not finite")
+    fail_unless(float(e_min.max()) < float(e_start.median()),
+                "minimize_energy did not relax the clusters")
+    fail_unless(sum(counts.values()) == 0,
+                f"a kernel launched on the dense-LJ HMC path: {counts}")
+    busy = busy_share(lambda: run_mcmc(step, out, 5), 5)
+    print("sampling molecular_hmc: no kernel on this path (the dense LJ "
+          "and its autograd gradient are plain PyTorch)", flush=True)
+    grads = HMC_CHAINS * HMC_STEPS * (HMC_LEAP + 1)
+    return sampling_row(
+        "molecular_hmc", dt, grads / dt,
+        "gradient evaluations/s (chains x steps x 11 / s)", counts, busy,
+        ms_per_step=1e3 * dt / HMC_STEPS, setup_seconds=t1 - t0,
+        acceptance=acc, tuned_eps=eps,
+        min_energy_mean=float(e_min.mean()))
+
+
+def _fe_log_p_a(x):
+    x = x[..., 0]
+    return -1.0 * (x ** 2 - 1.5 ** 2) ** 2 / 2.0
+
+
+def _fe_log_p_b(x):
+    x = x[..., 0]
+    return -2.2 * (x ** 2 - 1.2 ** 2) ** 2 / 2.0 - 0.6 * x
+
+
+def _quadrature_ln_z(log_p, lo=-6.0, hi=6.0, n=20_001):
+    g = np.linspace(lo, hi, n)
+    lp = log_p(torch.tensor(g[:, None], dtype=torch.float64)).numpy()
+    m = lp.max()
+    return m + np.log(np.trapezoid(np.exp(lp - m), g))
+
+
+def free_energy_example_10(dev):
+    """examples/10_free_energy.py at its --full sizes: EXP, BAR, AIS
+    (FE_AIS stages, 2 sweeps), the flow-FEP with a 1-D RealNVP (2 blocks,
+    16 bins on [-4, 4], hidden 64) trained by fit() on state-B samples,
+    and MBAR over a 5-state tuned-HMC ladder; the example's own check:
+    the worst of BAR, AIS and MBAR within 0.15 of quadrature."""
+    ln_z_a = _quadrature_ln_z(_fe_log_p_a)
+    ln_z_b = _quadrature_ln_z(_fe_log_p_b)
+    true_df = -(ln_z_b - ln_z_a)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def sample_state(log_p):
+        cfgs = torch.randn(FE_CHAINS, 1, generator=gen, device=dev)
+        st = MCMCState.create(cfgs, log_p(cfgs), gen)
+        st, _ = run_mcmc(make_random_walk_step(log_p, 0.6), st, FE_STEPS)
+        return st.configs
+
+    out = {"true_df": true_df}
+    x_a, x_b = sample_state(_fe_log_p_a), sample_state(_fe_log_p_b)
+    w_f = work_values(_fe_log_p_a, _fe_log_p_b, x_a)
+    w_r = work_values(_fe_log_p_b, _fe_log_p_a, x_b)
+    out["exp"] = float(exp_free_energy(w_f)[0])
+    out["bar"] = float(bar_free_energy(w_f, w_r)[0])
+
+    def prior_lp(x):
+        s = 1.5
+        return (-0.5 * ((x / s) ** 2).sum(-1)
+                - 0.5 * math.log(2 * math.pi * s * s))
+
+    x0 = 1.5 * torch.randn(FE_CHAINS, 1, generator=gen, device=dev)
+    res_a = ais(prior_lp, _fe_log_p_a, x0, gen, n_stages=FE_AIS, scale=0.5,
+                sweeps_per_stage=2)
+    res_b = ais(prior_lp, _fe_log_p_b, x0, gen, n_stages=FE_AIS, scale=0.5,
+                sweeps_per_stage=2)
+    out["ais"] = -(float(res_b.log_z) - float(res_a.log_z))
+
+    base = dist.Independent(dist.Normal(torch.zeros(1, device=dev),
+                                        torch.ones(1, device=dev)), 1)
+    flow = RQSSplineRealNVP.create(
+        torch.Generator(device=dev).manual_seed(18), 1, num_blocks=2,
+        rqs_params={"num_bins": 16, "hidden_dim": 64,
+                    "bin_range": [-4.0, 4.0]}, device=dev)
+    model = FlowModel.create(gen, StaticFlowedDistribution(flow, base))
+    model, hist = fit(model, lambda m, b, g: -m.log_prob(b).mean(), x_b,
+                      generator=gen, num_epochs=FE_EPOCHS, batch_size=256)
+    with torch.no_grad():
+        q = model(torch.zeros(1, 1, device=dev))
+        xs, lq = q.sample_and_log_prob(gen, (FE_CHAINS * 4,))
+        ln_z_b_flow = -float(exp_free_energy(lq - _fe_log_p_b(xs))[0])
+    out["flow_fep"] = -(ln_z_b_flow - ln_z_a)
+    out["flow_nll"] = hist["loss"][-1]
+
+    lams = np.linspace(0.0, 1.0, 5)
+    fns = [(lambda x, lam=lam: (1.0 - lam) * _fe_log_p_a(x)
+            + lam * _fe_log_p_b(x)) for lam in lams]
+    ladder = []
+    for fn in fns:
+        cfgs = 1.5 * torch.randn(FE_CHAINS, 1, generator=gen, device=dev)
+        st = MCMCState.create(cfgs, fn(cfgs), gen)
+        eps, st = tune_scale(fn, st, kind="hmc", init_scale=0.1, rounds=15,
+                             n_leapfrog=5)
+        st, _ = run_mcmc(make_hmc_step(fn, step_size=eps, n_leapfrog=5), st,
+                         FE_STEPS)
+        ladder.append(st.configs)
+    res = mbar_from_samples(fns, ladder)
+    out["mbar"] = float(res.free_energies[-1])
+    out["mbar_se"] = float(res.stderrs[-1])
+    worst = max(abs(out[k] - true_df) for k in ("bar", "ais", "mbar"))
+    out["worst_error"] = worst
+    fail_unless(worst < 0.15, f"example 10: estimators disagree with "
+                f"quadrature by {worst}: {out}")
+    print("free_energy example 10: " + "  ".join(
+        f"{k} {v:+.4f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def _banana_lp(x):
+    x1, x2 = x[..., 0], x[..., 1]
+    return -(x1 ** 2 / (2 * 0.8 ** 2)
+             + (x2 - 0.5 * x1 ** 2 - 1.0) ** 2 / (2 * 0.35 ** 2))
+
+
+def _gauss_lp(x):
+    return -0.5 * (x ** 2).sum(-1)
+
+
+def free_energy_example_40(dev):
+    """examples/40_targeted_fep.py at its --full size: a 2-D
+    RQSSplineRealNVP (4 blocks, 16 bins on [-8, 8], hidden 64) trained
+    by tfep_loss with Adam 2e-3 for TFEP_STEPS steps on TFEP_N fixed
+    A-samples (each block's conditioner on every row: kernel 2 at N =
+    TFEP_N, and kernel 1 on a row per element, forward and backward),
+    then targeted EXP and BAR, with the example's three validations."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    true_df = -math.log(0.8 * 0.35)
+    x_a = torch.randn(TFEP_N, 2, generator=gen, device=dev)
+    x1 = 0.8 * torch.randn(TFEP_N, generator=gen, device=dev)
+    x_b = torch.stack([x1, 0.5 * x1 ** 2 + 1.0 + 0.35 * torch.randn(
+        TFEP_N, generator=gen, device=dev)], -1)
+    w_f = work_values(_gauss_lp, _banana_lp, x_a)
+    w_r = work_values(_banana_lp, _gauss_lp, x_b)
+    _, se_bar = bar_free_energy(w_f, w_r)
+    flow = RQSSplineRealNVP.create(
+        torch.Generator(device=dev).manual_seed(20), 2, num_blocks=4,
+        rqs_params={"num_bins": 16, "hidden_dim": 64,
+                    "bin_range": [-8.0, 8.0]}, device=dev)
+    opt = torch.optim.Adam(flow.parameters(), lr=2e-3)
+    losses = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with RqsRoutes() as routes:
+        for _ in range(TFEP_STEPS):
+            loss = tfep_loss(_gauss_lp, _banana_lp, x_a,
+                             bijector=flow.as_bijector())
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    fail_unless(counts["dense_stack"] > 0 and routes["per_element"] > 0,
+                f"example 40 launch counts {counts}, kernel 1 routes "
+                f"{routes}")
+
+    def one_step():
+        loss = tfep_loss(_gauss_lp, _banana_lp, x_a,
+                         bijector=flow.as_bijector())
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+
+    busy = busy_share(lambda: [one_step() for _ in range(5)], 5)
+    losses = [float(v) for v in torch.stack(losses)[::100]]
+    with torch.no_grad():
+        bij = flow.as_bijector()
+        w_t = targeted_work_values(_gauss_lp, _banana_lp, x_a, bijector=bij)
+        df_t, se_t = exp_free_energy(w_t)
+        df_tb, se_tb = targeted_bar(_gauss_lp, _banana_lp, x_a, x_b,
+                                    bijector=bij)
+    shrink = float(w_f.std()) / max(float(w_t.std()), 1e-9)
+    err_t, err_tb = abs(float(df_t) - true_df), abs(float(df_tb) - true_df)
+    fail_unless(shrink > 5.0, f"example 40: work-std shrink {shrink}")
+    fail_unless(err_t < max(5 * float(se_t), 0.05),
+                f"example 40: targeted EXP off by {err_t} (SE {float(se_t)})")
+    fail_unless(err_tb < max(5 * float(se_tb), 0.05),
+                f"example 40: targeted BAR off by {err_tb} "
+                f"(SE {float(se_tb)})")
+    fail_unless(float(se_tb) <= float(se_bar) + 1e-6,
+                f"example 40: targeted BAR SE {float(se_tb)} above plain "
+                f"BAR's {float(se_bar)}")
+    fail_unless(all(math.isfinite(v) for v in losses) and
+                losses[-1] < losses[0], f"example 40 losses {losses}")
+    print(f"free_energy example 40: exact {true_df:+.4f}  targeted EXP "
+          f"{float(df_t):+.4f} +- {float(se_t):.4f}  targeted BAR "
+          f"{float(df_tb):+.4f} +- {float(se_tb):.4f} (plain BAR SE "
+          f"{float(se_bar):.4f})  work-std shrink {shrink:.1f}x", flush=True)
+    row = sampling_row(
+        "free_energy_40", dt, TFEP_STEPS / dt, "tfep_loss Adam steps/s",
+        counts, busy, ms_per_step=1e3 * dt / TFEP_STEPS,
+        routes=dict(routes), losses=losses, true_df=true_df,
+        targeted_exp=float(df_t), targeted_exp_se=float(se_t),
+        targeted_bar=float(df_tb), targeted_bar_se=float(se_tb),
+        plain_bar_se=float(se_bar), work_std_shrink=shrink)
+    return flow, x_a, row
+
+
+def free_energy_path(dev):
+    """Examples 10 and 40 at their --full sizes, counters zeroed before
+    and read after each."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex10 = free_energy_example_10(dev)
+    torch.cuda.synchronize()
+    row10 = sampling_row("free_energy_10", time.perf_counter() - t0, None,
+                         None, _build.launch_counts(), **ex10)
+    flow, x_a, row40 = free_energy_example_40(dev)
+    return row10, row40, flow, x_a
+
+
+def remc_path(vae, dev):
+    """REMC on the flagship: temperature_ladder(REMC_R) over REMC_CHAINS
+    chains a replica, REMC_STEPS steps, an exchange every step; the
+    replica axis rides through the kernel wrappers."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    st = REMCState.create(
+        torch.randn(REMC_R, REMC_CHAINS, 2, generator=gen, device=dev),
+        log_target, temperature_ladder(REMC_R), gen)
+    step = make_remc_step(*vae_proposal_fns(vae), log_target)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st = run_remc(step, st, REMC_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    pairs = sum(len(range(i % 2, REMC_R - 1, 2)) for i in range(REMC_STEPS))
+    fail_unless(int(st.num_swap_trials) == pairs * REMC_CHAINS,
+                f"REMC swap attempts {int(st.num_swap_trials)}, want "
+                f"{pairs * REMC_CHAINS}")
+    fail_unless(int(st.num_trials) == REMC_R * REMC_CHAINS * REMC_STEPS,
+                f"REMC trials {int(st.num_trials)}")
+    swap, acc = float(st.swap_acceptance_rate), float(st.acceptance_rate)
+    fail_unless(0.0 < swap < 1.0 and 0.0 < acc < 1.0,
+                f"REMC swap acceptance {swap}, acceptance {acc}")
+    fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
+                f"REMC launch counts {counts}")
+    busy = busy_share(lambda: run_remc(step, st, 5), 5)
+    return sampling_row(
+        "remc", dt, REMC_R * REMC_CHAINS * REMC_STEPS / dt,
+        "proposals/s (replicas x chains x steps / s)", counts, busy,
+        ms_per_step=1e3 * dt / REMC_STEPS, swap_acceptance=swap,
+        acceptance=acc, swap_attempts=int(st.num_swap_trials))
+
+
+def _double_well(x):
+    q = x[..., 0]
+    return -4.0 * (q * q - 1.0) ** 2
+
+
+def tempering_path(dev):
+    """Simulated tempering on the 1-D double well -4 (x^2 - 1)^2 over
+    temperature_ladder(ST_RUNGS, beta_min=0.1), ST_CHAINS chains,
+    ST_STEPS adapting random-walk steps: every rung visited, hops
+    accepted at a rate in (0, 1), and the adapted weights within 0.2 of
+    the rungs' free energies by quadrature."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    betas = temperature_ladder(ST_RUNGS, beta_min=0.1)
+    st = STState.create(torch.randn(ST_CHAINS, 1, generator=gen, device=dev),
+                        _double_well, betas, gen)
+    step = make_st_step(_double_well, scale=0.5)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, _ = run_st(step, st, ST_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    g = np.linspace(-4.0, 4.0, 20_001)
+    ln_z = [np.log(np.trapezoid(np.exp(b * _double_well(g[:, None])), g))
+            for b in betas.double().cpu().numpy()]
+    want = np.asarray(ln_z[0]) - np.asarray(ln_z)
+    got = st.free_energies.double().cpu().numpy()
+    temp_acc = float(st.temp_acceptance_rate)
+    fail_unless(bool((st.occupancy > 0).all()),
+                f"tempering: a rung never visited: {st.occupancy.tolist()}")
+    fail_unless(0.0 < temp_acc < 1.0, f"tempering hop acceptance {temp_acc}")
+    fail_unless(float(np.abs(got - want).max()) < 0.2,
+                f"tempering weights {got} against quadrature {want}")
+    busy = busy_share(lambda: run_st(step, st, 20), 20)
+    return sampling_row(
+        "tempering", dt, ST_CHAINS * ST_STEPS / dt,
+        "chain-steps/s", counts, busy, temp_acceptance=temp_acc,
+        acceptance=float(st.acceptance_rate),
+        occupancy=st.occupancy.tolist(), free_energies=got.tolist(),
+        quadrature_free_energies=want.tolist())
+
+
+def kernel_launch_us(fn, match, reps=10):
+    """Device µs per launch of the kernels named ``match`` in a profile of
+    reps calls of fn() (after a warm-up), per launch the profile
+    recorded, with that count: late in this script the profiler records
+    only some ctypes launches."""
+    fn()
+    _, prof = profiled(lambda: [fn() for _ in range(reps)])
+    return launch_us(prof, match)
+
+
+def check_coupling_kernels(realnvp, flow2d, x_a, gen, dev):
+    """Kernels 2 and 1 at the RealNVP paths' own shapes and weights,
+    each against its plain version and timed with its bound: the 1-D
+    conditioner 1->100->95 tanh on one row (with the library chain
+    addmm, tanh, addmm), the 2-D conditioner 1->64->47 tanh on TFEP_N
+    rows, the 1-D flow's broadcast spline row (K = 32) at RNVP_BATCH and
+    RNVP_SAMPLES, and the 2-D flow's per-element rows (K = 16, N =
+    TFEP_N) forward and inverse.  Tolerances as check_dense_stack's and
+    check_rqs's."""
+    def stack_of(cond):
+        heads = (cond.w_head, cond.h_head, cond.s_head)
+        return ([cond.trunk.kernel.detach(),
+                 torch.cat([h.kernel for h in heads], -1).detach()],
+                [cond.trunk.bias.detach(),
+                 torch.cat([h.bias for h in heads], -1).detach()])
+
+    blk1 = realnvp.flowed_dist.flow.blocks[0]
+    blk2 = flow2d.blocks[0]
+    cond_x = blk2._split(x_a)[0].contiguous()
+    for name, (ks, bs), x in (
+            ("RealNVP 1-D conditioner", stack_of(blk1.conditioner),
+             torch.ones(1, 1, device=dev)),
+            ("RealNVP 2-D conditioner", stack_of(blk2.conditioner), cond_x)):
+        acts = ["tanh", None]
+        dims = [x.shape[1]] + [k.shape[1] for k in ks]
+        got = dense_stack_cuda(x, ks, bs, acts)
+        err = compare(name, got, dense_stack_plain(x, ks, bs, acts), 1e-4,
+                      1e-4)
+        ms = timed(lambda: dense_stack_cuda(x, ks, bs, acts))
+        plain_ms = timed(lambda: dense_stack_plain(x, ks, bs, acts))
+        extra = {}
+        extra["device_us"], extra["recorded_launches"] = kernel_launch_us(
+            lambda: dense_stack_cuda(x, ks, bs, acts), "dense_")
+        extra["plain_device_us"], _ = device_us(
+            lambda: dense_stack_plain(x, ks, bs, acts), "")
+        if x.shape[0] == 1:
+            (w1, w2), (c1, c2) = ks, bs
+
+            def library():
+                return torch.addmm(c2, torch.tanh(torch.addmm(c1, x, w1)),
+                                   w2)
+
+            extra["library_ms"] = timed(library)
+            extra["library_device_us"], _ = device_us(library, "")
+        extra["bound_us"], extra["bound_by"] = stack_bound(x.shape[0], ks, bs)
+        record("dense_stack",
+               f"{name} {'->'.join(map(str, dims))} tanh N={x.shape[0]}",
+               err, ms, plain_ms, regime=stack_regime(x.shape[0], dims)[0],
+               **extra)
+    with torch.no_grad():
+        s1 = blk1._spline(torch.zeros(1, 0, device=dev))
+        s2 = blk2._spline(cond_x)
+    cases = [("broadcast", s1, n, 1.0) for n in (RNVP_BATCH, RNVP_SAMPLES)]
+    cases.append(("per-element", s2, TFEP_N, 4.0))
+    for route, spline, n, spread in cases:
+        params = tuple(p.detach() for p in (spline.bin_widths,
+                                            spline.bin_heights,
+                                            spline.knot_slopes))
+        K = params[0].shape[-1]
+        x = spread * torch.randn(n, 1, generator=gen, device=dev)
+        for inverse in (False, True):
+            plain = rqs.rqs_inverse_plain if inverse \
+                else rqs.rqs_forward_plain
+            got = rqs.rqs_cuda(x, *params, spline.range_min, inverse)
+            want = plain(x, *params, spline.range_min)
+            err = max(compare("rqs value", got[0], want[0], 1e-5, 1e-5,
+                              1e-4),
+                      compare("rqs ldj", got[1], want[1], 1e-4, 0.0, 1e-4))
+            ms = timed(lambda: rqs.rqs_cuda(x, *params, spline.range_min,
+                                            inverse))
+            plain_ms = timed(lambda: plain(x, *params, spline.range_min))
+            dev_us, recorded = kernel_launch_us(
+                lambda: rqs.rqs_cuda(x, *params, spline.range_min, inverse),
+                "rqs")
+            rows = params[0].reshape(-1, K).shape[0]
+            # Bytes: x in, y and the log-det out, and the parameter rows
+            # (3K - 1 floats each) once.
+            bound_us, bound_by = _bound(4 * (3 * n + rows * (3 * K - 1)),
+                                        n * spline_flops(K))
+            record("rqs", f"RealNVP {'inverse' if inverse else 'forward'} "
+                   f"{route} N={n} K={K}", err, ms, plain_ms,
+                   plan=rqs.kernel_plan(n, K, rows), device_us=dev_us,
+                   recorded_launches=recorded, bound_us=bound_us,
+                   bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
 
@@ -1496,10 +2153,18 @@ def bounds(vae, flow):
                 c["padded_bound_us"], work["padded_bound_by"])
             if c["shape"].startswith(MOL_SHAPE):
                 out["cell_lj"] = (c["bound_us"], work["bound_by"])
-    # The dense stack's tiled regime at the backmapping decoder's widths.
+    # Kernel 1's row per element at the flagship's K and sizes: each
+    # element reads x and its 3K - 1 parameters, writes y and the log-det.
+    for m in SIZES:
+        out[f"rqs per-element N={m}"] = _bound(4 * m * (3 * K + 2),
+                                               m * spline_flops(K))
+    # Shapes checked with their own bound: the dense stack's tiled regime
+    # at the backmapping decoder's widths, and kernels 2 and 1 at the
+    # RealNVP paths' shapes (check_coupling_kernels).
     for c in RESULTS["checks"]:
-        if c["kernel"] == "dense_stack" and "bound_us" in c:
-            out[f"dense_stack {c['shape']}"] = (c["bound_us"], c["bound_by"])
+        if c["kernel"] in ("dense_stack", "rqs") and "bound_us" in c:
+            out[f"{c['kernel']} {c['shape']}"] = (c["bound_us"],
+                                                 c["bound_by"])
     return out
 
 
@@ -1561,6 +2226,14 @@ def main():
     mol, mol_row, mol_state = molecular_path(dev)
     lj, lj_row, lj_state = lj_path(dev)
     check_cell_lj(mol, mol_state.x, lj, lj_state.x, dev)
+    realnvp, rnvp_row, rnvp_sample = realnvp_1d_path(dev)
+    stats = statistics_path(vae, dev)
+    hmc = molecular_hmc_path(dev)
+    fe10, fe40, flow2d, x_a = free_energy_path(dev)
+    remc = remc_path(vae, dev)
+    tempering = tempering_path(dev)
+    with torch.no_grad():
+        check_coupling_kernels(realnvp, flow2d, x_a, gen, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -1569,7 +2242,15 @@ def main():
                 "backmapping_serve": bm_serve["launches"],
                 "backmapping_train": bm_train["launches"],
                 "md_molecular": mol_row["launches"],
-                "md_lj": lj_row["launches"]}
+                "md_lj": lj_row["launches"],
+                "flow_realnvp_1d_train": rnvp_row["launches"],
+                "flow_realnvp_1d_sample": rnvp_sample,
+                "statistics": stats["launches"],
+                "molecular_hmc": hmc["launches"],
+                "free_energy_10": fe10["launches"],
+                "free_energy_40": fe40["launches"],
+                "remc": remc["launches"],
+                "tempering": tempering["launches"]}
     bound = bounds(vae, flow)
     floor_us = 1e3 * RESULTS["launch_floor_ms"]
     for name, (us, by) in bound.items():

@@ -961,3 +961,98 @@ def test_cell_lj_launch_refuses_a_bad_split(dev, monkeypatch, split):
     args, ckw = _cell_blocks(dev, 3, 24, 27 * 24, 100, seed=2)
     with pytest.raises(RuntimeError, match="cell_lj kernel launch failed"):
         cell_lj.cell_pair_energy_force_cuda(*args, **ckw)
+
+
+@pytest.mark.parametrize("dims,n", [
+    ([1, 100, 95], 1),        # the 1-D RealNVP's one-row conditioner
+    ([1, 64, 47], 20_000),    # the 2-D RealNVP's conditioner, a row each
+])
+def test_dense_stack_coupling_conditioner_shapes(dev, dims, n):
+    """The RealNVP conditioners' stacks (tanh trunk, three linear heads
+    merged) against the plain version: 1e-4 + 1e-4|y|, one launch."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ks, bs, _ = _stack(gen, dev, dims, 0)
+    x = torch.randn(n, dims[0], generator=gen, device=dev)
+    before = fused_mlp.KERNEL.launches
+    with torch.no_grad():
+        got = fused_dense_stack(x, ks, bs, ["tanh", None])
+    assert fused_mlp.KERNEL.launches == before + 1
+    want = dense_stack_plain(x, ks, bs, ["tanh", None])
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rqs_kernel_per_element_rows_k16(dev, inverse):
+    """Kernel 1's row per element at the 2-D RealNVP's shape (K = 16,
+    N = 20k, bins on [-8, 8]): 1e-5 + 1e-5|y| on values, 1e-4 on
+    log-dets, a fraction 1e-4 of rows allowed on a knot; one launch."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n, K = 20_000, 16
+    raw = [torch.randn(n, 1, k, generator=gen, device=dev)
+           for k in (K, K, K - 1)]
+    params = (_bin_positions(raw[0], -8.0, 8.0, K),
+              _bin_positions(raw[1], -8.0, 8.0, K), _slopes(raw[2]))
+    x = torch.randn(n, 1, generator=gen, device=dev) * 4.0
+    before = rqs.KERNEL.launches
+    got = (rqs.rqs_inverse if inverse else rqs.rqs_forward)(x, *params,
+                                                           -8.0)
+    assert rqs.KERNEL.launches == before + 1
+    want = (rqs.rqs_inverse_plain if inverse else rqs.rqs_forward_plain)(
+        x, *params, -8.0)
+    for g_, w_, atol, rtol in ((got[0], want[0], 1e-5, 1e-5),
+                               (got[1], want[1], 1e-4, 0.0)):
+        bad = ((g_ - w_).abs() > atol + rtol * w_.abs()).float().mean()
+        assert float(bad) <= 1e-4
+
+
+def test_mala_in_a_cycle_with_the_vae_step_on_the_card(dev):
+    """One cycled (VAE step, MALA) step of the flagship on the card: the
+    VAE step launches kernels 1 and 2, MALA on an analytic target none;
+    finite chains and exact counters."""
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+    from vaemolsim_tpu_torch.mcmc import (MCMCState, cycle_moves,
+                                          make_mala_step, make_mcmc_step,
+                                          run_mcmc, vae_proposal_fns)
+    vae = flagship_experiment_config().build(dev)
+
+    def log_p(x):
+        return -0.5 * (x ** 2).sum(-1)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(4096, 2, generator=gen, device=dev)
+    st = MCMCState.create(x, log_p(x), gen)
+    mala = make_mala_step(log_p, 0.3)
+    _build.reset_launches()
+    st, _ = run_mcmc(mala, st, 1)
+    assert sum(_build.launch_counts().values()) == 0
+    step = cycle_moves([make_mcmc_step(*vae_proposal_fns(vae), log_p), mala])
+    st, _ = run_mcmc(step, st, 1)
+    counts = _build.launch_counts()
+    assert counts["rqs"] > 0 and counts["dense_stack"] > 0
+    assert int(st.num_trials) == 3 * 4096
+    assert bool(torch.isfinite(st.configs).all())
+
+
+def test_remc_replica_axis_launches_kernels_1_and_2(dev):
+    """REMC's (R, C, 2) proposal batch goes through the kernels (the
+    wrappers take the leading axes): kernels 1 and 2 launch, trials and
+    swap attempts are exact."""
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+    from vaemolsim_tpu_torch.mcmc import vae_proposal_fns
+    from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
+                                              run_remc, temperature_ladder)
+    vae = flagship_experiment_config().build(dev)
+
+    def log_p(x):
+        return -0.5 * (x ** 2).sum(-1)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    st = REMCState.create(torch.randn(4, 500, 2, generator=gen, device=dev),
+                          log_p, temperature_ladder(4), gen)
+    _build.reset_launches()
+    st = run_remc(make_remc_step(*vae_proposal_fns(vae), log_p), st, 2)
+    counts = _build.launch_counts()
+    assert counts["rqs"] > 0 and counts["dense_stack"] > 0
+    assert int(st.num_trials) == 2 * 4 * 500
+    assert int(st.num_swap_trials) == (2 + 1) * 500

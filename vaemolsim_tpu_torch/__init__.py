@@ -16,12 +16,16 @@ and a von Mises + conditional MAF decoder), served by ``predict`` and
 trained by ``train.fit``, and molecular MD (``potentials``: bonds, the
 cell-list Lennard-Jones / Ewald real-space term with the cell-pair
 kernel, PME; ``md``: velocity Verlet and BAOAB, with neighbour-list
-rebuilds) (see ROADMAP.md for what is still to come).
+rebuilds), and the sampling stack: the RealNVP flow family, local moves
+(random walk, MALA, HMC) and their tuner, chain diagnostics, simulated
+tempering, replica exchange on one device (``parallel``) and the
+free-energy estimators (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, losses  # noqa: F401
 from vaemolsim_tpu_torch import md, potentials  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
+from vaemolsim_tpu_torch import parallel  # noqa: F401
 from vaemolsim_tpu_torch import train  # noqa: F401
 
 __version__ = "0.1.0"

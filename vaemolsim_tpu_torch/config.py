@@ -11,11 +11,10 @@ written by ``vaemolsim_tpu.config.save_json`` builds the same
 architecture here (not the same weights: the random streams differ; use
 ``convert.from_jax`` to carry weights across).
 
-Ported so far: the configs of the flagship experiment, of flow models,
-of the backmapping model (``BackmappingConfig``, with
+Ported so far: the configs of the flagship experiment, of flow models
+(MAF and RealNVP), of the backmapping model (``BackmappingConfig``, with
 ``DistanceSelectionConfig`` and ``ParticleEmbeddingConfig``), and the
-optimizer.  A JSON naming another config class (RealNVP, ...) is refused
-by name.
+optimizer.  A JSON naming another config class is refused by name.
 """
 
 from __future__ import annotations
@@ -29,8 +28,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["RQSParams", "MAFConfig", "DistLayerConfig", "FlowedDistConfig",
-           "RegularizerConfig", "MappingToDistConfig", "FlowModelConfig",
+__all__ = ["RQSParams", "RealNVPConfig", "MAFConfig", "DistLayerConfig",
+           "FlowedDistConfig", "RegularizerConfig", "MappingToDistConfig",
+           "FlowModelConfig",
            "VAEConfig", "DistanceSelectionConfig", "ParticleEmbeddingConfig",
            "BackmappingConfig", "MCMCConfig", "OptimizerConfig",
            "ExperimentConfig", "default_device", "from_dict", "to_dict",
@@ -160,13 +160,36 @@ class RQSParams:
     conditional_event_shape: Optional[int] = None
     circular: bool = False
 
-    def asdict(self) -> Dict[str, Any]:
-        """kwargs for MaskedSplineConditioner.create."""
+    def asdict(self, coupling: bool = False) -> Dict[str, Any]:
+        """kwargs for MaskedSplineConditioner.create, or with
+        ``coupling=True`` for SplineConditioner.create (RealNVP), which
+        has no conditional machinery."""
         d = dataclasses.asdict(self)
         d["bin_range"] = list(self.bin_range)
-        if not self.conditional:
+        if coupling:
+            if self.conditional:
+                raise ValueError("RealNVP coupling flows are never "
+                                 "conditional")
+            d.pop("conditional")
+            d.pop("conditional_event_shape")
+        elif not self.conditional:
             d.pop("conditional_event_shape")
         return d
+
+
+@dataclass
+class RealNVPConfig:
+    data_dim: int = 1
+    num_blocks: int = 4
+    batch_norm: bool = False
+    rqs: RQSParams = field(default_factory=RQSParams)
+
+    def build(self, generator: torch.Generator, device=None):
+        from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
+        return RQSSplineRealNVP.create(
+            generator, self.data_dim, self.num_blocks,
+            rqs_params=self.rqs.asdict(coupling=True),
+            batch_norm=self.batch_norm, device=device)
 
 
 @dataclass
@@ -274,7 +297,7 @@ class FlowedDistConfig:
     StaticFlowedDistribution over a standard normal of dimension
     ``static_base_dim`` (the flagship prior)."""
 
-    flow: MAFConfig = field(default_factory=MAFConfig)
+    flow: Union[MAFConfig, RealNVPConfig] = field(default_factory=MAFConfig)
     base: Optional[DistLayerConfig] = None
     static_base_dim: Optional[int] = None
 
@@ -509,9 +532,10 @@ def backmapping_experiment_config() -> ExperimentConfig:
 
 _CONFIG_REGISTRY: Dict[str, type] = {
     c.__name__: c
-    for c in (RQSParams, MAFConfig, MCMCConfig, DistLayerConfig,
-              FlowedDistConfig, RegularizerConfig, MappingToDistConfig,
-              FlowModelConfig, VAEConfig, DistanceSelectionConfig,
+    for c in (RQSParams, RealNVPConfig, MAFConfig, MCMCConfig,
+              DistLayerConfig, FlowedDistConfig, RegularizerConfig,
+              MappingToDistConfig, FlowModelConfig, VAEConfig,
+              DistanceSelectionConfig,
               ParticleEmbeddingConfig, BackmappingConfig, OptimizerConfig,
               ExperimentConfig)
 }

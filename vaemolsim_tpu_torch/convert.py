@@ -3,8 +3,9 @@
 Reads the JAX objects' fields by name and their arrays through
 ``np.asarray``, so it needs no import of jax.  Covers everything the
 flagship VAE, a flow model and the backmapping model hold: FCDeepNN,
-Dense, LayerNorm, MADE, MaskedSplineConditioner, MAFLayer, RQSSplineMAF
-(and SplineConditioner), Normal, VonMises, Independent,
+Dense, LayerNorm, MADE, MaskedSplineConditioner, MAFLayer, RQSSplineMAF,
+SplineConditioner, CouplingLayer, RQSSplineRealNVP, Normal, VonMises,
+Independent, Categorical, MixtureSameFamily,
 IndependentBlockwise (any ported family, von Mises included),
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
 FlowModel, the VAE, the seven loss classes, DistanceSelection, the
@@ -91,6 +92,33 @@ def _rqs_maf(o, device):
     return RQSSplineMAF([_maf_layer(b, device) for b in o.blocks],
                         data_dim=o.data_dim, conditional=o.conditional,
                         order_seed=o.order_seed)
+
+
+def _coupling_layer(o, device):
+    from vaemolsim_tpu_torch.flows import CouplingLayer
+    return CouplingLayer(_spline_conditioner(o.conditioner, device),
+                         int(o.num_masked))
+
+
+def _rqs_realnvp(o, device):
+    from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
+    if o.bn_params or o.before_flow_transform is not None \
+            or o.after_flow_transform is not None:
+        raise NotImplementedError("RQSSplineRealNVP with batch norm or "
+                                  "before/after transforms is not ported")
+    return RQSSplineRealNVP([_coupling_layer(b, device) for b in o.blocks],
+                            data_dim=o.data_dim)
+
+
+def _categorical(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.Categorical(_t(o.logits, device))
+
+
+def _mixture(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.MixtureSameFamily(_t(o.mixing_logits, device),
+                               from_jax(o.components, device))
 
 
 def _normal(o, device):
@@ -234,6 +262,10 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "SplineConditioner": _spline_conditioner,
     "MAFLayer": _maf_layer,
     "RQSSplineMAF": _rqs_maf,
+    "CouplingLayer": _coupling_layer,
+    "RQSSplineRealNVP": _rqs_realnvp,
+    "Categorical": _categorical,
+    "MixtureSameFamily": _mixture,
     "Normal": _normal,
     "VonMises": _von_mises,
     "Independent": _independent,

@@ -1,5 +1,5 @@
-"""Masked-autoregressive rational-quadratic-spline flows (port of
-``vaemolsim_tpu/flows/spline_flows.py``).
+"""Rational-quadratic-spline flows, coupling and masked-autoregressive
+(port of ``vaemolsim_tpu/flows/spline_flows.py``).
 
 Flows are ``nn.Module``s that act as bijectors and are polymorphic like
 the JAX ones: called on a tensor they transform it, called on a
@@ -7,9 +7,15 @@ distribution they return a ``TransformedDistribution``.  Spline bin
 positions are ``softmax(raw) * (bin_max - bin_min - K*1e-2) + 1e-2`` and
 knot slopes ``softplus(raw) + 1e-2``.
 
-Ported so far: SplineConditioner, MaskedSplineConditioner, MAFLayer and
-RQSSplineMAF without batch norm; RQSSplineRealNVP and CouplingLayer come
-later.
+Ported: SplineConditioner, CouplingLayer and RQSSplineRealNVP (the
+reference's own flow family), MaskedSplineConditioner, MAFLayer and
+RQSSplineMAF, all without batch norm (``batch_norm=True`` raises).
+
+A coupling block evaluates its conditioner (1 or 2 layers) through the
+dense-stack kernel and its spline through the RQS kernel on CUDA.  The
+1-D RealNVP conditions on nothing: its conditioner sees a constant ones
+row, so it runs on ONE row and the spline broadcasts it over the batch
+(the dense stack's small-N regime, the RQS kernel's broadcast row).
 
 MAFLayer runs a whole block through the MAF-block kernel
 (``ops/maf_fused.py``, ``csrc/maf_block.cu``) on every CUDA input that
@@ -43,8 +49,8 @@ from vaemolsim_tpu_torch.ops.rqs import RationalQuadraticSpline
 
 Tensor = torch.Tensor
 
-__all__ = ["SplineConditioner", "MaskedSplineConditioner", "MAFLayer",
-           "RQSSplineMAF"]
+__all__ = ["SplineConditioner", "CouplingLayer", "RQSSplineRealNVP",
+           "MaskedSplineConditioner", "MAFLayer", "RQSSplineMAF"]
 
 
 def _bin_positions(raw: Tensor, bin_min: float, bin_max: float,
@@ -112,6 +118,49 @@ class SplineConditioner(nn.Module):
         s = _slopes(out[..., 2 * D * K:].reshape(lead + (D, n_slopes)))
         return RationalQuadraticSpline(w, h, s, range_min=self.bin_min,
                                        circular=self.circular)
+
+
+class CouplingLayer(bj.Bijector, nn.Module):
+    """RealNVP coupling: ``num_masked`` DOFs pass through and condition an
+    RQS transform of the rest.  A negative ``num_masked`` masks the
+    *last* |num_masked| DOFs instead."""
+
+    def __init__(self, conditioner: SplineConditioner, num_masked: int):
+        nn.Module.__init__(self)
+        self.conditioner = conditioner
+        self.num_masked = num_masked
+
+    def _split(self, x: Tensor):
+        n = self.num_masked
+        if n >= 0:
+            return x[..., :n], x[..., n:], False
+        return x[..., n:], x[..., :n], True
+
+    @staticmethod
+    def _join(cond_part: Tensor, moved: Tensor, flipped: bool) -> Tensor:
+        if flipped:
+            return torch.cat([moved, cond_part], -1)
+        return torch.cat([cond_part, moved], -1)
+
+    def _spline(self, cond_part: Tensor) -> RationalQuadraticSpline:
+        if cond_part.shape[-1] == 0:
+            # A zero-width conditioner sees a constant ones row: evaluate
+            # ONE row and let the spline broadcast it.
+            return self.conditioner(cond_part.new_zeros((1, 0)))
+        return self.conditioner(cond_part)
+
+    def _couple(self, t: Tensor, inverse: bool):
+        cond_part, rest, flipped = self._split(t)
+        spline = self._spline(cond_part)
+        out, ldj = (spline.inverse_and_log_det(rest) if inverse
+                    else spline.forward_and_log_det(rest))
+        return self._join(cond_part, out, flipped), ldj.sum(-1)
+
+    def forward_and_log_det(self, x, context=None):
+        return self._couple(x, inverse=False)
+
+    def inverse_and_log_det(self, y, context=None):
+        return self._couple(y, inverse=True)
 
 
 class MaskedSplineConditioner(nn.Module):
@@ -318,7 +367,87 @@ def _ensure_event_transform(t, data_dim: int, device):
     return bj.Block(t, 1) if torch.as_tensor(ldj).dim() >= 2 else t
 
 
-class RQSSplineMAF(nn.Module):
+class _FlowMixin:
+    """The polymorphic call and the bijector chain shared by the flows."""
+
+    def as_bijector(self, train: bool = False) -> bj.Chain:
+        """Forward order before, block0, ..., after, as a Chain (which
+        applies its last entry first)."""
+        device = next(self.parameters()).device
+        seq = []
+        if self.before_flow_transform is not None:
+            seq.append(_ensure_event_transform(self.before_flow_transform,
+                                               self.data_dim, device))
+        seq.extend(self.blocks)
+        if self.after_flow_transform is not None:
+            seq.append(_ensure_event_transform(self.after_flow_transform,
+                                               self.data_dim, device))
+        return bj.Chain(tuple(reversed(seq)))
+
+    def forward(self, inputs, train: bool = False,
+                conditional_input: Optional[Tensor] = None):
+        if self.conditional and conditional_input is None:
+            raise ValueError("This flow is conditional; pass "
+                             "conditional_input=.")
+        if not self.conditional and conditional_input is not None:
+            raise ValueError(
+                "conditional_input passed to a non-conditional flow; set "
+                "conditional=True in rqs_params (silently ignoring the "
+                "context would train an unconditioned model).")
+        chain = self.as_bijector(train)
+        if isinstance(inputs, dist_lib.Distribution):
+            return dist_lib.TransformedDistribution(
+                base=inputs, bijector=chain, context=conditional_input)
+        return chain.forward(inputs, context=conditional_input)
+
+
+class RQSSplineRealNVP(_FlowMixin, nn.Module):
+    """Chain of RQS coupling blocks with alternating half-masks: even
+    blocks condition on the first floor(d/2) DOFs, odd blocks on the last
+    ceil(d/2); ``data_dim == 1`` masks nothing and transforms the single
+    DOF through the ones-fed conditioner.  Never conditional; optional
+    before/after transforms.  Batch norm between blocks is still to
+    come."""
+
+    def __init__(self, blocks: Sequence[CouplingLayer],
+                 before_flow_transform: Any = None,
+                 after_flow_transform: Any = None, data_dim: int = 1):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.bn_params = ()
+        self.before_flow_transform = before_flow_transform
+        self.after_flow_transform = after_flow_transform
+        self.data_dim = data_dim
+        self.conditional = False
+
+    @classmethod
+    def create(cls, generator, data_dim: int, num_blocks: int = 4,
+               rqs_params: Optional[dict] = None, batch_norm: bool = False,
+               before_flow_transform=None, after_flow_transform=None,
+               device=None) -> "RQSSplineRealNVP":
+        if batch_norm:
+            raise NotImplementedError(
+                "RQSSplineRealNVP(batch_norm=True) is not ported yet")
+        rqs_params = dict(rqs_params or {})
+        blocks = []
+        for i in range(num_blocks):
+            if data_dim == 1:
+                n_masked, cond_in, n_out = 0, 0, 1
+            elif i % 2 == 0:
+                half = data_dim // 2
+                n_masked, cond_in, n_out = half, half, data_dim - half
+            else:
+                half = data_dim // 2
+                n_masked = -(data_dim - half)
+                cond_in, n_out = data_dim - half, half
+            blocks.append(CouplingLayer(SplineConditioner.create(
+                generator, cond_in, n_out, device=device, **rqs_params),
+                n_masked))
+        return cls(blocks, before_flow_transform, after_flow_transform,
+                   data_dim)
+
+
+class RQSSplineMAF(_FlowMixin, nn.Module):
     """Chain of masked-autoregressive RQS blocks: first block
     right-to-left, last left-to-right, middle blocks a permutation drawn
     from ``order_seed`` unless ``rqs_params`` gives ``input_order``;
@@ -369,32 +498,3 @@ class RQSSplineMAF(nn.Module):
         return cls(blocks, before_flow_transform, after_flow_transform,
                    data_dim, conditional, order_seed)
 
-    def as_bijector(self, train: bool = False) -> bj.Chain:
-        """Forward order before, block0, ..., after, as a Chain (which
-        applies its last entry first)."""
-        device = next(self.parameters()).device
-        seq = []
-        if self.before_flow_transform is not None:
-            seq.append(_ensure_event_transform(self.before_flow_transform,
-                                               self.data_dim, device))
-        seq.extend(self.blocks)
-        if self.after_flow_transform is not None:
-            seq.append(_ensure_event_transform(self.after_flow_transform,
-                                               self.data_dim, device))
-        return bj.Chain(tuple(reversed(seq)))
-
-    def forward(self, inputs, train: bool = False,
-                conditional_input: Optional[Tensor] = None):
-        if self.conditional and conditional_input is None:
-            raise ValueError("This flow is conditional; pass "
-                             "conditional_input=.")
-        if not self.conditional and conditional_input is not None:
-            raise ValueError(
-                "conditional_input passed to a non-conditional flow; set "
-                "conditional=True in rqs_params (silently ignoring the "
-                "context would train an unconditioned model).")
-        chain = self.as_bijector(train)
-        if isinstance(inputs, dist_lib.Distribution):
-            return dist_lib.TransformedDistribution(
-                base=inputs, bijector=chain, context=conditional_input)
-        return chain.forward(inputs, context=conditional_input)

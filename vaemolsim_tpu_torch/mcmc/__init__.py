@@ -1,5 +1,14 @@
-"""VAE-proposal Monte Carlo."""
+"""Monte Carlo: the VAE-proposal engine and its fused step, local moves
+and their tuner, chain diagnostics, simulated tempering and free-energy
+estimators (FFS, TPS, NPT, GCMC and Gibbs-ensemble MC are not ported)."""
 
+from vaemolsim_tpu_torch.mcmc.diagnostics import (  # noqa: F401
+    autocorrelation,
+    block_averaging_error,
+    effective_sample_size,
+    potential_scale_reduction,
+    statistical_inefficiency,
+)
 from vaemolsim_tpu_torch.mcmc.engine import (  # noqa: F401
     MCMC,
     MCMCState,
@@ -10,8 +19,38 @@ from vaemolsim_tpu_torch.mcmc.engine import (  # noqa: F401
     run_mcmc,
     vae_proposal_fns,
 )
+from vaemolsim_tpu_torch.mcmc.free_energy import (  # noqa: F401
+    AISResult,
+    MBARResult,
+    ais,
+    bar_free_energy,
+    exp_free_energy,
+    gauss_legendre_lambdas,
+    mbar_expectation,
+    mbar_free_energy,
+    mbar_from_samples,
+    mbar_perturbed_free_energy,
+    targeted_bar,
+    targeted_work_values,
+    tfep_loss,
+    ti_free_energy,
+    work_values,
+)
 from vaemolsim_tpu_torch.mcmc.fused import (  # noqa: F401
     UnsupportedModelError,
     fused_vae_proposal,
     make_fused_vae_step,
+)
+from vaemolsim_tpu_torch.mcmc.moves import (  # noqa: F401
+    cycle_moves,
+    make_hmc_step,
+    make_mala_step,
+    make_random_walk_step,
+    mix_moves,
+    tune_scale,
+)
+from vaemolsim_tpu_torch.mcmc.tempering import (  # noqa: F401
+    STState,
+    make_st_step,
+    run_st,
 )

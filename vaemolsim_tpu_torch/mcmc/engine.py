@@ -42,7 +42,7 @@ class MCMCState:
     the chains draw from, and exact int64 trial / acceptance counts
     (exact far past float32's 2^24, like the JAX two-word counter)."""
 
-    configs: Tensor  # (n_chains, n_dofs)
+    configs: Tensor  # (n_chains, *event)
     energies: Tensor  # (n_chains,) log target density
     generator: torch.Generator
     num_trials: Tensor  # () int64
@@ -61,9 +61,12 @@ class MCMCState:
 
 def apply_mh(state: MCMCState, x2: Tensor, e2: Tensor,
              accept: Tensor) -> MCMCState:
-    """Shared accept/select/bookkeeping tail of every MH kernel."""
+    """Shared accept/select/bookkeeping tail of every MH kernel; the
+    configurations may have any number of event axes after accept's."""
+    sel = accept.reshape(accept.shape
+                         + (1,) * (state.configs.dim() - accept.dim()))
     return replace(
-        state, configs=torch.where(accept[..., None], x2, state.configs),
+        state, configs=torch.where(sel, x2, state.configs),
         energies=torch.where(accept, e2, state.energies),
         num_trials=state.num_trials + accept.numel(),
         num_acc=state.num_acc + accept.sum(dtype=torch.int64))

@@ -8,8 +8,8 @@ event_shape``.  Randomness comes only from the ``torch.Generator``
 passed in, on the device of the distribution's parameters.
 
 Ported so far: Normal, Uniform, Deterministic, VonMises, Independent,
-Blockwise and TransformedDistribution.  Beta, Gamma, Categorical and
-MixtureSameFamily are still to come.
+Categorical, MixtureSameFamily, Blockwise and TransformedDistribution.
+Beta and Gamma are still to come.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import torch
 Tensor = torch.Tensor
 
 __all__ = ["Distribution", "Normal", "Uniform", "Deterministic", "VonMises",
-           "Independent", "Blockwise", "TransformedDistribution"]
+           "Independent", "Categorical", "MixtureSameFamily", "Blockwise",
+           "TransformedDistribution"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _TWO_PI = 2.0 * math.pi
@@ -300,6 +301,69 @@ class Independent(Distribution):
     def entropy(self):
         return _reduce_last(self.base.entropy(),
                             self.reinterpreted_batch_ndims)
+
+
+class Categorical(Distribution):
+    """Categorical over the last axis of ``logits``; samples are int64
+    category indices."""
+
+    def __init__(self, logits: Tensor):
+        self.logits = logits
+
+    @property
+    def batch_shape(self):
+        return tuple(self.logits.shape[:-1])
+
+    @property
+    def num_categories(self) -> int:
+        return self.logits.shape[-1]
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        lp = torch.log_softmax(self.logits, -1)
+        idx = x.to(torch.int64)[..., None]
+        lp = lp.expand(idx.shape[:-1] + lp.shape[-1:])
+        return torch.gather(lp, -1, idx)[..., 0]
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        probs = torch.softmax(self.logits, -1).expand(
+            shape + (self.num_categories,))
+        flat = torch.multinomial(probs.reshape(-1, self.num_categories), 1,
+                                 replacement=True, generator=generator)
+        return flat.reshape(shape)
+
+
+class MixtureSameFamily(Distribution):
+    """Mixture with a shared component family: ``components``' last batch
+    axis indexes the K components, scalar-event (``Normal``) or
+    vector-event (``Independent(Normal(locs, scales), 1)`` with ``locs``
+    of shape ``(K, d)``); the K axis goes just before the event dims."""
+
+    def __init__(self, mixing_logits: Tensor, components: Distribution):
+        self.mixing_logits = mixing_logits
+        self.components = components
+
+    @property
+    def batch_shape(self):
+        return tuple(self.mixing_logits.shape[:-1])
+
+    @property
+    def event_shape(self):
+        return self.components.event_shape
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        e = len(self.components.event_shape)
+        lp_comp = self.components.log_prob(x.unsqueeze(-(e + 1)))  # (..., K)
+        log_mix = torch.log_softmax(self.mixing_logits, -1)
+        return torch.logsumexp(lp_comp + log_mix, -1)
+
+    def sample(self, generator, sample_shape=()):
+        idx = Categorical(self.mixing_logits).sample(generator, sample_shape)
+        comp = self.components.sample(generator, sample_shape)
+        e = len(self.components.event_shape)
+        idx_e = idx.reshape(idx.shape + (1,) * (e + 1)).expand(
+            idx.shape + (1,) + comp.shape[comp.dim() - e:])
+        return torch.gather(comp, -(e + 1), idx_e).squeeze(-(e + 1))
 
 
 class Blockwise(Distribution):

@@ -11,6 +11,8 @@ CUDA card unless a device is given, and an error without one.
 
 Ported: ``harmonic_bonds``, ``exclusions_from_bonds``, the dense
 ``lennard_jones`` (the independent O(N^2) reference), ``composite``,
+``com_restraint``, ``as_log_prob``, ``minimize_energy`` (without its
+L-BFGS polish),
 ``CellNeighborList`` / ``lennard_jones_cell_neighbor`` with
 ``lennard_jones_cell``, and ``pme_coulomb`` on an orthorhombic box.  The
 cell-list energy runs the cell-pair kernel (``ops/cell_lj.py``) on the
@@ -33,7 +35,8 @@ from vaemolsim_tpu_torch.ops.cell_lj import SLOPE_F, cell_pair_energy_force
 Tensor = torch.Tensor
 
 __all__ = ["harmonic_bonds", "exclusions_from_bonds", "lennard_jones",
-           "composite", "CellNeighborList", "lennard_jones_cell_neighbor",
+           "composite", "com_restraint", "as_log_prob", "minimize_energy",
+           "CellNeighborList", "lennard_jones_cell_neighbor",
            "lennard_jones_cell", "pme_coulomb"]
 
 _EPS = 1e-12  # guards sqrt gradients at coincident points
@@ -827,3 +830,66 @@ def composite(*terms: Callable[[Tensor], Tensor]
         return total
 
     return energy
+
+
+def com_restraint(k: float = 1.0, center=0.0) -> Callable[[Tensor], Tensor]:
+    """Harmonic restraint on the centre of mass,
+    ``k/2 |mean_atoms(x) - center|^2``: removes the translational zero
+    mode of a gas-phase cluster.  ``center`` goes to x's device."""
+    center = np.asarray(center, np.float32)
+
+    def energy(x: Tensor) -> Tensor:
+        c = torch.as_tensor(center, dtype=x.dtype, device=x.device)
+        com = x.mean(-2)
+        return 0.5 * k * ((com - c) ** 2).sum(-1)
+
+    return energy
+
+
+def as_log_prob(potential: Callable[[Tensor], Tensor],
+                beta: float = 1.0) -> Callable[[Tensor], Tensor]:
+    """The MC engine's convention, ``log p~(x) = -beta U(x)`` (the
+    engine's ``energy_func`` is a log target density)."""
+
+    def log_prob(x: Tensor) -> Tensor:
+        return -beta * potential(x)
+
+    return log_prob
+
+
+def minimize_energy(potential: Callable[[Tensor], Tensor], x0: Tensor, *,
+                    steps: int = 500, lr: float = 0.01, clip: float = 1.0,
+                    polish_lbfgs: int = 0) -> Tensor:
+    """Relax configurations to a local energy minimum, every leading-axis
+    configuration independently: ``steps // 2`` Adam steps at ``lr``,
+    then the rest at ``lr / 10`` with fresh moments, each step's
+    displacement clipped to ``clip`` per atom.  Adam is optax's (and
+    ``torch.optim.Adam``'s): b1 0.9, b2 0.999, eps 1e-8, bias-corrected
+    moments; the clip acts on its step, so the update is written out
+    here.  Returns the relaxed coordinates (no graph).
+    ``polish_lbfgs > 0`` (the JAX package's per-configuration L-BFGS
+    polish) is not ported and raises."""
+    if polish_lbfgs > 0:
+        raise NotImplementedError(
+            "minimize_energy(polish_lbfgs>0) is not ported yet (ROADMAP.md, "
+            "Queue 1)")
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def phase(x, rate, n):
+        m = torch.zeros_like(x)
+        v = torch.zeros_like(x)
+        for t in range(1, n + 1):
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(potential(xg).sum(), xg)
+            m = b1 * m + (1.0 - b1) * g
+            v = b2 * v + (1.0 - b2) * g * g
+            d = -rate * (m / (1.0 - b1 ** t)) / (
+                torch.sqrt(v / (1.0 - b2 ** t)) + eps)
+            norm = torch.sqrt((d * d).sum(-1, keepdim=True).clamp_min(_EPS))
+            x = x + d * torch.clamp(clip / norm, max=1.0)
+        return x
+
+    with torch.no_grad():
+        x = phase(x0.detach(), lr, steps // 2)
+        return phase(x, lr / 10.0, steps - steps // 2)
