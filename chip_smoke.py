@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD and
-sampling-stack paths on one NVIDIA GPU.
+"""Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD,
+sampling-stack paths and the rest of the reference library's surface on
+one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -80,7 +81,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (the one-row 1->100->95 conditioner with the library chain, the
    1->64->47 conditioner at 20k rows, kernel 1's broadcast row and its row
    per element at K = 16, N = 20k), each timed with its bound.  Kernel 1's
-   launches are also tallied by route (broadcast row or row per element).
+   launches are also tallied by route (broadcast row or row per element);
+9. runs the rest of the reference library's surface: the flagship as a
+   dual-ELBO VAE (``VAEConfig(dual_elbo=True)``, KL forward, reverse KL
+   reverse, the potential -log_target) and by the Hamiltonian VAE bound
+   (5 leapfrog steps of 0.1), each through ``fit`` at batch 10k with its
+   gradients at fixed draws against a CPU copy (the HVAE's through second
+   derivatives of kernels 1 and 2's routes) and the HVAE's bound at 0
+   steps against the ELBO; the 8-D MAF with 3 blocks and batch norm
+   between them (maximum likelihood with ``update_batch_stats`` after
+   each step, ``predict`` of 10k, and a checkpoint saved mid-training
+   and resumed into a fresh model, optimizer and generator with the
+   uninterrupted run's losses); examples/09 at its --full widths (K = 8
+   members, 50k points, batch 1024) through ``fit_ensemble`` for
+   ENS_EPOCHS epochs with the example's validation; the backmapping
+   model with BASELINE.json's autoregressive von Mises mixture decoder
+   (training, ``predict`` and ``log_prob`` at 10k sites, rotation
+   invariance); then kernel 2 at that decoder's MADE (3 -> 24 -> 24) and
+   kernel 3 at the batch-norm flow's middle block, against their plain
+   versions.
 
 Every path runs with the launch counters zeroed just before it and read
 just after.  Any failed check raises and the script exits non-zero;
@@ -103,13 +122,15 @@ import numpy as np
 import torch
 
 from vaemolsim_tpu_torch import _build
-from vaemolsim_tpu_torch.config import (ExperimentConfig, FlowedDistConfig,
-                                        FlowModelConfig, MAFConfig,
+from vaemolsim_tpu_torch.config import (DistLayerConfig, ExperimentConfig,
+                                        FlowedDistConfig, FlowModelConfig,
+                                        MAFConfig, MappingToDistConfig,
                                         OptimizerConfig, RealNVPConfig,
-                                        RQSParams,
+                                        RegularizerConfig, RQSParams,
                                         backmapping_experiment_config,
                                         flagship_experiment_config)
-from vaemolsim_tpu_torch.dists import StaticFlowedDistribution
+from vaemolsim_tpu_torch.dists import (StaticFlowedDistribution,
+                                       register_von_mises_mixture)
 from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
 from vaemolsim_tpu_torch.flows.spline_flows import (CouplingLayer, MAFLayer,
                                                     MaskedSplineConditioner,
@@ -123,9 +144,10 @@ from vaemolsim_tpu_torch.mcmc import (
     work_values)
 from vaemolsim_tpu_torch.mcmc import fused as mf
 from vaemolsim_tpu_torch import md, potentials
-from vaemolsim_tpu_torch.models import FlowModel
+from vaemolsim_tpu_torch.models import FlowModel, VAEDualELBO
 from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
+from vaemolsim_tpu_torch.ops import bijectors as bj
 from vaemolsim_tpu_torch.ops import cell_lj, maf_fused, rqs
 from vaemolsim_tpu_torch.ops import distributions as dist
 from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
@@ -133,7 +155,9 @@ from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain,
                                                stack_regime)
-from vaemolsim_tpu_torch.train import fit
+from vaemolsim_tpu_torch.train import (fit, fit_ensemble, make_train_step,
+                                       restore_checkpoint, save_checkpoint,
+                                       stack_models, unstack_model)
 
 SIZES = (10_000, 50_000)
 WARMUP_STEPS, TIMED_STEPS, MC_PROFILED = 20, 200, 20
@@ -162,6 +186,15 @@ FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 400, 96, 20
 TFEP_N, TFEP_STEPS = 20_000, 1500
 REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
 ST_RUNGS, ST_CHAINS, ST_STEPS = 6, 2000, 2000
+# Slice 9 at full width: the dual ELBO and the HVAE (5 leapfrog steps)
+# on the flagship at batch 10k, the 3-block batch-norm MAF (MLE steps,
+# then checkpoint and resume), example 09 at --full widths with its
+# epochs cut, and the autoregressive backmapping decoder.
+DUAL_EPOCHS, HVAE_EPOCHS, HVAE_LEAPFROG, HVAE_CHECK_ROWS = 3, 1, 5, 1000
+HVAE_N = 50_000
+BN_STEPS, CKPT_STEPS = 20, 5
+ENS_K, ENS_TRAIN, ENS_VAL, ENS_BATCH, ENS_EPOCHS = 8, 50_000, 10_000, 1024, 3
+ENS_NLL_GAP = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -781,11 +814,14 @@ def gaussian_data(dev):
 
 
 def train_path(name, model, loss_fn, data, dev, batch=TRAIN_BATCH,
-               epochs=TRAIN_EPOCHS):
+               epochs=TRAIN_EPOCHS, profiled_steps=None):
     """A warm-up epoch, then ``epochs`` epochs of fit() at ``batch`` with
     Adam 1e-3, counters zeroed just before and read just after the timed
     run; checks finite losses, the last epoch's mean below the warm-up
-    epoch's, and reports steps/s, ms per step and peak memory."""
+    epoch's, and reports steps/s, ms per step and peak memory.  The
+    profiled window is one more epoch, or ``profiled_steps`` steps where
+    a step holds so many launches that the profiler's bookkeeping of a
+    whole epoch would take minutes."""
     gen = torch.Generator(device=dev).manual_seed(11)
     adam = OptimizerConfig("adam", 1e-3).build()
     _, warm = fit(model, loss_fn, data, generator=gen, num_epochs=1,
@@ -811,13 +847,17 @@ def train_path(name, model, loss_fn, data, dev, batch=TRAIN_BATCH,
     # and its wall time both come from this one window.  The profiler
     # adds host time, so the window's ms/step is kept beside the
     # unprofiled one.
+    window = per_epoch if profiled_steps is None else profiled_steps
+    window_data = (data if profiled_steps is None else
+                   tuple(a[:window * batch] for a in data)
+                   if isinstance(data, tuple) else data[:window * batch])
     window_s, prof = profiled(lambda: fit(
-        model, loss_fn, data, generator=gen, num_epochs=1,
+        model, loss_fn, window_data, generator=gen, num_epochs=1,
         batch_size=batch, optimizer=adam))
     busy_us, _ = device_time(prof)
-    tops = top_ops(prof, per_epoch)
-    window_ms = 1e3 * window_s / per_epoch
-    busy_ms = None if busy_us is None else busy_us / 1e3 / per_epoch
+    tops = top_ops(prof, window)
+    window_ms = 1e3 * window_s / window
+    busy_ms = None if busy_us is None else busy_us / 1e3 / window
     row = {"path": name, "batch": batch, "steps": steps,
            "seconds": seconds, "steps_per_s": steps / seconds,
            "ms_per_step": ms_per_step, "losses": losses,
@@ -2059,6 +2099,458 @@ def check_coupling_kernels(realnvp, flow2d, x_a, gen, dev):
 
 
 # ---------------------------------------------------------------------------
+# Slice 9: the dual ELBO, the HVAE, the batch-norm flow with a checkpoint,
+# the ensemble (example 09) and the autoregressive backmapping decoder
+# ---------------------------------------------------------------------------
+
+
+def potential(x):
+    """The dual ELBO's reverse potential: -log_target."""
+    return -log_target(x)
+
+
+def fixed_normal_draw(eps):
+    """The sample of a one-family normal Blockwise at fixed normals."""
+    def draw(dist):
+        f = dist.families[0]
+        return f.loc + f.scale * eps.to(f.loc.device)
+    return draw
+
+
+def dual_elbo_path(dev):
+    """The flagship with VAEConfig(dual_elbo=True): KL forward, reverse
+    KL reverse, the reverse potential -log_target; fit() at batch 10k.
+    Gradients at fixed draws (encoder, prior and decoder normals) against
+    a CPU copy, on rows whose prior inputs, both passes, lie away from
+    the knots."""
+    cfg = flagship_experiment_config()
+    cfg.model.dual_elbo = True
+    cfg.model.reverse_regularizer = RegularizerConfig(kind="reverse_kl")
+    vae = cfg.build()
+    fail_unless(isinstance(vae, VAEDualELBO)
+                and next(vae.parameters()).device.type == dev.type,
+                "VAEConfig(dual_elbo=True).build() did not build a "
+                "VAEDualELBO on the card")
+    data = two_mode_data(dev)
+    row = train_path("dual_elbo", vae,
+                     lambda m, b, g: m.dual_elbo_loss(b, g, potential), data,
+                     dev, epochs=DUAL_EPOCHS, profiled_steps=2)
+    fail_unless(row["launches"]["rqs"] > 0
+                and row["launches"]["dense_stack"] > 0,
+                f"dual ELBO path launch counts {row['launches']}")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    n = TRAIN_BATCH
+    eps_z, eps_r, eps_x = (torch.randn(n, k, generator=gen, device=dev)
+                           for k in (1, 1, 2))
+    x = data[:n]
+    flow = vae.prior.flow
+    with torch.no_grad():
+        f = vae.encoder(x).families[0]
+        z_r = vae.prior().bijector.forward(eps_r)
+        keep = (rows_off_knots(flow, f.loc + f.scale * eps_z)
+                & rows_off_knots(flow, z_r)
+                & knot_safe(list(flow.blocks), eps_r, inverse=False
+                            ).to(dev))
+    x, eps_z, eps_r, eps_x = x[keep], eps_z[keep], eps_r[keep], eps_x[keep]
+
+    def dual_at(m, d):
+        """The dual loss at fixed normals (the same on both devices)."""
+        draws = {"encode": fixed_normal_draw(eps_z),
+                 "prior": lambda dist: dist.bijector.forward(eps_r.to(d)),
+                 "decode": fixed_normal_draw(eps_x)}
+        out = m._dual_pass(x.to(d), True, lambda role, dist:
+                           draws[role](dist))
+        return m._dual_loss(x.to(d), out, potential)[0]
+
+    check_grads("dual_elbo", vae, dual_at, dev)
+    return row
+
+
+def hvae_path(dev):
+    """The flagship VAE by hvae_elbo_loss(n_leapfrog=5, step_size=0.1)
+    through fit() at batch 10k on HVAE_N points.  At fixed draws: the
+    n_leapfrog=0 bound against the one-sample ELBO on the card, and every
+    parameter's gradient (through the leapfrog's inner gradients: second
+    derivatives of the kernel routes) against a CPU copy, on rows whose
+    every leapfrog position lies away from the prior's knots.  The
+    gradient check takes 5 steps of 0.05: at 0.1 the flagship's HVAE
+    gradient is ill-conditioned in float32 itself (on the CPU, float32
+    and float64 disagree on 81% of its entries, by up to 531 times this
+    check's tolerance, 2000 rows at initialisation), while at 0.05 they
+    agree to 0.16 of it."""
+    vae = flagship_experiment_config().build()
+    data = two_mode_data(dev)[:HVAE_N]
+    row = train_path("hvae", vae, lambda m, b, g: m.hvae_elbo_loss(
+        b, g, n_leapfrog=HVAE_LEAPFROG, step_size=0.1), data, dev,
+        epochs=HVAE_EPOCHS, profiled_steps=1)
+    fail_unless(row["launches"]["rqs"] > 0
+                and row["launches"]["dense_stack"] > 0,
+                f"HVAE path launch counts {row['launches']}")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    n = HVAE_CHECK_ROWS
+    x = data[:n]
+    eps = torch.randn(n, 1, generator=gen, device=dev)
+    rho = torch.randn(n, 1, generator=gen, device=dev)
+
+    def bound_at(m, d, leap, trajectory=None):
+        enc = m.encoder(x.to(d), train=True)
+        f = enc.families[0]
+        z0 = f.loc + f.scale * eps.to(d)
+        return m._hvae_loss(x.to(d), enc, z0, rho.to(d), leap, 0.05, True,
+                            trajectory)[0], enc, z0
+
+    with torch.no_grad():
+        b0, enc, z0 = bound_at(vae, dev, 0)
+        prior = vae._prior_dist(z0, True)
+        elbo = -(vae.decoder(z0, train=True).log_prob(x)
+                 + prior.log_prob(z0) - enc.log_prob(z0)).mean()
+    zero_err = abs(float(b0) - float(elbo))
+    fail_unless(zero_err <= 1e-5 * max(1.0, abs(float(elbo))),
+                f"HVAE bound at n_leapfrog=0 {float(b0)} != ELBO "
+                f"{float(elbo)}")
+    traj = []
+    cpu = copy.deepcopy(vae).to("cpu")
+    with torch.no_grad():
+        bound_at(cpu, torch.device("cpu"), HVAE_LEAPFROG, traj)
+    keep = torch.ones(n, dtype=torch.bool)
+    for z in traj:
+        keep &= knot_safe(reversed(list(cpu.prior.flow.blocks)), z)
+    fail_unless(float(keep.float().mean()) > 0.95,
+                f"only {int(keep.sum())} of {n} HVAE trajectories away "
+                "from the knots")
+    keep = keep.to(dev)
+    x, eps, rho = x[keep], eps[keep], rho[keep]
+    _build.reset_launches()
+    check_grads("hvae", vae, lambda m, d: bound_at(m, d, HVAE_LEAPFROG)[0],
+                dev)
+    grad_counts = _build.launch_counts()
+    fail_unless(grad_counts["rqs"] > 0 and grad_counts["dense_stack"] > 0,
+                f"HVAE gradient check launch counts {grad_counts}")
+    row.update(elbo_at_zero_leapfrog_abs_err=zero_err,
+               rows_off_knots=int(keep.sum()))
+    print(f"hvae n_leapfrog=0 bound {float(b0):.6f} vs ELBO "
+          f"{float(elbo):.6f} (abs err {zero_err:.3e}); gradients on "
+          f"{int(keep.sum())} of {n} trajectories off the knots", flush=True)
+    return row
+
+
+def bn_flow_steps(flow_model, opt, gen, data, steps):
+    """``steps`` maximum-likelihood steps on batches drawn from ``gen``,
+    each followed by update_batch_stats on its batch: the losses."""
+    step = make_train_step(lambda m, b, g: -m.log_prob(b, train=True).mean(),
+                           opt)
+    losses = []
+    for _ in range(steps):
+        idx = torch.randint(data.shape[0], (TRAIN_BATCH,), generator=gen,
+                            device=data.device)
+        batch = data[idx]
+        losses.append(step(flow_model, batch, gen)[0])
+        flow_model.flowed_dist.flow.update_batch_stats(batch)
+    return torch.stack(losses).tolist()
+
+
+def bn_flow_model(seed):
+    return ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(
+        MAFConfig(data_dim=FLOW_D, num_blocks=3, order_seed=5,
+                  batch_norm=True, rqs=RQSParams()),
+        base=None, static_base_dim=FLOW_D)), seed=seed).build()
+
+
+def bn_stat_distance(flow, data):
+    """How far each batch norm's running moments sit from the moments of
+    its own input on ``data`` (the density pass in training mode)."""
+    out = 0.0
+    y = data
+    for bij in flow.as_bijector(train=True).bijectors:
+        inner = bij.inner if isinstance(bij, bj.Block) else None
+        if hasattr(inner, "update_moments"):
+            y, _, m, v = inner.inverse_and_log_det_and_moments(y)
+            bn = inner.bn if hasattr(inner, "bn") else inner
+            out += float((bn.mean - m).norm() + (bn.var - v).norm())
+        else:
+            y = bij.inverse(y)
+    return out
+
+
+def flow_bn_path(dev):
+    """The D=8 MAF flow model with 3 blocks and batch norm between them
+    (reference widths): maximum likelihood at batch 10k with
+    update_batch_stats after each step, then predict of 10k samples
+    (kernel 3 in both directions), and a checkpoint round trip: saved
+    mid-training, restored into a fresh model, optimizer and generator,
+    it continues with the uninterrupted run's losses."""
+    data = gaussian_data(dev)
+    model = bn_flow_model(0)
+    flow = model.flowed_dist.flow
+    fail_unless(len(flow.bn_params) == 2, "two batch-norm bijectors")
+    probe = torch.zeros(TRAIN_BATCH, FLOW_D, device=dev)
+    sample_gen = torch.Generator(device=dev).manual_seed(42)
+    with torch.no_grad():
+        before = moment_distance(model.predict(probe, sample_gen), data)
+        stat_before = bn_stat_distance(flow, data[:TRAIN_BATCH])
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    warm = bn_flow_steps(model, opt, gen, data, 2)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = bn_flow_steps(model, opt, gen, data, BN_STEPS)
+    dt = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    fail_unless(counts["maf_block"] > 0,
+                f"batch-norm flow training launch counts {counts}")
+    fail_unless(all(math.isfinite(v) for v in warm + losses)
+                and losses[-1] < warm[0],
+                f"batch-norm flow loss did not fall: {warm + losses}")
+    busy = busy_share(lambda: bn_flow_steps(model, opt, gen, data, 4), 4)
+    _build.reset_launches()
+    with torch.no_grad():
+        samples = model.predict(probe, sample_gen)
+        stat_after = bn_stat_distance(flow, data[:TRAIN_BATCH])
+    predict_counts = _build.launch_counts()
+    fail_unless(predict_counts["maf_block"] > 0,
+                f"batch-norm flow sampling launch counts {predict_counts}")
+    fail_unless(bool(torch.isfinite(samples).all())
+                and samples.shape == (TRAIN_BATCH, FLOW_D),
+                "batch-norm flow samples not finite or of the wrong shape")
+    after = moment_distance(samples, data)
+    fail_unless(after < before, f"batch-norm flow samples did not move "
+                f"toward the data: moment distance {before} -> {after}")
+    fail_unless(stat_after < stat_before, f"running moments did not move "
+                f"toward their inputs': {stat_before} -> {stat_after}")
+
+    path = os.path.join("chiprun_out", "flow_bn_checkpoint.pt")
+    save_checkpoint(path, {"model": model, "opt": opt, "gen": gen})
+    uninterrupted = bn_flow_steps(model, opt, gen, data, CKPT_STEPS)
+    fresh = bn_flow_model(1)
+    fresh_opt = torch.optim.Adam(fresh.parameters(), lr=1e-3)
+    fresh_gen = torch.Generator(device=dev)
+    restore_checkpoint(path, {"model": fresh, "opt": fresh_opt,
+                              "gen": fresh_gen})
+    os.remove(path)
+    resumed = bn_flow_steps(fresh, fresh_opt, fresh_gen, data, CKPT_STEPS)
+    resume_err = max(abs(a - b) / max(1.0, abs(a))
+                     for a, b in zip(uninterrupted, resumed))
+    fail_unless(resume_err <= 1e-6, f"resumed losses {resumed} differ from "
+                f"the uninterrupted run's {uninterrupted}")
+    with torch.no_grad():
+        ms = timed(lambda: model.predict(probe, sample_gen), reps=10)
+    row = sampling_row(
+        "flow_bn_train", dt, BN_STEPS / dt, "steps/s", counts, busy,
+        ms_per_step=1e3 * dt / BN_STEPS, losses=warm + losses,
+        predict_launches=predict_counts, predict_ms=ms,
+        samples_per_s=TRAIN_BATCH / (ms * 1e-3),
+        moment_distance=[before, after],
+        bn_stat_distance=[stat_before, stat_after],
+        resume_rel_err=resume_err, resume_bit_exact=uninterrupted == resumed)
+    print(f"flow_bn {1e3 * dt / BN_STEPS:.3f} ms/step  predict "
+          f"{row['samples_per_s']:.1f} samples/s ({ms:.4f} ms)  moment "
+          f"distance {before:.4f} -> {after:.4f}  running moments "
+          f"{stat_before:.4f} -> {stat_after:.4f}  checkpoint resume max "
+          f"rel err {resume_err:.3e} (bit exact: "
+          f"{row['resume_bit_exact']})", flush=True)
+    return model, row
+
+
+def ensemble_member(seed, dev):
+    """Example 09's member: a 1-D RQSSplineRealNVP (4 blocks, 16 bins on
+    [-5, 5], hidden 64) over a standard normal."""
+    base = dist.Independent(dist.Normal(torch.zeros(1, device=dev),
+                                        torch.ones(1, device=dev)), 1)
+    return StaticFlowedDistribution(RQSSplineRealNVP.create(
+        torch.Generator(device=dev).manual_seed(seed), 1, num_blocks=4,
+        rqs_params={"num_bins": 16, "hidden_dim": 64,
+                    "bin_range": [-5.0, 5.0]}), base)
+
+
+def ensemble_path(dev):
+    """examples/09_ensemble_training.py at --full widths (K = 8 members,
+    50k training and 10k validation points of the 4-mode mixture, batch
+    1024, Adam 3e-3) through fit_ensemble, ENS_EPOCHS epochs; then the
+    example's own validation: each member's held-out NLL, the
+    deep-ensemble NLL against the target's entropy, and the best
+    member's mode split of 20k samples (about 0.75 / 0.5 / 0.25)."""
+    target = dist.MixtureSameFamily(
+        torch.zeros(4, device=dev),
+        dist.Normal(torch.tensor([-3.0, -1.0, 1.0, 3.0], device=dev),
+                    0.25 * torch.ones(4, device=dev)))
+    gen = torch.Generator(device=dev).manual_seed(44)
+    train = target.sample(gen, (ENS_TRAIN,))[:, None]
+    val = target.sample(gen, (ENS_VAL,))[:, None]
+    stack = stack_models([ensemble_member(100 + i, dev)
+                          for i in range(ENS_K)])
+
+    def val_nll():
+        with torch.no_grad():
+            return torch.stack([-m().log_prob(val).mean() for m in stack])
+
+    nll_before = val_nll()
+    _build.reset_launches()
+    with RqsRoutes() as routes:
+        t0 = time.perf_counter()
+        stack, hist = fit_ensemble(
+            stack, lambda f, b, g: -f().log_prob(b).mean(), train,
+            generator=gen, num_epochs=ENS_EPOCHS, batch_size=ENS_BATCH,
+            learning_rate=3e-3)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
+                f"ensemble launch counts {counts}")
+    steps = ENS_EPOCHS * (ENS_TRAIN // ENS_BATCH)
+    nll = val_nll()
+    with torch.no_grad():
+        member_lp = torch.stack([m().log_prob(val) for m in stack])
+        ens_nll = -float((torch.logsumexp(member_lp, 0)
+                          - math.log(ENS_K)).mean())
+        entropy = -float(target.log_prob(val[:, 0]).mean())
+        best = int(torch.argmin(nll))
+        samples = unstack_model(stack, best)().sample(gen, (20_000,))
+        edges = torch.tensor([-2.0, 0.0, 2.0], device=dev)
+        split = (samples[:, 0, None] > edges).float().mean(0).tolist()
+    fail_unless(bool(torch.isfinite(nll).all() and (nll < nll_before).all()),
+                f"ensemble validation NLL {nll.tolist()} (before "
+                f"{nll_before.tolist()})")
+    fail_unless(ens_nll <= float(nll.mean()) + 1e-6
+                and ens_nll - entropy < ENS_NLL_GAP,
+                f"ensemble NLL {ens_nll} against the target's entropy "
+                f"{entropy}")
+    fail_unless(all(abs(a - b) < 0.05 for a, b in zip(split,
+                                                       (0.75, 0.5, 0.25))),
+                f"best member's mode split {split}")
+    busy = busy_share(lambda: fit_ensemble(
+        stack, lambda f, b, g: -f().log_prob(b).mean(), train[:ENS_BATCH],
+        generator=gen, num_epochs=1, batch_size=ENS_BATCH,
+        learning_rate=3e-3), 1)
+    row = sampling_row(
+        "ensemble", dt, ENS_K * steps / dt, "member-steps/s", counts, busy,
+        ms_per_step=1e3 * dt / steps, members=ENS_K, epochs=ENS_EPOCHS,
+        val_nll=nll.tolist(), ensemble_nll=ens_nll, target_entropy=entropy,
+        best_member=best, mode_split=split, routes=dict(routes),
+        losses=[h.tolist() for h in hist["loss"]])
+    print(f"ensemble K={ENS_K} {1e3 * dt / steps:.3f} ms per ensemble step "
+          f"({row['rate']:.1f} member-steps/s)  validation NLL "
+          f"{[round(v, 4) for v in nll.tolist()]}  ensemble {ens_nll:.4f} "
+          f"(target entropy {entropy:.4f})  best {best} split "
+          f"{[round(v, 3) for v in split]}", flush=True)
+    return row
+
+
+def backmapping_ar_path(dev):
+    """The backmapping notebook's model with the autoregressive von
+    Mises mixture decoder (BASELINE.json's config 3: 3 DOFs, 2
+    components each, a MADE 3 -> 24 -> 24): fit() at batch 128 on 2000
+    frames, then predict and log_prob at 10k sites, log_prob under
+    rotation."""
+    register_von_mises_mixture(2)
+    cfg = backmapping_experiment_config()
+    cfg.model.decoder = MappingToDistConfig(
+        input_shape=20, dist=DistLayerConfig(
+            kind="autoregressive_blockwise", num_dofs=3,
+            families="von_mises_mixture_2"),
+        mapping_kwargs={"hidden_dim": 40})
+    bm = cfg.build()
+    data = backmapping_frames(BM_FRAMES, 45, dev)
+    row = train_path("backmapping_ar", bm,
+                     lambda m, b, g: -m.log_prob(*b).mean(), data, dev,
+                     batch=BM_BATCH, epochs=BM_EPOCHS)
+    fail_unless(row["launches"]["pair_attention"] > 0
+                and row["launches"]["dense_stack"] > 0,
+                f"autoregressive backmapping training launch counts "
+                f"{row['launches']}")
+    ref, coords, info, tors = backmapping_frames(BM_SITES, 46, dev)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    reps = 5
+    with torch.no_grad():
+        bm.predict(ref, coords, info, gen)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            samples = bm.predict(ref, coords, info, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            lp = bm.log_prob(ref, coords, info, tors)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _build.launch_counts()
+        busy = busy_share(lambda: bm.predict(ref, coords, info, gen), 1)
+        R = torch.tensor(np.linalg.qr(np.random.default_rng(48).normal(
+            size=(3, 3)))[0], dtype=torch.float32, device=dev)
+        lp_rot = bm.log_prob(ref @ R.T, coords @ R.T, info, tors)
+    fail_unless(counts["pair_attention"] > 0 and counts["dense_stack"] > 0,
+                f"autoregressive backmapping serving launch counts {counts}")
+    fail_unless(samples.shape == (BM_SITES, 3)
+                and bool(torch.isfinite(samples).all())
+                and bool((samples.abs() <= math.pi + 1e-5).all()),
+                "autoregressive torsions not finite, of the wrong shape or "
+                "outside [-pi, pi]")
+    fail_unless(lp.shape == (BM_SITES,) and bool(torch.isfinite(lp).all()),
+                "autoregressive log_prob not finite or of the wrong shape")
+    rot_err = compare("autoregressive log_prob under rotation", lp_rot, lp,
+                      1e-4, 1e-4, 1e-3)
+    row.update(predict_sites_per_s=BM_SITES * reps / (t1 - t0),
+               log_prob_sites_per_s=BM_SITES * reps / (t2 - t1),
+               predict_ms=1e3 * (t1 - t0) / reps,
+               log_prob_ms=1e3 * (t2 - t1) / reps, serve_launches=counts,
+               rotation_max_abs_err=rot_err, predict_busy=busy)
+    print(f"backmapping_ar predict {row['predict_sites_per_s']:.1f} sites/s "
+          f"({row['predict_ms']:.3f} ms)  log_prob "
+          f"{row['log_prob_sites_per_s']:.1f} sites/s "
+          f"({row['log_prob_ms']:.3f} ms)  predict device busy "
+          f"{busy[1]} of {busy[0]:.3f} ms  rotation max abs err "
+          f"{rot_err:.3e}", flush=True)
+    return row, bm.decoder.dist.made
+
+
+def check_slice9_kernels(made, bn_model, gen, dev):
+    """Kernel 2 at the autoregressive MADE (3 -> 24 -> 24 tanh, its own
+    masked weights) on 10k sites' raw draws, and kernel 3 at the middle
+    block of the batch-norm flow (permuted order, batch norm on either
+    side) on its own density-pass inputs, both directions: tolerances as
+    in check_dense_stack and check_maf_block."""
+    ks = [(k * m).detach() for k, m in zip(made.kernels, made.masks)]
+    bs = [b.detach() for b in made.biases]
+    acts = [made.activation, None]
+    x = torch.rand(BM_SITES, 3, generator=gen, device=dev) * 2 * math.pi \
+        - math.pi
+    got = dense_stack_cuda(x, ks, bs, acts)
+    want = dense_stack_plain(x, ks, bs, acts)
+    err = compare("autoregressive MADE", got, want, 1e-4, 1e-4)
+    ms = timed(lambda: dense_stack_cuda(x, ks, bs, acts))
+    plain_ms = timed(lambda: dense_stack_plain(x, ks, bs, acts))
+    b_us, b_by = stack_bound(BM_SITES, ks, bs)
+    record("dense_stack", f"autoregressive MADE 3->24->24 tanh N={BM_SITES}",
+           err, ms, plain_ms, bound_us=b_us, bound_by=b_by,
+           regime=stack_regime(BM_SITES, [3] + [k.shape[1] for k in ks],
+                               0)[0])
+    flow = bn_model.flowed_dist.flow
+    layer = flow.blocks[1]
+    cond = layer.conditioner
+    chain = flow.as_bijector(train=False).bijectors  # block2, BN, block1, ..
+    y = gaussian_data(dev)[:TRAIN_BATCH]
+    for bij in chain[:2]:
+        y = bij.inverse(y)
+    params = [p.detach() for p in cond.merged_params() if p is not None]
+    D, K = cond.w_net.event_size, cond.num_bins
+    deg = cond.w_net.input_order_static
+    for inverse in (True, False):
+        args = (y, params, None, D, K, cond.bin_min, cond.bin_max, inverse)
+        got = maf_fused.maf_block_cuda(*args, degrees=deg)
+        want = maf_fused.maf_block_plain(*args)
+        err = max(compare("maf_block middle x", got[0], want[0], 1e-4, 1e-4,
+                          1e-4),
+                  compare("maf_block middle ldj", got[1], want[1], 1e-3,
+                          1e-4, 1e-4))
+        ms = timed(lambda: maf_fused.maf_block_cuda(*args, degrees=deg))
+        plain_ms = timed(lambda: maf_fused.maf_block_plain(*args))
+        direction = "inverse" if inverse else "forward"
+        record("maf_block", f"{direction} D={D} middle block between batch "
+               f"norms, order {deg} N={TRAIN_BATCH}", err, ms, plain_ms)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
 
@@ -2168,6 +2660,21 @@ def bounds(vae, flow):
     return out
 
 
+_T0 = time.perf_counter()
+
+
+def stamped(phase, *args):
+    """phase(*args), with the script's elapsed seconds at its start and
+    end printed."""
+    t0 = time.perf_counter()
+    print(f"phase {phase.__name__} starts at {t0 - _T0:.1f} s", flush=True)
+    out = phase(*args)
+    t1 = time.perf_counter()
+    RESULTS.setdefault("phase_seconds", {})[phase.__name__] = t1 - t0
+    print(f"phase {phase.__name__} took {t1 - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2218,22 +2725,29 @@ def main():
                 f"generic path launch counts {generic}")
     fail_unless(fused["vae_proposal"] > 0,
                 f"fused path launch counts {fused}")
-    elbo = elbo_path(dev)
-    flow_row, predict = flow_path(flow, dev)
+    elbo = stamped(elbo_path, dev)
+    flow_row, predict = stamped(flow_path, flow, dev)
     with torch.no_grad():
         check_maf_block(flow, gen, dev, label=" trained")
-    bm_serve, bm_train = backmapping_path(dev)
-    mol, mol_row, mol_state = molecular_path(dev)
-    lj, lj_row, lj_state = lj_path(dev)
+    bm_serve, bm_train = stamped(backmapping_path, dev)
+    mol, mol_row, mol_state = stamped(molecular_path, dev)
+    lj, lj_row, lj_state = stamped(lj_path, dev)
     check_cell_lj(mol, mol_state.x, lj, lj_state.x, dev)
-    realnvp, rnvp_row, rnvp_sample = realnvp_1d_path(dev)
-    stats = statistics_path(vae, dev)
-    hmc = molecular_hmc_path(dev)
-    fe10, fe40, flow2d, x_a = free_energy_path(dev)
-    remc = remc_path(vae, dev)
-    tempering = tempering_path(dev)
+    realnvp, rnvp_row, rnvp_sample = stamped(realnvp_1d_path, dev)
+    stats = stamped(statistics_path, vae, dev)
+    hmc = stamped(molecular_hmc_path, dev)
+    fe10, fe40, flow2d, x_a = stamped(free_energy_path, dev)
+    remc = stamped(remc_path, vae, dev)
+    tempering = stamped(tempering_path, dev)
     with torch.no_grad():
         check_coupling_kernels(realnvp, flow2d, x_a, gen, dev)
+    dual = stamped(dual_elbo_path, dev)
+    hvae = stamped(hvae_path, dev)
+    bn_model, flow_bn = stamped(flow_bn_path, dev)
+    ensemble = stamped(ensemble_path, dev)
+    bm_ar, made = stamped(backmapping_ar_path, dev)
+    with torch.no_grad():
+        check_slice9_kernels(made, bn_model, gen, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -2250,7 +2764,14 @@ def main():
                 "free_energy_10": fe10["launches"],
                 "free_energy_40": fe40["launches"],
                 "remc": remc["launches"],
-                "tempering": tempering["launches"]}
+                "tempering": tempering["launches"],
+                "dual_elbo_train": dual["launches"],
+                "hvae_train": hvae["launches"],
+                "flow_bn_train": flow_bn["launches"],
+                "flow_bn_sample": flow_bn["predict_launches"],
+                "ensemble": ensemble["launches"],
+                "backmapping_ar_train": bm_ar["launches"],
+                "backmapping_ar_serve": bm_ar["serve_launches"]}
     bound = bounds(vae, flow)
     floor_us = 1e3 * RESULTS["launch_floor_ms"]
     for name, (us, by) in bound.items():

@@ -80,7 +80,7 @@ def test_layer_norm_uses_keras_eps_and_biased_variance():
     assert (got - torch.nn.functional.layer_norm(
         t(x), (12,), tln.scale.detach(), tln.offset.detach())
             ).abs().max() > 1e-2
-    assert isinstance(LayerNorm.create(3), torch.nn.Module)
+    assert isinstance(LayerNorm.create(3, device="cpu"), torch.nn.Module)
 
 
 @pytest.mark.parametrize("reduce", [False, True])

@@ -90,7 +90,8 @@ def test_distance_selection_matches_jax(case):
 def test_distance_selection_box_takes_no_gradient():
     coords = t(np.random.default_rng(2).normal(size=(2, 6, 3))).requires_grad_()
     box = torch.tensor([2.0, 2.0, 2.0], requires_grad=True)
-    sel = DistanceSelection.create(3.0, 4)(coords, torch.zeros(2, 3),
+    sel = DistanceSelection.create(3.0, 4, device="cpu")(
+        coords, torch.zeros(2, 3),
                                            box_lengths=box)[0]
     sel.sum().backward()
     assert box.grad is None and coords.grad is not None

@@ -1056,3 +1056,146 @@ def test_remc_replica_axis_launches_kernels_1_and_2(dev):
     assert counts["rqs"] > 0 and counts["dense_stack"] > 0
     assert int(st.num_trials) == 2 * 4 * 500
     assert int(st.num_swap_trials) == (2 + 1) * 500
+
+
+# ---------------------------------------------------------------------------
+# Slice 9: the new shapes of kernels 2 and 3, the HVAE's second
+# derivatives, and create() on the card by default
+# ---------------------------------------------------------------------------
+
+
+def test_dense_stack_at_the_autoregressive_made(dev):
+    """Kernel 2 at the autoregressive head's MADE (3 DOFs, 8 parameters
+    each: 3 -> 24 -> 24 tanh, masked weights) at 10k rows, and the
+    AutoregressiveBlockwise distribution on the card launching it."""
+    from vaemolsim_tpu_torch.dists import (AutoregressiveBlockwise,
+                                           register_von_mises_mixture)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    layer = AutoregressiveBlockwise.create(
+        gen, 3, register_von_mises_mixture(2))
+    made = layer.made
+    assert made.kernels[0].is_cuda
+    ks = [(k * m).detach() * 10.0 for k, m in zip(made.kernels, made.masks)]
+    bs = [0.1 * torch.randn(b.shape, generator=gen, device=dev)
+          for b in made.biases]
+    x = torch.rand(10_000, 3, generator=gen, device=dev) * 6.0 - 3.0
+    before = _build.KERNELS["dense_stack"].launches
+    got = fused_dense_stack(x, ks, bs, ["tanh", None])
+    assert _build.KERNELS["dense_stack"].launches == before + 1
+    torch.testing.assert_close(got, dense_stack_plain(x, ks, bs,
+                                                      ["tanh", None]),
+                               atol=1e-4, rtol=1e-4)
+    raw = torch.randn(10_000, 3, 8, generator=gen, device=dev)
+    dist = layer(raw)
+    _build.reset_launches()
+    with torch.no_grad():
+        s = dist.sample(gen)
+        lp = dist.log_prob(s)
+    assert _build.KERNELS["dense_stack"].launches == 4  # 3 passes + 1
+    assert bool(torch.isfinite(lp).all())
+    assert bool((s.abs() <= 3.1416).all())
+    # The fixed point on a CUDA generator: a fourth pass on the same
+    # noise changes nothing and leaves the generator where it was.
+    g = torch.Generator(device=dev).manual_seed(31)
+    start = g.get_state()
+    with torch.no_grad():
+        x = dist.sample(g)
+        after = g.get_state()
+        g.set_state(start)
+        assert torch.equal(dist._dist_at(x).sample(g), x)
+    assert torch.equal(g.get_state(), after)
+
+
+def test_maf_block_between_batch_norms(dev):
+    """A D=8, 3-block MAF with batch norm on either side of its middle
+    block (permuted order): each block runs through kernel 3 in both
+    modes, log_prob against a CPU copy, and update_batch_stats."""
+    from vaemolsim_tpu_torch.config import MAFConfig, RQSParams
+    from vaemolsim_tpu_torch.ops import distributions as td
+    gen = torch.Generator(device=dev).manual_seed(32)
+    flow = MAFConfig(data_dim=8, num_blocks=3, order_seed=3,
+                     batch_norm=True, rqs=RQSParams()).build(gen)
+    assert flow.blocks[1].conditioner.w_net.input_order_static != \
+        tuple(range(1, 9))
+    y = 2.0 + 1.5 * torch.randn(4096, 8, generator=gen, device=dev)
+    cpu = copy.deepcopy(flow).to("cpu")
+    for train in (True, False):
+        base = td.Independent(td.Normal(torch.zeros(8, device=dev),
+                                        torch.ones(8, device=dev)), 1)
+        _build.reset_launches()
+        with torch.no_grad():
+            lp = flow(base, train=train).log_prob(y)
+        assert _build.KERNELS["maf_block"].launches == 3
+        cbase = td.Independent(td.Normal(torch.zeros(8), torch.ones(8)), 1)
+        with torch.no_grad():
+            want = cpu(cbase, train=train).log_prob(y.cpu())
+        err = (lp.cpu() - want).abs()
+        assert float((err > 1e-3 + 1e-4 * want.abs()).float().mean()) < 1e-3
+    before = [bn.mean.clone() for bn in flow.bn_params]
+    flow.update_batch_stats(y)
+    cpu.update_batch_stats(y.cpu())
+    for bn, cbn, old in zip(flow.bn_params, cpu.bn_params, before):
+        assert not torch.equal(bn.mean, old)
+        torch.testing.assert_close(bn.mean.cpu(), cbn.mean, atol=1e-4,
+                                   rtol=1e-4)
+        torch.testing.assert_close(bn.var.cpu(), cbn.var, atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_hvae_gradients_run_through_second_derivatives(dev):
+    """The flagship VAE's HVAE bound at fixed draws (5 leapfrog steps of
+    0.05): value and every parameter's gradient on the card (kernels 1
+    and 2 forward, their plain recompute differentiated twice) against a
+    CPU copy, 1e-4 + 1e-3|g|.  At steps of 0.1 this gradient is
+    ill-conditioned in float32 itself (float32 and float64 disagree on
+    the CPU beyond this tolerance), so the comparison takes 0.05."""
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+    vae = flagship_experiment_config().build()
+    cpu = copy.deepcopy(vae).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn(512, 2, generator=gen, device=dev)
+    eps = torch.randn(512, 1, generator=gen, device=dev)
+    rho = torch.randn(512, 1, generator=gen, device=dev)
+
+    def bound(m, d):
+        enc = m.encoder(x.to(d), train=True)
+        f = enc.families[0]
+        z0 = f.loc + f.scale * eps.to(d)
+        return m._hvae_loss(x.to(d), enc, z0, rho.to(d), 5, 0.05, True)[0]
+
+    _build.reset_launches()
+    loss = bound(vae, dev)
+    got = torch.autograd.grad(loss, list(vae.parameters()))
+    counts = _build.launch_counts()
+    assert counts["rqs"] > 0 and counts["dense_stack"] > 0
+    want_loss = bound(cpu, torch.device("cpu"))
+    want = torch.autograd.grad(want_loss, list(cpu.parameters()))
+    torch.testing.assert_close(loss.cpu(), want_loss, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
+
+
+def test_create_without_a_device_builds_on_the_card(dev):
+    """Every parameter-allocating create, given no device, builds on
+    cuda, from a CPU or a CUDA generator."""
+    from vaemolsim_tpu_torch.dists import AutoregressiveBlockwise
+    from vaemolsim_tpu_torch.flows import RQSSplineMAF, RQSSplineRealNVP
+    from vaemolsim_tpu_torch.nn import (MADE, BatchNorm, CGCentroid, Dense,
+                                        FCDeepNN, LayerNorm,
+                                        ParticleEmbedding)
+    for g in (torch.Generator().manual_seed(0),
+              torch.Generator(device=dev).manual_seed(0)):
+        built = [Dense.create(g, 2, 3), LayerNorm.create(3),
+                 BatchNorm.create(3), MADE.create(g, 3, 2, [6]),
+                 FCDeepNN.create(g, 2, 3, 8, batch_norm=True),
+                 CGCentroid.create([2, 1]),
+                 VectorAttention.create(g, 3, 3, 4),
+                 ParticleEmbedding.create(g, 2, 3, 4, 1),
+                 MaskedSplineConditioner.create(g, 2, num_bins=4,
+                                                hidden_dim=4),
+                 RQSSplineMAF.create(g, 2, 2, batch_norm=True),
+                 RQSSplineRealNVP.create(g, 2, 2, batch_norm=True),
+                 AutoregressiveBlockwise.create(g, 2, "normal")]
+        for m in built:
+            ts = list(m.parameters()) + list(m.buffers())
+            assert ts and all(t.is_cuda for t in ts), type(m).__name__

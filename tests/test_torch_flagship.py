@@ -453,7 +453,7 @@ def test_fused_step_refuses_models_outside_its_family():
             flow=tconfig.MAFConfig(data_dim=2, rqs=tconfig.RQSParams(
                 num_bins=4, hidden_dim=8))),
         latent_dim=2)
-    vae = cfg.build(gen)
+    vae = cfg.build(gen, "cpu")
     with pytest.raises(tmf.UnsupportedModelError):
         make_fused_vae_step(vae, log_target)
     # The generic step takes it (a 2-D latent runs the MADE conditioner

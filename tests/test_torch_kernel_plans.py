@@ -193,7 +193,7 @@ def test_pruned_block_with_context_and_one_dof():
         cond = MaskedSplineConditioner.create(
             gen, D, bin_range=(BIN_MIN, BIN_MAX), num_bins=K,
             hidden_dim=HIDDEN, conditional=True, conditional_event_shape=2,
-            input_order=order)
+            input_order=order, device="cpu")
         params = [2.0 * p.detach() for p in cond.merged_params()]
         params[1] = params[1] + 0.2 * torch.randn(params[1].shape,
                                                   generator=gen)

@@ -201,9 +201,12 @@ def test_realnvp_refuses_what_is_not_ported():
         tcfg.RQSParams(conditional=True,
                        conditional_event_shape=2).asdict(coupling=True)
     assert "conditional" not in tcfg.RQSParams().asdict(coupling=True)
-    with pytest.raises(NotImplementedError):
-        tcfg.RealNVPConfig(data_dim=2, batch_norm=True).build(
-            torch.Generator(), "cpu")
+    # Batch norm between blocks is ported: one bijector between each
+    # pair of blocks (tests/test_torch_batchnorm.py holds it to JAX).
+    flow = tcfg.RealNVPConfig(data_dim=2, num_blocks=3,
+                              batch_norm=True).build(torch.Generator(),
+                                                     "cpu")
+    assert len(flow.bn_params) == 2
 
 
 def test_categorical_log_prob_and_sampling_match_jax():

@@ -392,13 +392,20 @@ def test_fit_scan_epochs_runs_the_same_loop():
 @pytest.mark.parametrize("kw", ["mesh", "process_local_data", "streamed",
                                 "fit_ensemble"])
 def test_fit_options_not_ported_raise(kw):
+    """Sharded training is not ported and raises by name.  Streamed data
+    and fit_ensemble are (tests/test_torch_ensemble_ckpt.py); they raise
+    as the JAX package does on what they cannot take: an empty stream,
+    and a stream given to the ensemble."""
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if kw == "fit_ensemble":
-            fit_ensemble(Toy(), quad_loss(), _data(), generator=gen)
-        elif kw == "streamed":
+    if kw == "fit_ensemble":
+        with pytest.raises(ValueError, match="in-memory"):
+            fit_ensemble([Toy()], quad_loss(), lambda g: iter([]),
+                         generator=gen)
+    elif kw == "streamed":
+        with pytest.raises(ValueError, match="no batches"):
             fit(Toy(), quad_loss(), lambda g: iter([]), generator=gen)
-        else:
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             fit(Toy(), quad_loss(), _data(), generator=gen,
                 **{kw: object() if kw == "mesh" else True})
 

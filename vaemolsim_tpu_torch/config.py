@@ -11,10 +11,11 @@ written by ``vaemolsim_tpu.config.save_json`` builds the same
 architecture here (not the same weights: the random streams differ; use
 ``convert.from_jax`` to carry weights across).
 
-Ported so far: the configs of the flagship experiment, of flow models
-(MAF and RealNVP), of the backmapping model (``BackmappingConfig``, with
-``DistanceSelectionConfig`` and ``ParticleEmbeddingConfig``), and the
-optimizer.  A JSON naming another config class is refused by name.
+Every config class of the JAX package: the flagship experiment, flow
+models (MAF and RealNVP, with or without batch norm), every dist-layer
+kind, the dual-ELBO VAE, the backmapping model (``BackmappingConfig``,
+with ``DistanceSelectionConfig`` and ``ParticleEmbeddingConfig``), the
+FCDeepNN ``MappingConfig`` and the optimizer.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["RQSParams", "RealNVPConfig", "MAFConfig", "DistLayerConfig",
+__all__ = ["RQSParams", "RealNVPConfig", "MAFConfig", "MappingConfig",
+           "DistLayerConfig",
            "FlowedDistConfig", "RegularizerConfig", "MappingToDistConfig",
            "FlowModelConfig",
            "VAEConfig", "DistanceSelectionConfig", "ParticleEmbeddingConfig",
@@ -209,6 +211,27 @@ class MAFConfig:
 
 
 @dataclass
+class MappingConfig:
+    """FCDeepNN knobs."""
+
+    input_shape: Union[int, Tuple[int, ...]] = 1
+    target_shape: Union[int, Tuple[int, ...]] = 1
+    hidden_dim: Union[int, List[int]] = 200
+    periodic_dofs: Union[bool, List[bool]] = False
+    batch_norm: bool = False
+    activation: str = "relu"
+
+    def build(self, generator: torch.Generator, device=None):
+        from vaemolsim_tpu_torch.nn import FCDeepNN
+        return FCDeepNN.create(generator, _shape(self.input_shape),
+                               _shape(self.target_shape),
+                               hidden_dim=self.hidden_dim,
+                               periodic_dofs=self.periodic_dofs,
+                               batch_norm=self.batch_norm,
+                               activation=self.activation, device=device)
+
+
+@dataclass
 class DistanceSelectionConfig:
     """The nearest ``max_included`` particles within ``cutoff``."""
 
@@ -270,7 +293,9 @@ class MCMCConfig:
 
 @dataclass
 class DistLayerConfig:
-    """A distribution layer; only ``independent_blockwise`` is ported."""
+    """A distribution layer, ``kind`` one of "independent_blockwise",
+    "autoregressive_blockwise" (the only one with a conditional input),
+    "independent_von_mises" and "independent_deterministic"."""
 
     kind: str = "independent_blockwise"
     num_dofs: int = 1
@@ -282,13 +307,28 @@ class DistLayerConfig:
     def build(self, generator: Optional[torch.Generator] = None,
               device=None):
         from vaemolsim_tpu_torch import dists
-        if self.conditional:
-            raise ValueError(f"kind={self.kind!r} has no conditional "
-                             "machinery in the port yet")
-        if self.kind != "independent_blockwise":
-            raise NotImplementedError(
-                f"dist layer kind {self.kind!r} is not ported yet")
-        return dists.IndependentBlockwise.create(self.num_dofs, self.families)
+        if self.conditional and self.kind != "autoregressive_blockwise":
+            raise ValueError(
+                f"kind={self.kind!r} has no conditional machinery; "
+                "conditional=True would be silently ignored (use "
+                "autoregressive_blockwise, or a conditional flow)")
+        if self.kind == "independent_blockwise":
+            return dists.IndependentBlockwise.create(self.num_dofs,
+                                                     self.families)
+        if self.kind == "autoregressive_blockwise":
+            if generator is None:
+                raise ValueError("autoregressive_blockwise needs a "
+                                 "generator")
+            return dists.AutoregressiveBlockwise.create(
+                generator, self.num_dofs, self.families,
+                conditional=self.conditional,
+                conditional_event_shape=self.conditional_event_shape,
+                auto_net_params=self.auto_net_params, device=device)
+        if self.kind == "independent_von_mises":
+            return dists.IndependentVonMises.create(self.num_dofs)
+        if self.kind == "independent_deterministic":
+            return dists.IndependentDeterministic.create(self.num_dofs)
+        raise ValueError(f"Unknown dist layer kind {self.kind!r}")
 
 
 @dataclass
@@ -305,6 +345,7 @@ class FlowedDistConfig:
         from vaemolsim_tpu_torch import dists
         from vaemolsim_tpu_torch.ops import distributions as d
 
+        device = default_device(device)
         flow = self.flow.build(generator, device)
         if self.base is None:
             dim = self.static_base_dim or self.flow.data_dim
@@ -393,11 +434,10 @@ class VAEConfig:
     reverse_regularizer: Optional[RegularizerConfig] = None
 
     def build(self, generator: torch.Generator, device=None):
-        from vaemolsim_tpu_torch.models import VAE
+        from vaemolsim_tpu_torch.models import VAE, VAEDualELBO
         from vaemolsim_tpu_torch.ops import distributions as d
 
-        if self.dual_elbo:
-            raise NotImplementedError("VAEDualELBO is not ported yet")
+        device = default_device(device)
         encoder = self.encoder.build(generator, device)
         decoder = self.decoder.build(generator, device)
         if self.prior is not None:
@@ -406,6 +446,11 @@ class VAEConfig:
             prior = d.Independent(
                 d.Normal(torch.zeros(self.latent_dim, device=device),
                          torch.ones(self.latent_dim, device=device)), 1)
+        if self.dual_elbo:
+            rev = (self.reverse_regularizer
+                   or RegularizerConfig(kind="reverse_kl")).build()
+            return VAEDualELBO(encoder, decoder, prior,
+                               self.regularizer.build(), rev)
         return VAE(encoder, decoder, prior, self.regularizer.build())
 
 
@@ -532,7 +577,7 @@ def backmapping_experiment_config() -> ExperimentConfig:
 
 _CONFIG_REGISTRY: Dict[str, type] = {
     c.__name__: c
-    for c in (RQSParams, RealNVPConfig, MAFConfig, MCMCConfig,
+    for c in (RQSParams, RealNVPConfig, MAFConfig, MappingConfig, MCMCConfig,
               DistLayerConfig, FlowedDistConfig, RegularizerConfig,
               MappingToDistConfig, FlowModelConfig, VAEConfig,
               DistanceSelectionConfig,

@@ -2,17 +2,23 @@
 
 Reads the JAX objects' fields by name and their arrays through
 ``np.asarray``, so it needs no import of jax.  Covers everything the
-flagship VAE, a flow model and the backmapping model hold: FCDeepNN,
-Dense, LayerNorm, MADE, MaskedSplineConditioner, MAFLayer, RQSSplineMAF,
-SplineConditioner, CouplingLayer, RQSSplineRealNVP, Normal, VonMises,
-Independent, Categorical, MixtureSameFamily,
-IndependentBlockwise (any ported family, von Mises included),
+flagship VAE, a flow model and the backmapping model hold: FCDeepNN
+(with its batch norms), Dense, LayerNorm, BatchNorm, MADE,
+MaskedSplineConditioner, MAFLayer, RQSSplineMAF, SplineConditioner,
+CouplingLayer, RQSSplineRealNVP (each flow with its batch-norm
+bijectors and before/after transforms), the bijectors (Identity, Shift,
+Scale, Sigmoid, Tanh, Softplus, SoftClip, Block, Inverse, Chain,
+BatchNormBijector), Normal, Uniform, Deterministic, VonMises, Beta,
+Gamma, Independent, Categorical, MixtureSameFamily,
+IndependentBlockwise (any ported family), AutoregressiveBlockwise,
+IndependentVonMises, IndependentDeterministic,
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
-FlowModel, the VAE, the seven loss classes, DistanceSelection, the
-attention nets, VectorAttention, AttentionBlock, ParticleEmbedding,
-LocalParticleDescriptors and BackmappingOnly; and the molecular MD
-state: a ``CellNeighborList`` (either JAX build, evaluated by the port's
-cell-list energy) and an ``MDState``.  Weights and arrays are copied
+FlowModel, the VAE and VAEDualELBO, the seven loss classes, the CG maps,
+DistanceSelection, the attention nets, VectorAttention, AttentionBlock,
+ParticleEmbedding, LocalParticleDescriptors and BackmappingOnly; and
+the molecular MD state: a ``CellNeighborList`` (either JAX build,
+evaluated by the port's cell-list energy) and an ``MDState``.  Batch-norm
+running moments become buffers.  Weights and arrays are copied
 exactly, with their dtypes (the Dense layout is the same ``(in, out)``
 in both packages).  Objects land on the CUDA card unless a device is
 given.
@@ -44,13 +50,25 @@ def _layer_norm(o, device):
     return LayerNorm(_t(o.scale, device), _t(o.offset, device), o.eps)
 
 
+def _batch_norm(o, device):
+    from vaemolsim_tpu_torch.nn.core import BatchNorm
+    return BatchNorm(_t(o.mean, device), _t(o.var, device),
+                     _t(o.scale, device), _t(o.offset, device), o.momentum,
+                     o.eps)
+
+
 def _fcdeepnn(o, device):
     from vaemolsim_tpu_torch.nn.mappings import FCDeepNN
-    if o.batch_norm:
-        raise NotImplementedError("FCDeepNN with batch norm is not ported")
     return FCDeepNN([_dense(l, device) for l in o.layers],
                     _dense(o.head, device), o.event_ndims,
-                    tuple(o.target_shape), tuple(o.periodic_mask))
+                    tuple(o.target_shape), tuple(o.periodic_mask),
+                    [_batch_norm(b, device) for b in o.bns]
+                    if o.batch_norm else ())
+
+
+def _cg_map(o, device):
+    from vaemolsim_tpu_torch.nn import mappings
+    return getattr(mappings, type(o).__name__)(_t(o.agg, device))
 
 
 def _made(o, device):
@@ -83,15 +101,19 @@ def _maf_layer(o, device):
     return MAFLayer(_masked_conditioner(o.conditioner, device))
 
 
+def _optional(o, device):
+    return None if o is None else from_jax(o, device)
+
+
 def _rqs_maf(o, device):
     from vaemolsim_tpu_torch.flows import RQSSplineMAF
-    if o.bn_params or o.before_flow_transform is not None \
-            or o.after_flow_transform is not None:
-        raise NotImplementedError("RQSSplineMAF with batch norm or "
-                                  "before/after transforms is not ported")
     return RQSSplineMAF([_maf_layer(b, device) for b in o.blocks],
+                        _optional(o.before_flow_transform, device),
+                        _optional(o.after_flow_transform, device),
                         data_dim=o.data_dim, conditional=o.conditional,
-                        order_seed=o.order_seed)
+                        order_seed=o.order_seed,
+                        bn_params=[_bn_bijector(b, device)
+                                   for b in o.bn_params])
 
 
 def _coupling_layer(o, device):
@@ -102,12 +124,54 @@ def _coupling_layer(o, device):
 
 def _rqs_realnvp(o, device):
     from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
-    if o.bn_params or o.before_flow_transform is not None \
-            or o.after_flow_transform is not None:
-        raise NotImplementedError("RQSSplineRealNVP with batch norm or "
-                                  "before/after transforms is not ported")
     return RQSSplineRealNVP([_coupling_layer(b, device) for b in o.blocks],
-                            data_dim=o.data_dim)
+                            _optional(o.before_flow_transform, device),
+                            _optional(o.after_flow_transform, device),
+                            data_dim=o.data_dim,
+                            bn_params=[_bn_bijector(b, device)
+                                       for b in o.bn_params])
+
+
+def _bn_bijector(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import BatchNormBijector
+    return BatchNormBijector(_t(o.mean, device), _t(o.var, device),
+                             _t(o.log_gamma, device), _t(o.beta, device),
+                             o.eps, o.use_batch_stats, o.momentum)
+
+
+def _stateless_bijector(o, device):
+    from vaemolsim_tpu_torch.ops import bijectors as bj
+    return getattr(bj, type(o).__name__)()
+
+
+def _shift(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import Shift
+    return Shift(_t(o.shift, device))
+
+
+def _scale(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import Scale
+    return Scale(_t(o.scale, device))
+
+
+def _soft_clip(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import SoftClip
+    return SoftClip(o.low, o.high, o.hinge_softness)
+
+
+def _block(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import Block
+    return Block(from_jax(o.inner, device), o.ndims)
+
+
+def _inverse(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import Inverse
+    return Inverse(from_jax(o.inner, device))
+
+
+def _chain(o, device):
+    from vaemolsim_tpu_torch.ops.bijectors import Chain
+    return Chain([from_jax(b, device) for b in o.bijectors])
 
 
 def _categorical(o, device):
@@ -131,6 +195,26 @@ def _von_mises(o, device):
     return d.VonMises(_t(o.loc, device), _t(o.concentration, device))
 
 
+def _uniform(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.Uniform(_t(o.low, device), _t(o.high, device))
+
+
+def _deterministic(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.Deterministic(_t(o.loc, device), o.atol)
+
+
+def _beta(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.Beta(_t(o.concentration1, device), _t(o.concentration0, device))
+
+
+def _gamma(o, device):
+    from vaemolsim_tpu_torch.ops import distributions as d
+    return d.Gamma(_t(o.concentration, device), _t(o.rate, device))
+
+
 def _independent(o, device):
     from vaemolsim_tpu_torch.ops import distributions as d
     return d.Independent(from_jax(o.base, device),
@@ -140,6 +224,17 @@ def _independent(o, device):
 def _blockwise_layer(o, device):
     from vaemolsim_tpu_torch.dists import IndependentBlockwise
     return IndependentBlockwise(tuple(o.families))
+
+
+def _autoregressive_blockwise(o, device):
+    from vaemolsim_tpu_torch.dists import AutoregressiveBlockwise
+    return AutoregressiveBlockwise(_made(o.made, device),
+                                   _blockwise_layer(o.blockwise, device))
+
+
+def _event_dim_layer(o, device):
+    from vaemolsim_tpu_torch import dists
+    return getattr(dists, type(o).__name__)(o.event_dim)
 
 
 def _static_flowed(o, device):
@@ -189,6 +284,14 @@ def _vae(o, device):
     from vaemolsim_tpu_torch.models import VAE
     return VAE(from_jax(o.encoder, device), from_jax(o.decoder, device),
                from_jax(o.prior, device), from_jax(o.regularizer, device))
+
+
+def _vae_dual(o, device):
+    from vaemolsim_tpu_torch.models import VAEDualELBO
+    return VAEDualELBO(from_jax(o.encoder, device),
+                       from_jax(o.decoder, device), from_jax(o.prior, device),
+                       from_jax(o.regularizer_forward, device),
+                       from_jax(o.regularizer_reverse, device))
 
 
 def _distance_selection(o, device):
@@ -256,7 +359,10 @@ def _backmapping(o, device):
 _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "Dense": _dense,
     "LayerNorm": _layer_norm,
+    "BatchNorm": _batch_norm,
     "FCDeepNN": _fcdeepnn,
+    "CGCentroid": _cg_map,
+    "CGCenterOfMass": _cg_map,
     "MADE": _made,
     "MaskedSplineConditioner": _masked_conditioner,
     "SplineConditioner": _spline_conditioner,
@@ -264,17 +370,36 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "RQSSplineMAF": _rqs_maf,
     "CouplingLayer": _coupling_layer,
     "RQSSplineRealNVP": _rqs_realnvp,
+    "BatchNormBijector": _bn_bijector,
+    "Identity": _stateless_bijector,
+    "Sigmoid": _stateless_bijector,
+    "Tanh": _stateless_bijector,
+    "Softplus": _stateless_bijector,
+    "Shift": _shift,
+    "Scale": _scale,
+    "SoftClip": _soft_clip,
+    "Block": _block,
+    "Inverse": _inverse,
+    "Chain": _chain,
     "Categorical": _categorical,
     "MixtureSameFamily": _mixture,
     "Normal": _normal,
     "VonMises": _von_mises,
+    "Uniform": _uniform,
+    "Deterministic": _deterministic,
+    "Beta": _beta,
+    "Gamma": _gamma,
     "Independent": _independent,
     "IndependentBlockwise": _blockwise_layer,
+    "AutoregressiveBlockwise": _autoregressive_blockwise,
+    "IndependentVonMises": _event_dim_layer,
+    "IndependentDeterministic": _event_dim_layer,
     "StaticFlowedDistribution": _static_flowed,
     "FlowedDistribution": _flowed,
     "MappingToDistribution": _mapping_to_dist,
     "FlowModel": _flow_model,
     "VAE": _vae,
+    "VAEDualELBO": _vae_dual,
     "DistanceSelection": _distance_selection,
     "_ScoreNet": _score_net,
     "_ValueNet": _value_net,

@@ -2,10 +2,15 @@
 
 from vaemolsim_tpu_torch.dists.layers import (  # noqa: F401
     FAMILY_REGISTRY,
+    AutoregressiveBlockwise,
+    AutoregressiveBlockwiseDistribution,
     FlowedDistribution,
     IndependentBlockwise,
+    IndependentDeterministic,
+    IndependentVonMises,
     StaticFlowedDistribution,
     build_family_dist,
     family_param_count,
     register_family,
+    register_von_mises_mixture,
 )

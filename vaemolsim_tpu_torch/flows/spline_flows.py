@@ -9,7 +9,10 @@ knot slopes ``softplus(raw) + 1e-2``.
 
 Ported: SplineConditioner, CouplingLayer and RQSSplineRealNVP (the
 reference's own flow family), MaskedSplineConditioner, MAFLayer and
-RQSSplineMAF, all without batch norm (``batch_norm=True`` raises).
+RQSSplineMAF.  With ``batch_norm=True`` a ``BatchNormBijector`` sits
+between consecutive blocks (``bn_params``), in batch-moment mode when the
+flow is called with ``train=True``; ``update_batch_stats`` takes one EMA
+step of their running moments from a batch, in place.
 
 A coupling block evaluates its conditioner (1 or 2 layers) through the
 dense-stack kernel and its spline through the RQS kernel on CUDA.  The
@@ -42,6 +45,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vaemolsim_tpu_torch.config import default_device
 from vaemolsim_tpu_torch.nn.core import MADE, Dense
 from vaemolsim_tpu_torch.ops import bijectors as bj
 from vaemolsim_tpu_torch.ops import distributions as dist_lib
@@ -86,6 +90,7 @@ class SplineConditioner(nn.Module):
                num_bins: int = 32, hidden_dim: int = 200,
                circular: bool = False, kernel_initializer="truncated_normal",
                device=None) -> "SplineConditioner":
+        device = default_device(device)
         n_slopes = num_bins if circular else num_bins - 1
 
         def dense(i, o, act=None):
@@ -187,6 +192,7 @@ class MaskedSplineConditioner(nn.Module):
                input_order="left-to-right", circular: bool = False,
                kernel_initializer="truncated_normal", device=None
                ) -> "MaskedSplineConditioner":
+        device = default_device(device)
         common = dict(hidden_units=[hidden_dim], input_order=input_order,
                       conditional=conditional,
                       conditional_event_size=conditional_event_shape,
@@ -367,22 +373,50 @@ def _ensure_event_transform(t, data_dim: int, device):
     return bj.Block(t, 1) if torch.as_tensor(ldj).dim() >= 2 else t
 
 
+def _make_bns(data_dim: int, n: int, device) -> nn.ModuleList:
+    return nn.ModuleList(bj.BatchNormBijector.create(data_dim, device)
+                         for _ in range(n))
+
+
 class _FlowMixin:
-    """The polymorphic call and the bijector chain shared by the flows."""
+    """The polymorphic call, the bijector chain and the batch-norm
+    statistics shared by the flows."""
 
     def as_bijector(self, train: bool = False) -> bj.Chain:
-        """Forward order before, block0, ..., after, as a Chain (which
-        applies its last entry first)."""
+        """Forward order before, block0, BN, block1, ..., after, as a
+        Chain (which applies its last entry first); each BN in
+        batch-moment mode when ``train``."""
         device = next(self.parameters()).device
         seq = []
         if self.before_flow_transform is not None:
             seq.append(_ensure_event_transform(self.before_flow_transform,
                                                self.data_dim, device))
-        seq.extend(self.blocks)
+        for i, blk in enumerate(self.blocks):
+            if i > 0 and len(self.bn_params):
+                seq.append(bj.Block(
+                    self.bn_params[i - 1].with_batch_stats(train), 1))
+            seq.append(blk)
         if self.after_flow_transform is not None:
             seq.append(_ensure_event_transform(self.after_flow_transform,
                                                self.data_dim, device))
         return bj.Chain(tuple(reversed(seq)))
+
+    @torch.no_grad()
+    def update_batch_stats(self, x: Tensor,
+                           conditional_input: Optional[Tensor] = None):
+        """Run the density (inverse) pass on the batch ``x`` and take one
+        EMA step of each batch norm's running moments toward the moments
+        of its own input, IN PLACE (the JAX package returns an updated
+        flow; here the buffers change).  Returns the flow."""
+        y = x
+        for bijector in self.as_bijector(train=True).bijectors:
+            inner = bijector.inner if isinstance(bijector, bj.Block) else None
+            if hasattr(inner, "update_moments"):
+                y, _, m, v = inner.inverse_and_log_det_and_moments(y)
+                inner.update_moments(m, v)
+            else:
+                y = bijector.inverse(y, context=conditional_input)
+        return self
 
     def forward(self, inputs, train: bool = False,
                 conditional_input: Optional[Tensor] = None):
@@ -406,15 +440,15 @@ class RQSSplineRealNVP(_FlowMixin, nn.Module):
     blocks condition on the first floor(d/2) DOFs, odd blocks on the last
     ceil(d/2); ``data_dim == 1`` masks nothing and transforms the single
     DOF through the ones-fed conditioner.  Never conditional; optional
-    before/after transforms.  Batch norm between blocks is still to
-    come."""
+    batch norm between blocks and before/after transforms."""
 
     def __init__(self, blocks: Sequence[CouplingLayer],
                  before_flow_transform: Any = None,
-                 after_flow_transform: Any = None, data_dim: int = 1):
+                 after_flow_transform: Any = None, data_dim: int = 1,
+                 bn_params: Sequence[bj.BatchNormBijector] = ()):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
-        self.bn_params = ()
+        self.bn_params = nn.ModuleList(bn_params)
         self.before_flow_transform = before_flow_transform
         self.after_flow_transform = after_flow_transform
         self.data_dim = data_dim
@@ -425,9 +459,7 @@ class RQSSplineRealNVP(_FlowMixin, nn.Module):
                rqs_params: Optional[dict] = None, batch_norm: bool = False,
                before_flow_transform=None, after_flow_transform=None,
                device=None) -> "RQSSplineRealNVP":
-        if batch_norm:
-            raise NotImplementedError(
-                "RQSSplineRealNVP(batch_norm=True) is not ported yet")
+        device = default_device(device)
         rqs_params = dict(rqs_params or {})
         blocks = []
         for i in range(num_blocks):
@@ -443,25 +475,27 @@ class RQSSplineRealNVP(_FlowMixin, nn.Module):
             blocks.append(CouplingLayer(SplineConditioner.create(
                 generator, cond_in, n_out, device=device, **rqs_params),
                 n_masked))
+        bns = _make_bns(data_dim, num_blocks - 1, device) if batch_norm else ()
         return cls(blocks, before_flow_transform, after_flow_transform,
-                   data_dim)
+                   data_dim, bns)
 
 
 class RQSSplineMAF(_FlowMixin, nn.Module):
     """Chain of masked-autoregressive RQS blocks: first block
     right-to-left, last left-to-right, middle blocks a permutation drawn
     from ``order_seed`` unless ``rqs_params`` gives ``input_order``;
-    optional before/after transforms; conditional context threaded to
-    every block.  Batch norm between blocks is still to come."""
+    optional batch norm between blocks and before/after transforms;
+    conditional context threaded to every block."""
 
     def __init__(self, blocks: Sequence[MAFLayer],
                  before_flow_transform: Any = None,
                  after_flow_transform: Any = None, data_dim: int = 1,
                  conditional: bool = False,
-                 order_seed: Optional[int] = None):
+                 order_seed: Optional[int] = None,
+                 bn_params: Sequence[bj.BatchNormBijector] = ()):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
-        self.bn_params = ()
+        self.bn_params = nn.ModuleList(bn_params)
         self.before_flow_transform = before_flow_transform
         self.after_flow_transform = after_flow_transform
         self.data_dim = data_dim
@@ -474,9 +508,7 @@ class RQSSplineMAF(_FlowMixin, nn.Module):
                rqs_params: Optional[dict] = None, batch_norm: bool = False,
                before_flow_transform=None, after_flow_transform=None,
                device=None) -> "RQSSplineMAF":
-        if batch_norm:
-            raise NotImplementedError(
-                "RQSSplineMAF(batch_norm=True) is not ported yet")
+        device = default_device(device)
         rqs_params = dict(rqs_params or {})
         explicit_order = rqs_params.pop("input_order", None)
         conditional = rqs_params.get("conditional", False)
@@ -495,6 +527,7 @@ class RQSSplineMAF(_FlowMixin, nn.Module):
             blocks.append(MAFLayer(MaskedSplineConditioner.create(
                 generator, data_dim, input_order=order, device=device,
                 **rqs_params)))
+        bns = _make_bns(data_dim, num_blocks - 1, device) if batch_norm else ()
         return cls(blocks, before_flow_transform, after_flow_transform,
-                   data_dim, conditional, order_seed)
+                   data_dim, conditional, order_seed, bns)
 

@@ -36,7 +36,7 @@ from vaemolsim_tpu_torch import _build
 from vaemolsim_tpu_torch.dists.layers import _positive
 from vaemolsim_tpu_torch.mcmc.engine import MCMCState, apply_mh, log_uniform
 from vaemolsim_tpu_torch.nn.core import resolve_activation
-from vaemolsim_tpu_torch.ops.distributions import Normal
+from vaemolsim_tpu_torch.ops.distributions import Independent, Normal
 from vaemolsim_tpu_torch.ops.rqs import (rqs_forward_plain, rqs_inverse_plain,
                                          table_floats)
 
@@ -322,6 +322,10 @@ def _extract_prior(prior):
              and flow.before_flow_transform is None
              and flow.after_flow_transform is None,
              "a plain 1-D unconditional RQSSplineMAF prior flow")
+    base = prior.base
+    _require(isinstance(base, Independent)
+             and isinstance(base.base, Normal),
+             "an Independent(Normal) base")
     loc, scale = prior.base_loc.reshape(-1), prior.base_scale.reshape(-1)
     _require(loc.shape == (1,) and scale.shape == (1,),
              "a 1-D diagonal-normal base")

@@ -2,6 +2,7 @@
 
 from vaemolsim_tpu_torch.nn.core import (  # noqa: F401
     MADE,
+    BatchNorm,
     MLP,
     Dense,
     LayerNorm,
@@ -9,6 +10,8 @@ from vaemolsim_tpu_torch.nn.core import (  # noqa: F401
     set_compute_dtype,
 )
 from vaemolsim_tpu_torch.nn.mappings import (  # noqa: F401
+    CGCenterOfMass,
+    CGCentroid,
     DistanceSelection,
     FCDeepNN,
 )

@@ -29,6 +29,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from vaemolsim_tpu_torch.config import default_device
 from vaemolsim_tpu_torch.nn.core import (Dense, LayerNorm, compute_dtype,
                                          resolve_activation)
 from vaemolsim_tpu_torch.nn.mappings import DistanceSelection
@@ -76,6 +77,7 @@ class _ScoreNet(nn.Module):
     @classmethod
     def create(cls, generator, in_dim: int, hidden_dim: int,
                activation: str = "relu", device=None) -> "_ScoreNet":
+        device = default_device(device)
         return cls(Dense.create(generator, in_dim, hidden_dim, activation,
                                 device=device),
                    Dense.create(generator, hidden_dim, 1, device=device))
@@ -96,6 +98,7 @@ class _ValueNet(nn.Module):
     @classmethod
     def create(cls, generator, in_dim: int, hidden_dim: int, out_dim: int,
                activation: str = "relu", device=None) -> "_ValueNet":
+        device = default_device(device)
         return cls(Dense.create(generator, in_dim, hidden_dim, device=device),
                    LayerNorm.create(hidden_dim, device=device),
                    Dense.create(generator, hidden_dim, out_dim,
@@ -121,6 +124,7 @@ class VectorAttention(nn.Module):
     def create(cls, generator, value_dim: int, out_dim: int,
                hidden_dim: int = 40, reduce: bool = False,
                activation: str = "relu", device=None) -> "VectorAttention":
+        device = default_device(device)
         pair_in = 2 * value_dim + 4
         return cls(_ScoreNet.create(generator, pair_in, hidden_dim,
                                     activation, device),
@@ -229,6 +233,7 @@ class AttentionBlock(nn.Module):
     def create(cls, generator, working_dim: int, hidden_dim: int = 40,
                activation: str = "relu", attention: str = "fused",
                device=None) -> "AttentionBlock":
+        device = default_device(device)
         return cls(_make_attention(attention, generator, working_dim,
                                    working_dim, hidden_dim, False,
                                    activation, device),
@@ -278,6 +283,7 @@ class ParticleEmbedding(nn.Module):
                hidden_dim: int = 40, num_blocks: int = 2,
                mask_zero: bool = True, activation: str = "relu",
                attention: str = "fused", device=None) -> "ParticleEmbedding":
+        device = default_device(device)
         info_net = Dense.create(generator, info_dim, embedding_dim,
                                 device=device)
         blocks: List[AttentionBlock] = [

@@ -10,7 +10,12 @@ random streams are not the same).
 MADE is the masked autoregressive network (Germain et al. 2015) with
 static masks, input orders and an optional unmasked conditional input
 into every layer.  LayerNorm normalises the last axis with the Keras
-epsilon (1e-3).  BatchNorm is still to come.
+epsilon (1e-3); BatchNorm keeps Keras' epsilon and momentum too, with
+its running moments as buffers.
+
+Every ``create`` builds on ``device``, by default the CUDA card (it
+raises where there is none: pass ``device="cpu"`` for the CPU).  The
+initial weights are drawn on the generator's own device and moved.
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vaemolsim_tpu_torch.config import default_device
+
 Tensor = torch.Tensor
 
-__all__ = ["Dense", "MLP", "MADE", "LayerNorm", "resolve_activation",
+__all__ = ["Dense", "MLP", "MADE", "LayerNorm", "BatchNorm",
+           "resolve_activation",
            "glorot_uniform", "truncated_normal_init", "set_compute_dtype",
            "compute_dtype"]
 
@@ -71,10 +79,12 @@ def resolve_activation(name) -> Callable[[Tensor], Tensor]:
 
 def glorot_uniform(generator: torch.Generator, shape: Tuple[int, int],
                    device=None, dtype=torch.float32) -> Tensor:
-    """Keras-default Glorot/Xavier uniform."""
+    """Keras-default Glorot/Xavier uniform, drawn on the generator's
+    device and placed on ``device``."""
     limit = math.sqrt(6.0 / (shape[0] + shape[1]))
-    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
-    return (2.0 * u - 1.0) * limit
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=dtype)
+    return ((2.0 * u - 1.0) * limit).to(device)
 
 
 def truncated_normal_init(generator: torch.Generator,
@@ -82,12 +92,14 @@ def truncated_normal_init(generator: torch.Generator,
                           dtype=torch.float32, stddev: float = 0.05
                           ) -> Tensor:
     """Keras-default TruncatedNormal: stddev * N(0, 1) cut to [-2, 2],
-    drawn by inverting the normal CDF on the kept interval."""
+    drawn by inverting the normal CDF on the kept interval, on the
+    generator's device, and placed on ``device``."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=dtype)
     p = lo + u * (1.0 - 2.0 * lo)
     z = math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)
-    return stddev * z.clamp(-2.0, 2.0)
+    return (stddev * z.clamp(-2.0, 2.0)).to(device)
 
 
 _INITIALIZERS = {
@@ -120,6 +132,7 @@ class Dense(nn.Module):
     def create(cls, generator: torch.Generator, in_dim: int, out_dim: int,
                activation: Optional[str] = None,
                kernel_initializer="glorot_uniform", device=None) -> "Dense":
+        device = default_device(device)
         init = resolve_initializer(kernel_initializer)
         return cls(init(generator, (in_dim, out_dim), device=device),
                    torch.zeros(out_dim, device=device), activation)
@@ -154,6 +167,7 @@ class LayerNorm(nn.Module):
 
     @classmethod
     def create(cls, dim: int, device=None) -> "LayerNorm":
+        device = default_device(device)
         return cls(torch.ones(dim, device=device),
                    torch.zeros(dim, device=device))
 
@@ -161,6 +175,67 @@ class LayerNorm(nn.Module):
         m = x.mean(-1, keepdim=True)
         v = ((x - m) ** 2).mean(-1, keepdim=True)
         return (x - m) * torch.rsqrt(v + self.eps) * self.scale + self.offset
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over the last axis, as the JAX package's (the
+    Keras layer): ``eps = 1e-3``, running moments updated as
+    ``new = momentum * old + (1 - momentum) * batch`` with momentum 0.99
+    and the biased batch variance (``jnp.var``).  ``forward(x, train)``
+    normalises by the batch moments when ``train`` and by the running
+    ones otherwise, and never updates them; ``call_and_update`` also
+    updates them in place (the JAX package returns an updated layer).
+    The running moments are buffers, so no optimizer moves them.
+    ``torch.nn.BatchNorm1d`` would differ in its epsilon (1e-5), its
+    momentum convention (0.1 of the batch), its unbiased running
+    variance and its update on every training forward."""
+
+    def __init__(self, mean: Tensor, var: Tensor, scale: Tensor,
+                 offset: Tensor, momentum: float = 0.99, eps: float = 1e-3):
+        super().__init__()
+        self.register_buffer("mean", torch.as_tensor(mean,
+                                                     dtype=torch.float32))
+        self.register_buffer("var", torch.as_tensor(var,
+                                                    dtype=torch.float32))
+        self.scale = _param(scale)
+        self.offset = _param(offset)
+        self.momentum = float(momentum)
+        self.eps = float(eps)
+
+    @classmethod
+    def create(cls, dim: int, momentum: float = 0.99,
+               device=None) -> "BatchNorm":
+        device = default_device(device)
+        return cls(torch.zeros(dim, device=device),
+                   torch.ones(dim, device=device),
+                   torch.ones(dim, device=device),
+                   torch.zeros(dim, device=device), momentum)
+
+    def _norm(self, x: Tensor, m: Tensor, v: Tensor) -> Tensor:
+        return (x - m) * torch.rsqrt(v + self.eps) * self.scale + self.offset
+
+    @staticmethod
+    def _moments(x: Tensor):
+        axes = tuple(range(x.dim() - 1))
+        m = x.mean(axes)
+        return m, ((x - m) ** 2).mean(axes)
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        if train:
+            return self._norm(x, *self._moments(x))
+        return self._norm(x, self.mean, self.var)
+
+    def call_and_update(self, x: Tensor, train: bool = False):
+        """``(out, self)``; with ``train`` the running moments take one
+        EMA step toward the batch's, in place."""
+        if not train:
+            return self(x, False), self
+        m, v = self._moments(x)
+        with torch.no_grad():
+            mom = self.momentum
+            self.mean.mul_(mom).add_(m.detach(), alpha=1.0 - mom)
+            self.var.mul_(mom).add_(v.detach(), alpha=1.0 - mom)
+        return self._norm(x, m, v), self
 
 
 class MLP(nn.Module):
@@ -175,6 +250,7 @@ class MLP(nn.Module):
                hidden_dims: Sequence[int], out_dim: int,
                activation: str = "relu", kernel_initializer="glorot_uniform",
                device=None) -> "MLP":
+        device = default_device(device)
         dims = [in_dim] + list(hidden_dims) + [out_dim]
         return cls([Dense.create(generator, a, b,
                                  activation if i < len(dims) - 2 else None,
@@ -267,6 +343,7 @@ class MADE(nn.Module):
                conditional_event_size: Optional[int] = None,
                activation: str = "tanh",
                kernel_initializer="truncated_normal", device=None) -> "MADE":
+        device = default_device(device)
         degrees_in = _resolve_input_order(input_order, event_size)
         dims = [event_size] + list(hidden_units) + [event_size
                                                     * params_per_dim]

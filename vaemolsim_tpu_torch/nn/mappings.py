@@ -1,23 +1,27 @@
 """Coordinate mappings and encoder/decoder trunks (port of
 ``vaemolsim_tpu/nn/mappings.py``).
 
-Ported so far: FCDeepNN and DistanceSelection.  CGCentroid and
-CGCenterOfMass are still to come.
+FCDeepNN (with its batch-norm variant), the FG -> CG maps CGCentroid
+and CGCenterOfMass, and DistanceSelection.  The CG maps hold a constant
+row-normalised aggregation matrix (a buffer: it takes no gradient and
+no optimizer step) and apply it with one ``torch.einsum``; the JAX
+package computes them outside any Pallas kernel too.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from vaemolsim_tpu_torch.nn.core import Dense
+from vaemolsim_tpu_torch.config import default_device
+from vaemolsim_tpu_torch.nn.core import BatchNorm, Dense
 
 Tensor = torch.Tensor
 
-__all__ = ["FCDeepNN", "DistanceSelection"]
+__all__ = ["FCDeepNN", "CGCentroid", "CGCenterOfMass", "DistanceSelection"]
 
 
 class FCDeepNN(nn.Module):
@@ -25,22 +29,31 @@ class FCDeepNN(nn.Module):
     the event axes, expand periodic DOFs to (cos, sin) pairs placed after
     the non-periodic ones, a Dense stack with a hidden activation, then a
     linear head of ``prod(target_shape)`` units reshaped to
-    ``target_shape``.  The trunk and head run as one
-    ``fused_dense_stack`` (the dense-stack kernel on CUDA).
+    ``target_shape``.  Without batch norm the trunk and head run as one
+    ``fused_dense_stack`` (the dense-stack kernel on CUDA).  With it,
+    a :class:`BatchNorm` follows each hidden layer and the trunk runs
+    layer by layer, as the JAX package's does (no dense-stack kernel):
+    ``forward(x, train)`` normalises by batch moments when ``train`` and
+    never updates them; ``call_and_update`` also takes one EMA step of
+    each layer's running moments, in place.
 
-    ``periodic_mask`` is a per-DOF mask over the flattened input.  The
-    batch-norm variant is still to come."""
+    ``periodic_mask`` is a per-DOF mask over the flattened input."""
 
     def __init__(self, layers: Sequence[Dense], head: Dense, event_ndims: int,
                  target_shape: Tuple[int, ...],
-                 periodic_mask: Tuple[bool, ...]):
+                 periodic_mask: Tuple[bool, ...],
+                 bns: Sequence[BatchNorm] = ()):
         super().__init__()
         self.layers = nn.ModuleList(layers)
+        self.bns = nn.ModuleList(bns)
         self.head = head
         self.event_ndims = event_ndims
         self.target_shape = tuple(target_shape)
         self.periodic_mask = tuple(bool(b) for b in periodic_mask)
-        self.batch_norm = False
+        self.batch_norm = bool(bns)
+        if self.batch_norm and len(bns) != len(layers):
+            raise ValueError(f"{len(bns)} batch norms for {len(layers)} "
+                             "hidden layers")
 
     @classmethod
     def create(cls, generator: torch.Generator,
@@ -51,9 +64,7 @@ class FCDeepNN(nn.Module):
                batch_norm: bool = False, activation: str = "relu",
                kernel_initializer="glorot_uniform",
                device=None) -> "FCDeepNN":
-        if batch_norm:
-            raise NotImplementedError(
-                "FCDeepNN(batch_norm=True) is not ported yet")
+        device = default_device(device)
         event_shape = ((input_shape,) if isinstance(input_shape, int)
                        else tuple(input_shape))
         tgt = ((target_shape,) if isinstance(target_shape, int)
@@ -75,7 +86,9 @@ class FCDeepNN(nn.Module):
                   for i in range(len(hidden))]
         head = Dense.create(generator, dims[-1], int(np.prod(tgt)), None,
                             kernel_initializer, device)
-        return cls(layers, head, len(event_shape), tgt, mask)
+        bns = ([BatchNorm.create(h, device=device) for h in hidden]
+               if batch_norm else ())
+        return cls(layers, head, len(event_shape), tgt, mask, bns)
 
     def _expand_periodic(self, flat: Tensor) -> Tensor:
         if not any(self.periodic_mask):
@@ -86,15 +99,90 @@ class FCDeepNN(nn.Module):
         parts = [flat[..., np_idx]] if np_idx else []
         return torch.cat(parts + [torch.cos(p), torch.sin(p)], -1)
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def _trunk(self, x: Tensor, train: bool, update: bool) -> Tensor:
         from vaemolsim_tpu_torch.ops.fused_mlp import fused_dense_stack
         batch = x.shape[:x.dim() - self.event_ndims]
         h = self._expand_periodic(x.reshape(batch + (-1,)))
-        out = fused_dense_stack(
-            h, [l.kernel for l in self.layers] + [self.head.kernel],
-            [l.bias for l in self.layers] + [self.head.bias],
-            [l.activation for l in self.layers] + [None])
-        return out.reshape(batch + self.target_shape)
+        if not self.batch_norm:
+            out = fused_dense_stack(
+                h, [l.kernel for l in self.layers] + [self.head.kernel],
+                [l.bias for l in self.layers] + [self.head.bias],
+                [l.activation for l in self.layers] + [None])
+            return out.reshape(batch + self.target_shape)
+        for layer, bn in zip(self.layers, self.bns):
+            h = layer(h)
+            h = bn.call_and_update(h, train)[0] if update else bn(h, train)
+        return self.head(h).reshape(batch + self.target_shape)
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        return self._trunk(x, train, update=False)
+
+    def call_and_update(self, x: Tensor, train: bool = False):
+        """``(out, self)``, the batch norms' running moments updated in
+        place when ``train``."""
+        return self._trunk(x, train, update=True), self
+
+
+def _aggregation_matrix(res_atom_nums: Sequence[int],
+                        weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n_res, n_atoms) row-normalised aggregation matrix."""
+    n_atoms = int(np.sum(res_atom_nums))
+    A = np.zeros((len(res_atom_nums), n_atoms), dtype=np.float32)
+    start = 0
+    for r, n in enumerate(res_atom_nums):
+        w = (np.ones(n, dtype=np.float32) if weights is None
+             else np.asarray(weights[start:start + n], dtype=np.float32))
+        A[r, start:start + n] = w / w.sum()
+        start += n
+    return A
+
+
+class _CGMap(nn.Module):
+    """coords (..., n_atoms, 3) -> (..., n_res, 3) through a constant
+    aggregation matrix ``agg`` (n_res, n_atoms), a buffer."""
+
+    def __init__(self, agg: Tensor):
+        super().__init__()
+        self.register_buffer("agg", torch.as_tensor(agg,
+                                                    dtype=torch.float32))
+
+    def forward(self, coords: Tensor) -> Tensor:
+        return torch.einsum("ra,...ad->...rd", self.agg, coords)
+
+
+class CGCentroid(_CGMap):
+    """FG -> CG centroid map: the mean of each residue's atoms."""
+
+    @classmethod
+    def create(cls, res_atom_nums: Sequence[int],
+               device=None) -> "CGCentroid":
+        return cls(torch.as_tensor(_aggregation_matrix(res_atom_nums),
+                                   device=default_device(device)))
+
+
+class CGCenterOfMass(_CGMap):
+    """FG -> CG centre-of-mass map with per-atom masses: from a flat
+    ``masses`` array with ``res_atom_nums``, or (``from_residue_dict``) a
+    {residue name: per-atom masses} dict and a sequence of residue
+    names."""
+
+    @classmethod
+    def create(cls, res_atom_nums: Sequence[int], masses: Sequence[float],
+               device=None) -> "CGCenterOfMass":
+        return cls(torch.as_tensor(
+            _aggregation_matrix(res_atom_nums,
+                                np.asarray(masses, dtype=np.float32)),
+            device=default_device(device)))
+
+    @classmethod
+    def from_residue_dict(cls, res_masses: Dict[str, Sequence[float]],
+                          res_names: Sequence[str],
+                          device=None) -> "CGCenterOfMass":
+        nums = [len(res_masses[name]) for name in res_names]
+        flat = np.concatenate([np.asarray(res_masses[name],
+                                          dtype=np.float32)
+                               for name in res_names])
+        return cls.create(nums, flat, device)
 
 
 class DistanceSelection(nn.Module):
@@ -121,6 +209,7 @@ class DistanceSelection(nn.Module):
     @classmethod
     def create(cls, cutoff: float, max_included: int = 50, box_lengths=None,
                device=None) -> "DistanceSelection":
+        device = default_device(device)
         box = (None if box_lengths is None else
                torch.as_tensor(box_lengths, dtype=torch.float32,
                                device=device))

@@ -7,9 +7,11 @@ with TFP's shape rules: samples are ``sample_shape + batch_shape +
 event_shape``.  Randomness comes only from the ``torch.Generator``
 passed in, on the device of the distribution's parameters.
 
-Ported so far: Normal, Uniform, Deterministic, VonMises, Independent,
+Normal, Uniform, Deterministic, VonMises, Beta, Gamma, Independent,
 Categorical, MixtureSameFamily, Blockwise and TransformedDistribution.
-Beta and Gamma are still to come.
+Gamma samples through ``torch._standard_gamma`` (reparameterised: its
+gradient with respect to the concentration is the implicit one), and
+Beta from two of them.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 Tensor = torch.Tensor
 
 __all__ = ["Distribution", "Normal", "Uniform", "Deterministic", "VonMises",
-           "Independent", "Categorical", "MixtureSameFamily", "Blockwise",
+           "Beta", "Gamma", "Independent", "Categorical", "MixtureSameFamily", "Blockwise",
            "TransformedDistribution"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -267,6 +269,72 @@ class VonMises(Distribution):
 
     def mean(self):
         return self.loc.expand(self.batch_shape)
+
+
+def _standard_gamma(generator: torch.Generator, alpha: Tensor,
+                    shape: Tuple[int, ...]) -> Tensor:
+    return torch._standard_gamma(alpha.expand(shape).contiguous(),
+                                 generator=generator)
+
+
+class Beta(Distribution):
+    """Scalar Beta distribution on (0, 1); ``log_prob`` uses xlogy /
+    xlog1py, so x = 0 or 1 at a unit concentration gives the finite edge
+    density and not 0 * log 0 = NaN."""
+
+    def __init__(self, concentration1: Tensor, concentration0: Tensor):
+        self.concentration1 = concentration1
+        self.concentration0 = concentration0
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.concentration1.shape,
+                                            self.concentration0.shape))
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        a, b = self.concentration1, self.concentration0
+        norm = torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+        return (torch.special.xlogy(a - 1.0, x)
+                + torch.special.xlog1py(b - 1.0, -x) - norm)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        g1 = _standard_gamma(generator, self.concentration1, shape)
+        g0 = _standard_gamma(generator, self.concentration0, shape)
+        return g1 / (g1 + g0)
+
+    def mean(self):
+        return (self.concentration1 / (self.concentration1
+                                       + self.concentration0)
+                ).expand(self.batch_shape)
+
+
+class Gamma(Distribution):
+    """Scalar Gamma distribution (concentration, rate); ``log_prob``
+    uses xlogy, so a unit concentration at x = 0 gives log(rate), not
+    NaN."""
+
+    def __init__(self, concentration: Tensor, rate: Tensor):
+        self.concentration = concentration
+        self.rate = rate
+
+    @property
+    def batch_shape(self):
+        return tuple(torch.broadcast_shapes(self.concentration.shape,
+                                            self.rate.shape))
+
+    def log_prob(self, x: Tensor) -> Tensor:
+        a, r = self.concentration, self.rate
+        return (a * torch.log(r) + torch.special.xlogy(a - 1.0, x)
+                - r * x - torch.lgamma(a))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        return (_standard_gamma(generator, self.concentration, shape)
+                / self.rate)
+
+    def mean(self):
+        return (self.concentration / self.rate).expand(self.batch_shape)
 
 
 class Independent(Distribution):

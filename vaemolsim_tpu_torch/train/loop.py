@@ -7,23 +7,27 @@ The loss is a callable ``loss_fn(model, batch, generator) -> scalar |
 remainder, so every batch has the same shape.  ``data`` is a tensor or
 a tuple / list / dict of tensors sharing the leading (sample) axis.
 
-Ported so far: the host-driven, in-memory, single-device ``fit``.
-Sharded (``mesh``, ``process_local_data``) and streamed (callable
-``data``) training and ``fit_ensemble`` raise ``NotImplementedError``;
-ROADMAP.md lists them.
+``data`` may instead be a callable ``data(generator) -> iterable of
+batches``, a stream drawn anew each epoch.  ``fit_ensemble`` trains K
+models of one structure side by side on the same batches, each with its
+own optimizer and generator; it runs the K members one after another
+within each step (the JAX package ``vmap``s them into one program; a
+member-batched program is a ROADMAP.md item).  Sharded training
+(``mesh``, ``process_local_data``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["fit", "fit_ensemble", "make_train_step"]
+__all__ = ["fit", "fit_ensemble", "make_train_step", "stack_models",
+           "unstack_model"]
 
 # History keys that a loss's metrics may not overwrite (elbo_loss's own
 # "loss" metric duplicates the total).
@@ -126,15 +130,16 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
     after every step from the initial weights (a copy of ``model``);
     validation monitors the raw weights.
 
-    ``mesh``, ``process_local_data`` and a callable (streamed) ``data``
-    raise ``NotImplementedError``.
+    A callable ``data(generator)`` is a stream: each epoch iterates
+    over the batches it returns (``batch_size`` and ``shuffle`` are then
+    its own concern).  ``mesh`` and ``process_local_data`` raise
+    ``NotImplementedError``.
     """
     if mesh is not None:
         raise _not_ported("fit(mesh=...), sharded training")
     if process_local_data:
         raise _not_ported("fit(process_local_data=True)")
-    if callable(data):
-        raise _not_ported("fit on streamed (callable) data")
+    streamed = callable(data)
     if ema_decay is not None and not (0.0 <= ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in [0, 1); got {ema_decay}")
     params = [p for p in model.parameters() if p.requires_grad]
@@ -142,9 +147,10 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
         ps, lr=learning_rate)))(params)
     step = make_train_step(loss_fn, optimizer)
 
-    n = _num_samples(data)
-    batch_size = min(batch_size or n, n)
-    n_batches = max(n // batch_size, 1)
+    if not streamed:
+        n = _num_samples(data)
+        batch_size = min(batch_size or n, n)
+        n_batches = max(n // batch_size, 1)
     device = generator.device
 
     eval_seed = None
@@ -168,12 +174,11 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
     epochs_without_improvement = 0
     for epoch in range(num_epochs):
         t0 = time.perf_counter()
-        order = (torch.randperm(n, generator=generator, device=device)
-                 if shuffle else torch.arange(n, device=device))
         losses: List[Tensor] = []
         metrics: Dict[str, List[Tensor]] = {}
-        for b in range(n_batches):
-            batch = _take(data, order[b * batch_size:(b + 1) * batch_size])
+        for batch in (data(generator) if streamed
+                      else _batches(data, n, batch_size, n_batches, shuffle,
+                                    generator)):
             loss, step_metrics = step(model, batch, generator)
             if ema is not None:
                 with torch.no_grad():
@@ -184,6 +189,8 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
                 if name not in _RESERVED:
                     metrics.setdefault(name, []).append(
                         torch.as_tensor(v, device=loss.device))
+        if not losses:
+            raise ValueError("data stream yielded no batches")
         means = torch.stack([torch.stack(losses).float().mean()]
                             + [torch.stack(v).float().mean()
                                for v in metrics.values()]).tolist()
@@ -222,7 +229,81 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
     return model, history
 
 
-def fit_ensemble(*args, **kwargs):
-    """Training K models at once (``vmap`` over stacked models in the JAX
-    package) is not ported yet."""
-    raise _not_ported("fit_ensemble")
+def _batches(data, n: int, batch_size: int, n_batches: int, shuffle: bool,
+             generator: torch.Generator):
+    """One epoch's batches: a permutation drawn from ``generator`` (or
+    the identity), cut into ``n_batches`` of ``batch_size``."""
+    order = (torch.randperm(n, generator=generator, device=generator.device)
+             if shuffle else torch.arange(n, device=generator.device))
+    for b in range(n_batches):
+        yield _take(data, order[b * batch_size:(b + 1) * batch_size])
+
+
+def stack_models(models: Sequence[torch.nn.Module]) -> torch.nn.ModuleList:
+    """K models of one structure as one ensemble, the input of
+    :func:`fit_ensemble` (a ModuleList of the members themselves; the
+    JAX package stacks their leaves along a new leading axis)."""
+    return torch.nn.ModuleList(models)
+
+
+def unstack_model(stack: Sequence[torch.nn.Module],
+                  i: int) -> torch.nn.Module:
+    """Ensemble member ``i``."""
+    return stack[i]
+
+
+def fit_ensemble(model_stack: Sequence[torch.nn.Module], loss_fn: Callable,
+                 data: Any, *, generator: torch.Generator,
+                 num_epochs: int = 1,
+                 batch_size: Optional[int] = None,
+                 optimizer: Optional[Callable] = None,
+                 learning_rate: float = 1e-3,
+                 shuffle: bool = True
+                 ) -> Tuple[torch.nn.ModuleList, Dict[str, Any]]:
+    """Train the K members of ``model_stack`` (:func:`stack_models`)
+    side by side: every member sees the same shuffled batches, each has
+    its own optimizer (``optimizer`` is a factory, by default Adam at
+    ``learning_rate``) and its own generator, seeded from
+    ``generator``.  Returns the stack, trained in place, and a history
+    whose "loss" (and every metric) entries are per-epoch ``(K,)``
+    arrays.  Each step runs the members one after another."""
+    if callable(data):
+        raise ValueError(
+            "fit_ensemble needs in-memory data (every member takes the "
+            "same batches); materialize the stream or use fit() per "
+            "member")
+    stack = stack_models(list(model_stack))
+    device = generator.device
+    make_opt = optimizer or (lambda ps: torch.optim.Adam(ps,
+                                                         lr=learning_rate))
+    steps = [make_train_step(loss_fn, make_opt(
+        [p for p in m.parameters() if p.requires_grad])) for m in stack]
+    seeds = torch.randint(2 ** 62, (len(stack),), generator=generator,
+                          device=device).tolist()
+    member_gens = [torch.Generator(device=device).manual_seed(s)
+                   for s in seeds]
+    n = _num_samples(data)
+    batch_size = min(batch_size or n, n)
+    n_batches = max(n // batch_size, 1)
+    history: Dict[str, Any] = {"loss": [], "epoch_time_s": []}
+    for _ in range(num_epochs):
+        t0 = time.perf_counter()
+        losses: List[Tensor] = []
+        metrics: Dict[str, List[Tensor]] = {}
+        for batch in _batches(data, n, batch_size, n_batches, shuffle,
+                              generator):
+            outs = [step(m, batch, g)
+                    for step, m, g in zip(steps, stack, member_gens)]
+            losses.append(torch.stack([o[0] for o in outs]))
+            for name in outs[0][1]:
+                if name not in _RESERVED:
+                    metrics.setdefault(name, []).append(torch.stack([
+                        torch.as_tensor(o[1][name], device=device)
+                        for o in outs]))
+        history["loss"].append(
+            torch.stack(losses).float().mean(0).cpu().numpy())
+        history["epoch_time_s"].append(time.perf_counter() - t0)
+        for name, v in metrics.items():
+            history.setdefault(name, []).append(
+                torch.stack(v).float().mean(0).cpu().numpy())
+    return stack, history
