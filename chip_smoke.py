@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD,
-sampling-stack paths and the rest of the reference library's surface on
-one NVIDIA GPU.
+sampling-stack paths, the rest of the reference library's surface and
+joint backmapping with its tools on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -99,10 +99,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (training, ``predict`` and ``log_prob`` at 10k sites, rotation
    invariance); then kernel 2 at that decoder's MADE (3 -> 24 -> 24) and
    kernel 3 at the batch-norm flow's middle block, against their plain
-   versions.
+   versions;
+10. runs slice 10: examples/06 at --full (a DCD written and read back
+   with the native reader, BAT, a 3-block periodic MAF over a von Mises
+   base through ``fit`` on kernels 3 and 2, 500 generated frames through
+   NeRF to DCD; the BAT round trip, the NLL and the trans population
+   checked, kernel 3 at that shape); examples/16 at --full (a
+   ``JointBackmapping`` with SchNet embeddings against its prefix-zeroed
+   ablation, 512 sampled systems, the example's own asserts; then the
+   attention embedding on kernels 5 and 2 against a CPU copy, kernel 5
+   at B = 24 000, N = 4); bench.py:736's SchNet MD (256 x 32 atoms,
+   BAOAB, the energy-force loss's gradients against a CPU copy); the
+   notebook's backmapping model with ``attention="two_stage"``;
+   ``run_mcmc_checkpointed`` at 50k chains, fused and generic, resumed
+   bit for bit; the 8-D MAF under ``set_compute_dtype(torch.bfloat16)``
+   (kernel 3's bf16 mode against its plain version and against its
+   float32 mode's time, MLE steps, sampling); and the shapes whose
+   one-launch plan the kernels refuse (split launches, the dense stack's
+   wide regime, the counted plain attention route) with kernel 1's
+   log-det outliers against float64.
 
 Every path runs with the launch counters zeroed just before it and read
-just after.  Any failed check raises and the script exits non-zero;
+just after, and fails if it took a shape-decided plain route (the
+kernels' ``plain_routes``).  Any failed check raises and the script
+exits non-zero;
 there is no CPU fallback.  The last stdout lines are the card's name and
 power limit, one JSON line of per-kernel results, and
 ``{"ok": true, "device": {...}}``.  The full results also go to
@@ -114,14 +134,16 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from vaemolsim_tpu_torch import _build
+from vaemolsim_tpu_torch import _build, coords, data
 from vaemolsim_tpu_torch.config import (DistLayerConfig, ExperimentConfig,
                                         FlowedDistConfig, FlowModelConfig,
                                         MAFConfig, MappingToDistConfig,
@@ -129,9 +151,12 @@ from vaemolsim_tpu_torch.config import (DistLayerConfig, ExperimentConfig,
                                         RegularizerConfig, RQSParams,
                                         backmapping_experiment_config,
                                         flagship_experiment_config)
-from vaemolsim_tpu_torch.dists import (StaticFlowedDistribution,
+from vaemolsim_tpu_torch.dists import (FlowedDistribution,
+                                       IndependentBlockwise,
+                                       JointBackmapping,
+                                       StaticFlowedDistribution,
                                        register_von_mises_mixture)
-from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
+from vaemolsim_tpu_torch.flows import RQSSplineMAF, RQSSplineRealNVP
 from vaemolsim_tpu_torch.flows.spline_flows import (CouplingLayer, MAFLayer,
                                                     MaskedSplineConditioner,
                                                     _bin_positions, _slopes)
@@ -139,12 +164,16 @@ from vaemolsim_tpu_torch.mcmc import (
     MCMCState, STState, ais, bar_free_energy, cycle_moves, exp_free_energy,
     make_fused_vae_step, make_hmc_step, make_mala_step, make_mcmc_step,
     make_random_walk_step, make_st_step, mbar_from_samples,
-    potential_scale_reduction, run_mcmc, run_st, targeted_bar,
+    potential_scale_reduction, run_mcmc, run_mcmc_checkpointed, run_st,
+    targeted_bar,
     targeted_work_values, tfep_loss, tune_scale, vae_proposal_fns,
     work_values)
 from vaemolsim_tpu_torch.mcmc import fused as mf
 from vaemolsim_tpu_torch import md, potentials
 from vaemolsim_tpu_torch.models import FlowModel, VAEDualELBO
+from vaemolsim_tpu_torch.nn import (FCDeepNN, SchNetPotential,
+                                    VectorAttentionTwoStage,
+                                    energy_force_loss, set_compute_dtype)
 from vaemolsim_tpu_torch.nn.attention import VectorAttention
 from vaemolsim_tpu_torch.ops import attention as pa
 from vaemolsim_tpu_torch.ops import bijectors as bj
@@ -155,7 +184,8 @@ from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
                                                dense_stack_plain,
                                                stack_regime)
-from vaemolsim_tpu_torch.train import (fit, fit_ensemble, make_train_step,
+from vaemolsim_tpu_torch.train import (CheckpointManager, fit, fit_ensemble,
+                                       make_train_step,
                                        restore_checkpoint, save_checkpoint,
                                        stack_models, unstack_model)
 
@@ -168,6 +198,8 @@ BM_PARTICLES, PA_FRAMES = 30, 2_000
 PA_MAIN = f"row notebook path N=10 H=40 Fo=20 B={PA_FRAMES}"
 # (N, H, B): compute-dense, ragged, and wider than the rows regime takes.
 PA_DENSE, PA_RAGGED, PA_WIDE = (50, 64, 1000), (37, 40, 300), (12, 300, 64)
+# A frame beyond the rows and grid regimes' shared memory: the stream regime.
+PA_STREAM = (100, 40, 2000)
 # Molecular MD: the production molecular stack (bench.py:631) and the
 # LJ liquid (bench.py:559), N atoms each, BAOAB with a neighbour-list
 # rebuild every MD_REBUILD steps.
@@ -195,9 +227,21 @@ HVAE_N = 50_000
 BN_STEPS, CKPT_STEPS = 20, 5
 ENS_K, ENS_TRAIN, ENS_VAL, ENS_BATCH, ENS_EPOCHS = 8, 50_000, 10_000, 1024, 3
 ENS_NLL_GAP = 0.1
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# Slice 10: examples 06 and 16 at --full (WF_*, JB_*), the ML-potential MD
+# of bench.py:736 (MLP_*), the two-stage backmapping model's fit
+# (TS_FIT_STEPS), the checkpointed MC (CK_*) and the bf16 MAF (BF_STEPS).
+WF_FRAMES, WF_ATOMS, WF_EPOCHS, WF_BATCH, WF_GEN = 4000, 8, 40, 256, 500
+JB_SYSTEMS, JB_R, JB_D, JB_STEPS, JB_SAMPLES = 4000, 6, 2, 600, 512
+JB_COUPLE = 0.7
+MLP_REPLICAS, MLP_ATOMS, MLP_STEPS, MLP_RHO = 256, 32, 100, 0.6
+MLP_FEATURES, MLP_BLOCKS, MLP_RBF, MLP_CUTOFF, MLP_DT = 64, 3, 32, 2.5, 0.002
+TS_FIT_STEPS = 15
+CK_CHAINS, CK_STEPS, CK_EVERY = 50_000, 200, 50
+BF_STEPS = 20
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores, and dense bfloat16 FLOP/s on the tensor cores
+# (bfloat16 operands, float32 sums).
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # The H100 SXM's boost SM clock, to turn a spin time into cycles.
 SM_HZ = 1.98e9
 RESULTS = {"checks": [], "mc": [], "train": [], "sampling": []}
@@ -676,55 +720,59 @@ def check_pair_attention(bm, gen, dev):
                   random_mask(PA_FRAMES, 10), False))
     for label, (N, H, B), timed_case in (("dense", PA_DENSE, True),
                                          ("ragged", PA_RAGGED, True),
-                                         ("wide", PA_WIDE, False)):
+                                         ("wide", PA_WIDE, False),
+                                         ("stream", PA_STREAM, True)):
         attn, c, v, m = fresh(N, H, B)
         cases.append((f"{label} N={N} H={H} Fo=20 B={B}", (attn, attn),
                       c, v, m, timed_case))
     for shape, (row_attn, red_attn), c, v, m, timed_case in cases:
         for reduce in (False, True):
             base = red_attn if reduce else row_attn
-            attn = VectorAttention(base.score_net, base.value_net, reduce)
-            (c_, *nodes, mf, weights), kw = attn.pair_args(c, v, m)
-            args = (c_, *nodes, mf, *weights)
-            got = pa.pair_attention_cuda(*args, **kw)
-            want = pa.pair_attention_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = compare(f"pair_attention {shape} reduce={reduce}", got,
-                          want, 1e-5, 1e-5)
-            empty = (m.sum(-1) == 0) if reduce else (m == 0)
-            if bool(empty.any()):
-                fail_unless(float(got[empty].abs().max()) == 0.0,
-                            f"pair_attention {shape}: masked outputs not "
-                            "exactly zero")
-            ms = plain_ms = None
-            extra = {}
-            if timed_case:
-                ms = timed(lambda: pa.pair_attention_cuda(*args, **kw))
-                plain_ms = timed(lambda: pa.pair_attention_plain(*args, **kw))
-                _, extra["device_us"] = device_us(
-                    lambda: pa.pair_attention_cuda(*args, **kw),
-                    "pair_attention_kernel")
-                extra["plain_device_us"], _ = device_us(
-                    lambda: pa.pair_attention_plain(*args, **kw), "")
-                B, N = m.shape
-                nbytes, ops, per_pair_ops = pair_attention_work(
-                    B, N, nodes[0].shape[-1], got.shape[-1], m, reduce)
-                extra["bound_us"], by = _bound(nbytes, ops)
-                extra["per_pair_head_bound_us"], _ = _bound(nbytes,
-                                                            per_pair_ops)
-                plan = pa.kernel_plan(B, N, nodes[0].shape[-1],
-                                      got.shape[-1])
-                lanes = ("" if plan["regime"] == "grid" else
-                         f"{plan['lanes']} lanes x {plan['units']} units, ")
-                extra["plan"] = (f"{plan['regime']}: {lanes}"
-                                 f"{plan['frames']} frames a block, "
-                                 f"{plan['blocks']} blocks, "
-                                 f"{plan['smem']} B shared")
-                RESULTS.setdefault("pair_attention_bound_by", {})[
-                    f"{'reduce' if reduce else 'row'} {shape}"] = by
-            record("pair_attention",
-                   f"{'reduce' if reduce else 'row'} {shape}", err, ms,
-                   plain_ms, **extra)
+            pair_attention_case(shape, base, c, v, m, reduce, timed_case)
+
+
+def pair_attention_case(shape, base, c, v, m, reduce, timed_case):
+    """One case of check_pair_attention: the layer ``base``'s weights in
+    mode ``reduce`` on coordinates c, values v and float mask m; timed
+    with its plan and bound where ``timed_case``."""
+    attn = VectorAttention(base.score_net, base.value_net, reduce)
+    (c_, *nodes, mf, weights), kw = attn.pair_args(c, v, m)
+    args = (c_, *nodes, mf, *weights)
+    got = pa.pair_attention_cuda(*args, **kw)
+    want = pa.pair_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"pair_attention {shape} reduce={reduce}", got, want, 1e-5,
+                  1e-5)
+    empty = (m.sum(-1) == 0) if reduce else (m == 0)
+    if bool(empty.any()):
+        fail_unless(float(got[empty].abs().max()) == 0.0,
+                    f"pair_attention {shape}: masked outputs not exactly "
+                    "zero")
+    ms = plain_ms = None
+    extra = {}
+    if timed_case:
+        ms = timed(lambda: pa.pair_attention_cuda(*args, **kw))
+        plain_ms = timed(lambda: pa.pair_attention_plain(*args, **kw))
+        _, extra["device_us"] = device_us(
+            lambda: pa.pair_attention_cuda(*args, **kw),
+            "pair_attention_kernel")
+        extra["plain_device_us"], _ = device_us(
+            lambda: pa.pair_attention_plain(*args, **kw), "")
+        B, N = m.shape
+        nbytes, ops, per_pair_ops = pair_attention_work(
+            B, N, nodes[0].shape[-1], got.shape[-1], m, reduce)
+        extra["bound_us"], by = _bound(nbytes, ops)
+        extra["per_pair_head_bound_us"], _ = _bound(nbytes, per_pair_ops)
+        plan = pa.kernel_plan(B, N, nodes[0].shape[-1], got.shape[-1])
+        lanes = ("" if plan["regime"] == "grid" else
+                 f"{plan['lanes']} lanes x {plan['units']} units, ")
+        extra["plan"] = (f"{plan['regime']}: {lanes}"
+                         f"{plan['frames']} frames a block, "
+                         f"{plan['blocks']} blocks, {plan['smem']} B shared")
+        RESULTS.setdefault("pair_attention_bound_by", {})[
+            f"{'reduce' if reduce else 'row'} {shape}"] = by
+    record("pair_attention", f"{'reduce' if reduce else 'row'} {shape}", err,
+           ms, plain_ms, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +838,7 @@ def run_path(name, step, dev):
         print(f"mc {name:8s} N={n:6d} {rate:14.1f} proposals/s  "
               f"({dt * 1e3 / TIMED_STEPS:.3f} ms/step)  acceptance "
               f"{acc:.4f}  E[x^2] {m2:.4f}{busy}", flush=True)
-    return _build.launch_counts()
+    return path_counts(name)
 
 
 def two_mode_data(dev):
@@ -831,7 +879,7 @@ def train_path(name, model, loss_fn, data, dev, batch=TRAIN_BATCH,
     _build.reset_launches()
     _, hist = fit(model, loss_fn, data, generator=gen, num_epochs=epochs,
                   batch_size=batch, optimizer=adam)
-    counts = _build.launch_counts()
+    counts = path_counts(name)
     peak = torch.cuda.max_memory_allocated()
     losses = warm["loss"] + hist["loss"]
     fail_unless(all(math.isfinite(v) for v in losses),
@@ -936,16 +984,16 @@ def rows_off_knots(flow, y, context=None, min_share=0.99):
     return keep.to(y.device)
 
 
-def check_grads(name, model, loss_of, dev):
+def check_grads(name, model, loss_of, dev, atol=1e-4, rtol=1e-3):
     """Every parameter's gradient of loss_of(model) on the card (kernels
     forward, plain recompute backward) against a CPU copy's (plain
-    throughout): 1e-4 + 1e-3|g|, on rows away from the spline knots
-    (see knot_safe)."""
+    throughout): 1e-4 + 1e-3|g| by default, on rows away from the spline
+    knots (see knot_safe)."""
     cpu = copy.deepcopy(model).to("cpu")
     got = torch.autograd.grad(loss_of(model, dev), list(model.parameters()))
     want = torch.autograd.grad(loss_of(cpu, torch.device("cpu")),
                                list(cpu.parameters()))
-    err = max(compare(f"{name} gradient {i}", g.cpu(), w, 1e-4, 1e-3)
+    err = max(compare(f"{name} gradient {i}", g.cpu(), w, atol, rtol)
               for i, (g, w) in enumerate(zip(got, want)))
     print(f"gradients {name}: {len(got)} parameters, max abs err "
           f"{err:.3e}", flush=True)
@@ -1008,7 +1056,7 @@ def flow_path(flow, dev):
     _build.reset_launches()
     with torch.no_grad():
         samples = flow.predict(probe, sample_gen)
-    predict_counts = _build.launch_counts()
+    predict_counts = path_counts("flow_path")
     fail_unless(predict_counts["maf_block"] > 0,
                 f"flow sampling launch counts {predict_counts}")
     fail_unless(bool(torch.isfinite(samples).all())
@@ -1059,7 +1107,7 @@ def backmapping_path(dev):
             lp = bm.log_prob(ref, coords, info, tors)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = _build.launch_counts()
+        counts = path_counts("backmapping_path")
         predict_wall, prof = profiled(lambda: bm.predict(ref, coords, info,
                                                          gen))
         busy_us, pa_us = device_time(prof, "pair_attention_kernel")
@@ -1222,7 +1270,7 @@ def md_path(sys_, dev, seed):
     s = run(s.x, s.v, MD_TIMED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("md_path")
     peak = torch.cuda.max_memory_allocated()
 
     def chunk():
@@ -1588,7 +1636,7 @@ def realnvp_1d_path(dev):
     _build.reset_launches()
     with torch.no_grad():
         samples = model.predict(probe, gen)
-    sample_counts = _build.launch_counts()
+    sample_counts = path_counts("realnvp_1d_path")
     fail_unless(sample_counts["rqs"] > 0 and sample_counts["dense_stack"] > 0,
                 f"1-D RealNVP sampling launch counts {sample_counts}")
     fail_unless(bool(torch.isfinite(samples).all())
@@ -1650,7 +1698,7 @@ def statistics_path(vae, dev):
         st, traj = run_mcmc(step, st, STATS_STEPS, collect_every=50)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    counts = _build.launch_counts()
+    counts = path_counts("statistics_path")
     fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
                 f"statistics launch counts {counts}")
     x0 = st.configs[:, 0].double()
@@ -1703,7 +1751,7 @@ def molecular_hmc_path(dev):
     out, _ = run_mcmc(step, st, HMC_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    counts = _build.launch_counts()
+    counts = path_counts("molecular_hmc_path")
     acc = float(out.acceptance_rate)
     fail_unless(0.3 < acc <= 1.0, f"HMC acceptance {acc}")
     fail_unless(bool(torch.isfinite(out.configs).all()
@@ -1863,7 +1911,7 @@ def free_energy_example_40(dev):
             losses.append(loss.detach())
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("free_energy_example_40")
     fail_unless(counts["dense_stack"] > 0 and routes["per_element"] > 0,
                 f"example 40 launch counts {counts}, kernel 1 routes "
                 f"{routes}")
@@ -1919,7 +1967,7 @@ def free_energy_path(dev):
     ex10 = free_energy_example_10(dev)
     torch.cuda.synchronize()
     row10 = sampling_row("free_energy_10", time.perf_counter() - t0, None,
-                         None, _build.launch_counts(), **ex10)
+                         None, path_counts("free_energy_path"), **ex10)
     flow, x_a, row40 = free_energy_example_40(dev)
     return row10, row40, flow, x_a
 
@@ -1939,7 +1987,7 @@ def remc_path(vae, dev):
     st = run_remc(step, st, REMC_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("remc_path")
     pairs = sum(len(range(i % 2, REMC_R - 1, 2)) for i in range(REMC_STEPS))
     fail_unless(int(st.num_swap_trials) == pairs * REMC_CHAINS,
                 f"REMC swap attempts {int(st.num_swap_trials)}, want "
@@ -1981,7 +2029,7 @@ def tempering_path(dev):
     st, _ = run_st(step, st, ST_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("tempering_path")
     g = np.linspace(-4.0, 4.0, 20_001)
     ln_z = [np.log(np.trapezoid(np.exp(b * _double_well(g[:, None])), g))
             for b in betas.double().cpu().numpy()]
@@ -2223,7 +2271,7 @@ def hvae_path(dev):
     _build.reset_launches()
     check_grads("hvae", vae, lambda m, d: bound_at(m, d, HVAE_LEAPFROG)[0],
                 dev)
-    grad_counts = _build.launch_counts()
+    grad_counts = path_counts("hvae_path")
     fail_unless(grad_counts["rqs"] > 0 and grad_counts["dense_stack"] > 0,
                 f"HVAE gradient check launch counts {grad_counts}")
     row.update(elbo_at_zero_leapfrog_abs_err=zero_err,
@@ -2296,7 +2344,7 @@ def flow_bn_path(dev):
     t0 = time.perf_counter()
     losses = bn_flow_steps(model, opt, gen, data, BN_STEPS)
     dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("flow_bn_path")
     fail_unless(counts["maf_block"] > 0,
                 f"batch-norm flow training launch counts {counts}")
     fail_unless(all(math.isfinite(v) for v in warm + losses)
@@ -2307,7 +2355,7 @@ def flow_bn_path(dev):
     with torch.no_grad():
         samples = model.predict(probe, sample_gen)
         stat_after = bn_stat_distance(flow, data[:TRAIN_BATCH])
-    predict_counts = _build.launch_counts()
+    predict_counts = path_counts("flow_bn_path 1")
     fail_unless(predict_counts["maf_block"] > 0,
                 f"batch-norm flow sampling launch counts {predict_counts}")
     fail_unless(bool(torch.isfinite(samples).all())
@@ -2394,7 +2442,7 @@ def ensemble_path(dev):
             learning_rate=3e-3)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    counts = path_counts("ensemble_path")
     fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
                 f"ensemble launch counts {counts}")
     steps = ENS_EPOCHS * (ENS_TRAIN // ENS_BATCH)
@@ -2474,7 +2522,7 @@ def backmapping_ar_path(dev):
             lp = bm.log_prob(ref, coords, info, tors)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = _build.launch_counts()
+        counts = path_counts("backmapping_ar_path")
         busy = busy_share(lambda: bm.predict(ref, coords, info, gen), 1)
         R = torch.tensor(np.linalg.qr(np.random.default_rng(48).normal(
             size=(3, 3)))[0], dtype=torch.float32, device=dev)
@@ -2551,12 +2599,860 @@ def check_slice9_kernels(made, bn_model, gen, dev):
 
 
 # ---------------------------------------------------------------------------
+# Slice 10: joint backmapping, SchNet, BAT/NeRF and trajectory I/O,
+# checkpointed MC, kernel 3's bf16 mode, and the refused-plan routes
+# ---------------------------------------------------------------------------
+
+
+def path_counts(name):
+    """The launch counts since the last reset, with each kernel's
+    named-mode launches as ``<kernel>_<mode>`` (the MAF block's bf16
+    mode: ``maf_block_bf16``); fails if a call of this main path took a
+    shape-decided plain route (``plain_routes``)."""
+    counts = _build.launch_counts()
+    for kname, k in _build.KERNELS.items():
+        for mode, n in k.mode_launches.items():
+            counts[f"{kname}_{mode}"] = n
+    plain = _build.plain_route_counts()
+    RESULTS.setdefault("plain_routes", {})[name] = plain
+    fail_unless(not any(plain.values()),
+                f"{name}: a main path took a plain route: {plain}")
+    return counts
+
+
+def maf_block_work(cond, n, bf16=False):
+    """(bytes, least float32 operations, least bfloat16 operations) of one
+    MAF-block call on n rows (the count of ``bounds``): rows, weights and
+    outputs once; the products the MADE masks leave (bfloat16 products
+    with ``bf16``, at the tensor cores' rate), the softmaxes and the
+    spline (float32)."""
+    D, H, K = (cond.w_net.event_size, cond.w_net.kernels[0].shape[1],
+               cond.num_bins)
+    head = H * D * (3 * K - 1)
+    nbytes = 4 * (n * (2 * D + 1) + D * 3 * H + 3 * H + head
+                  + D * (3 * K - 1))
+    masked = sum(int(m.sum()) for net in cond.nets for m in net.masks)
+    rest = n * D * (2 * 3 * K + spline_flops(K))
+    if bf16:
+        return nbytes, rest, 2 * n * masked
+    return nbytes, 2 * n * masked + rest, 0
+
+
+def check_maf_case(label, layer, y, compute_dtype=None, keep=None,
+                   allowed=1e-4):
+    """Kernel 3 on y (its layer's own weights) against its plain version
+    in the same mode, both directions, timed with its bound; rows outside
+    ``keep`` (near a knot) left out.  Tolerances as check_maf_block's."""
+    cond = layer.conditioner
+    params = [p.detach() for p in cond.merged_params() if p is not None]
+    D, K = cond.w_net.event_size, cond.num_bins
+    deg = cond.w_net.input_order_static
+    mode = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    out = {}
+    for inverse in (True, False):
+        args = (y, params, None, D, K, cond.bin_min, cond.bin_max, inverse)
+
+        def kernel():
+            return maf_fused.maf_block_cuda(*args, degrees=deg, **mode)
+
+        def plain():
+            return maf_fused.maf_block_plain(*args, **mode)
+
+        got, want = kernel(), plain()
+        sel = slice(None) if keep is None else keep
+        err = max(compare(f"maf_block {label} x", got[0][sel], want[0][sel],
+                          1e-4, 1e-4, allowed),
+                  compare(f"maf_block {label} ldj", got[1][sel],
+                          want[1][sel], 1e-3, 1e-4, allowed))
+        ms, plain_ms = timed(kernel), timed(plain)
+        b_us, b_by = _bound(*maf_block_work(cond, y.shape[0],
+                                            compute_dtype == torch.bfloat16))
+        direction = "inverse" if inverse else "forward"
+        record("maf_block", f"{direction} {label}", err, ms, plain_ms,
+               bound_us=b_us, bound_by=b_by)
+        out[direction] = (err, ms, plain_ms, b_us, b_by)
+    return out
+
+
+def wf_frames(dev):
+    """examples/06's stand-in MD data, made on the card: the 8-atom chain
+    with bonds 1.53 +- 0.03, angles 1.91 +- 0.05 and torsions trans (pi,
+    with probability 0.7) or gauche (pi / 3), spread 0.15, wrapped."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, A = WF_FRAMES, WF_ATOMS
+    bonds = 1.53 + 0.03 * torch.randn(n, A - 1, generator=g, device=dev)
+    angles = 1.91 + 0.05 * torch.randn(n, A - 2, generator=g, device=dev)
+    trans = torch.rand(n, A - 3, generator=g, device=dev) < 0.7
+    tors = (torch.where(trans, math.pi, math.pi / 3.0)
+            + 0.15 * torch.randn(n, A - 3, generator=g, device=dev))
+    tors = tors - 2 * math.pi * torch.round(tors / (2 * math.pi))
+    return coords.cartesian_from_bat(bonds, angles, tors,
+                                     coords.chain_zmatrix(A))
+
+
+def wrapped(d):
+    return (d + math.pi) % (2 * math.pi) - math.pi
+
+
+def molecular_workflow_path(dev):
+    """examples/06 at --full: WF_FRAMES frames of the 8-atom chain written
+    with ``write_dcd`` and read back with ``DCDReader``; BAT; a 3-block
+    periodic MAF (5 torsions, 16 bins, hidden 64, bins on [-pi, pi]) over
+    a von Mises base, its base parameters from a FlowModel mapping of a
+    constant input, through ``fit`` for WF_EPOCHS epochs at batch
+    WF_BATCH (kernels 3 and 2); ``predict`` WF_GEN torsions, NeRF back
+    to Cartesian frames, ``write_dcd`` and read back.  Checks: the
+    BAT -> Cartesian -> BAT round trip (1e-4), the final NLL (< 1.2),
+    the generated trans population (within 0.06 of the data's), the
+    files read back equal what was written; kernel 3 at this shape
+    against its plain version."""
+    z = coords.chain_zmatrix(WF_ATOMS)
+    frames = wf_frames(dev).cpu().numpy()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_wf_")
+    try:
+        path = os.path.join(workdir, "input.dcd")
+        data.write_dcd(path, frames)
+        reader = data.DCDReader(path)
+        read, _ = reader.read()
+        backend = reader.backend
+        reader.close()
+        fail_unless(np.array_equal(read, frames),
+                    "DCD read back differs from what was written")
+        print(f"workflow: read {read.shape[0]} frames x {read.shape[1]} "
+              f"atoms ({backend} backend)", flush=True)
+        x = torch.as_tensor(read, device=dev)
+        bonds, angles, tors = coords.bat_from_cartesian(x, z)
+        again = coords.bat_from_cartesian(
+            coords.cartesian_from_bat(bonds, angles, tors, z), z)
+        round_trip = max(float((again[0] - bonds).abs().max()),
+                         float((again[1] - angles).abs().max()),
+                         float(wrapped(again[2] - tors).abs().max()))
+        fail_unless(round_trip < 1e-4, f"BAT round trip error {round_trip}")
+        n_t = tors.shape[-1]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        flow = RQSSplineMAF.create(
+            gen, n_t, num_blocks=3,
+            rqs_params={"num_bins": 16, "hidden_dim": 64,
+                        "bin_range": [-math.pi, math.pi]}, device=dev)
+        model = FlowModel.create(
+            gen, FlowedDistribution(flow, IndependentBlockwise.create(
+                n_t, "von_mises")), input_shape=1,
+            mapping_kwargs={"hidden_dim": 16}, device=dev)
+
+        def loss_fn(m, batch, g):
+            return -m(torch.ones_like(batch[:, :1])).log_prob(batch).mean()
+
+        fit_gen = torch.Generator(device=dev).manual_seed(3)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _, hist = fit(model, loss_fn, tors, generator=fit_gen,
+                      num_epochs=WF_EPOCHS, batch_size=WF_BATCH,
+                      learning_rate=3e-3)
+        counts = path_counts("molecular_workflow_train")
+        fail_unless(counts["maf_block"] > 0 and counts["dense_stack"] > 0,
+                    f"workflow training launch counts {counts}")
+        per_epoch = WF_FRAMES // WF_BATCH
+        ms_step = 1e3 * sum(hist["epoch_time_s"]) / (WF_EPOCHS * per_epoch)
+        nll = hist["loss"]
+        fail_unless(all(math.isfinite(v) for v in nll) and nll[-1] < 1.2,
+                    f"workflow NLL {nll[0]} -> {nll[-1]} (wanted < 1.2)")
+        window_ms, busy_ms, idle = busy_share(lambda: fit(
+            model, loss_fn, tors, generator=fit_gen, num_epochs=1,
+            batch_size=WF_BATCH, learning_rate=3e-3), per_epoch)
+        ones = torch.ones(WF_GEN, 1, device=dev)
+        with torch.no_grad():
+            _build.reset_launches()
+            gen_tors = model.predict(ones, gen)
+            predict_counts = path_counts("molecular_workflow_predict")
+            fail_unless(predict_counts["maf_block"] > 0,
+                        f"workflow predict launch counts {predict_counts}")
+            predict_ms = timed(lambda: model.predict(ones, gen), reps=5)
+            gen_frames = coords.cartesian_from_bat(
+                bonds.mean(0).expand(WF_GEN, -1),
+                angles.mean(0).expand(WF_GEN, -1), gen_tors, z)
+        fail_unless(bool(torch.isfinite(gen_frames).all()),
+                    "generated frames not finite")
+        out_path = os.path.join(workdir, "generated.dcd")
+        data.write_dcd(out_path, gen_frames.cpu().numpy())
+        back = data.DCDReader(out_path)
+        fail_unless(back.n_frames == WF_GEN and np.array_equal(
+            back.read()[0], gen_frames.cpu().numpy()),
+            "generated DCD read back differs")
+        back.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    data_trans = float((tors.abs() > 2.0).float().mean())
+    gen_trans = float((gen_tors.abs() > 2.0).float().mean())
+    fail_unless(abs(gen_trans - data_trans) < 0.06,
+                f"trans population: data {data_trans}, generated "
+                f"{gen_trans}")
+    with torch.no_grad():
+        layer = flow.blocks[0]
+        y = tors[:WF_BATCH].contiguous()
+        keep = knot_safe([layer], y).to(dev)
+        check_maf_case(f"D={n_t} K=16 H=64 example 06 N={WF_BATCH}", layer,
+                       y, keep=keep)
+    row = {"path": "molecular_workflow", "frames": WF_FRAMES,
+           "dcd_backend": backend, "round_trip_max_abs_err": round_trip,
+           "nll": [nll[0], nll[-1]], "ms_per_step": ms_step,
+           "profiled_ms_per_step": window_ms, "device_busy_ms_per_step":
+           busy_ms, "device_idle_share": idle, "data_trans": data_trans,
+           "generated_trans": gen_trans, "predict_ms": predict_ms,
+           "launches": counts, "predict_launches": predict_counts}
+    RESULTS["molecular_workflow"] = row
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {window_ms:.3f} ms/step ({idle:.3f} idle)")
+    print(f"workflow: BAT round trip {round_trip:.3e}  NLL {nll[0]:.3f} -> "
+          f"{nll[-1]:.3f}  {ms_step:.3f} ms/step  device busy {busy}  "
+          f"trans data {data_trans:.3f} generated {gen_trans:.3f}  "
+          f"predict {WF_GEN} in {predict_ms:.3f} ms", flush=True)
+    return row
+
+
+def jb_systems(n, dev):
+    """examples/16's systems, made on the card: a noisy 6-residue helix of
+    CG sites with info t / R, and D = 2 torsions a residue whose mean
+    follows the distance to the next site and, with coupling JB_COUPLE,
+    the previous residue's torsions, wrapped to [-pi, pi]."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    R, D = JB_R, JB_D
+    t = torch.arange(R, dtype=torch.float32, device=dev)
+    helix = torch.stack([torch.cos(0.9 * t), torch.sin(0.9 * t), 0.4 * t], -1)
+    cg = helix + 0.25 * torch.randn(n, R, 3, generator=g, device=dev)
+    info = (t / R)[None, :, None].expand(n, R, 1).contiguous()
+    nbr = (cg[:, 1:] - cg[:, :-1]).norm(dim=-1)
+    nbr = torch.cat([nbr, nbr[:, -1:]], 1)
+    mu_geo = 1.5 * (nbr - nbr.mean())
+    prev, xs = torch.zeros(n, D, device=dev), []
+    for r in range(R):
+        x_r = (JB_COUPLE * prev.mean(-1, keepdim=True) + mu_geo[:, r:r + 1]
+               + 0.3 * torch.randn(n, D, generator=g, device=dev))
+        prev = x_r - 2 * math.pi * torch.round(x_r / (2 * math.pi))
+        xs.append(prev)
+    return cg, info, torch.stack(xs, 1)
+
+
+def adjacent_correlation(x):
+    m = x.mean(-1).double().cpu().numpy()
+    return float(np.corrcoef(m[:, :-1].ravel(), m[:, 1:].ravel())[0, 1])
+
+
+def jb_model(embedding, dev):
+    return JointBackmapping.create(
+        torch.Generator(device=dev).manual_seed(1), JB_D, 1,
+        IndependentBlockwise.create(JB_D, "von_mises"), embed_dim=12,
+        prefix_dim=8, cutoff=4.0, max_included=4, mapping_hidden=32,
+        embedding=embedding, device=dev)
+
+
+def jb_train(model, cg, info, x, steps, freeze_prefix=False):
+    """Adam 3e-3 on the NLL per DOF, full batch, as the example; with
+    ``freeze_prefix`` the residue encoder is zeroed and left out (the
+    independent-decoder ablation).  Returns (last step's loss, ms a
+    step)."""
+    if freeze_prefix:
+        with torch.no_grad():
+            for p in model.residue_encoder.parameters():
+                p.zero_()
+                p.requires_grad_(False)
+    opt = torch.optim.Adam([p for p in model.parameters()
+                            if p.requires_grad], lr=3e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = -model(cg, info).log_prob(x).mean() / (JB_R * JB_D)
+        loss.backward()
+        opt.step()
+        return loss
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = step()
+    loss = float(loss.detach())
+    return loss, 1e3 * (time.perf_counter() - t0) / steps, step
+
+
+def joint_backmapping_path(dev):
+    """examples/16 at --full: JB_SYSTEMS systems of JB_R residues, SchNet
+    embeddings (embed 12, prefix 8, cutoff 4, max_included 4, mapping
+    hidden 32), JB_STEPS Adam steps; the prefix-zeroed ablation; then
+    JB_SAMPLES sampled systems, with the example's own asserts (joint NLL
+    below the ablation's by 0.02; sampled adjacent-residue correlation
+    within 0.25 of the data's).  Then the same model with the attention
+    embedding: ``log_prob`` at the JB_SYSTEMS systems (kernel 5 on
+    JB_SYSTEMS x JB_R clouds of 4, kernel 2 in the mapping) against a CPU
+    copy, gradients against the CPU copy's, kernel 5 at this shape
+    against its plain version, and a timed step of each embedding."""
+    cg, info, x = jb_systems(JB_SYSTEMS, dev)
+    c_data = adjacent_correlation(x)
+    joint = jb_model("schnet", dev)
+    _build.reset_launches()
+    nll_joint, ms_joint, step = jb_train(joint, cg, info, x, JB_STEPS)
+    counts = path_counts("joint_backmapping_schnet_train")
+    window_ms, busy_ms, idle = busy_share(lambda: [step() for _ in range(3)],
+                                          3)
+    ablation = jb_model("schnet", dev)
+    nll_indep, _, _ = jb_train(ablation, cg, info, x, JB_STEPS,
+                               freeze_prefix=True)
+    with torch.no_grad():
+        samples = joint(cg[:JB_SAMPLES], info[:JB_SAMPLES]).sample(
+            torch.Generator(device=dev).manual_seed(2))
+    fail_unless(samples.shape == (JB_SAMPLES, JB_R, JB_D)
+                and bool(torch.isfinite(samples).all()),
+                "joint samples not finite or of the wrong shape")
+    c_model = adjacent_correlation(samples)
+    print(f"joint backmapping: NLL/DOF joint {nll_joint:.4f} independent "
+          f"{nll_indep:.4f} (advantage {nll_indep - nll_joint:.4f})  "
+          f"adjacent correlation sampled {c_model:.3f} data {c_data:.3f}  "
+          f"{ms_joint:.3f} ms/step", flush=True)
+    fail_unless(nll_joint < nll_indep - 0.02,
+                "the joint decoder must beat the ablation by 0.02 nats/DOF")
+    fail_unless(abs(c_model - c_data) < 0.25,
+                "sampling must reproduce the adjacent-residue coupling")
+
+    att = jb_model("attention", dev)
+    plan = pa.kernel_plan(JB_SYSTEMS * JB_R, 4, 40, 12)
+    fail_unless(plan["regime"] == "rows", f"kernel 5's plan {plan}")
+    with torch.no_grad():
+        _build.reset_launches()
+        lp = att(cg, info).log_prob(x)
+        att_counts = path_counts("joint_backmapping_attention_log_prob")
+        fail_unless(att_counts["pair_attention"] > 0
+                    and att_counts["dense_stack"] > 0,
+                    f"attention log_prob launch counts {att_counts}")
+        cpu = copy.deepcopy(att).to("cpu")
+        lp_cpu = cpu(cg.cpu(), info.cpu()).log_prob(x.cpu())
+    # A CG site within float32 roundoff of the cutoff or of a top-k tie
+    # may select otherwise on the two devices (1e-3 of systems allowed).
+    lp_err = compare("joint attention log_prob against a CPU copy", lp.cpu(),
+                     lp_cpu, 1e-4, 1e-4, 1e-3)
+    check_grads("joint attention", att, lambda m, d: -m(
+        cg.to(d), info.to(d)).log_prob(x.to(d)).mean(), dev)
+    _build.reset_launches()
+    _, ms_att, _ = jb_train(att, cg, info, x, 20)
+    att_train = path_counts("joint_backmapping_attention_train")
+    fail_unless(att_train["pair_attention"] > 0,
+                f"attention training launch counts {att_train}")
+    with torch.no_grad():
+        lpd = att.cg_embed
+        B, R = JB_SYSTEMS, JB_R
+        sel, valid, sel_info = lpd.select(
+            cg[:, None].expand(B, R, R, 3).reshape(B * R, R, 3),
+            cg.reshape(B * R, 3),
+            particle_info=info[:, None].expand(B, R, R, 1).reshape(
+                B * R, R, 1))
+        values = lpd.embed.info_net(sel_info)
+        shape = f"joint N={sel.shape[1]} H=40 Fo=12 B={B * R}"
+        pair_attention_case(shape, lpd.embed.blocks[0].attn, sel, values,
+                            valid.float(), False, True)
+        pair_attention_case(shape, lpd.embed.final_attn, sel, values,
+                            valid.float(), True, True)
+    row = {"path": "joint_backmapping", "systems": JB_SYSTEMS,
+           "nll_joint": nll_joint, "nll_independent": nll_indep,
+           "correlation_sampled": c_model, "correlation_data": c_data,
+           "ms_per_step_schnet": ms_joint, "ms_per_step_attention": ms_att,
+           "profiled_ms_per_step": window_ms,
+           "device_busy_ms_per_step": busy_ms, "device_idle_share": idle,
+           "attention_log_prob_max_abs_err": lp_err,
+           "launches": counts, "attention_launches": att_counts,
+           "attention_train_launches": att_train}
+    RESULTS["joint_backmapping"] = row
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {window_ms:.3f} ms/step ({idle:.3f} idle)")
+    print(f"joint backmapping: schnet step {ms_joint:.3f} ms (device busy "
+          f"{busy}), attention step {ms_att:.3f} ms, attention log_prob "
+          f"against CPU {lp_err:.3e}", flush=True)
+    return row
+
+
+def ml_potential_md_path(dev):
+    """bench.py:736's configuration: a SchNetPotential (features 64, 3
+    blocks, 32 RBFs, cutoff 2.5) over MLP_REPLICAS replicas of MLP_ATOMS
+    atoms at density MLP_RHO in a periodic box, MLP_STEPS BAOAB steps of
+    dt 0.002 after as many to equilibrate, forces by autograd; energies
+    finite; ``energy_force_loss`` and its gradients against a CPU copy;
+    replica-atom-steps/s and the idle share of a profiled window."""
+    n, L = MLP_ATOMS, float((MLP_ATOMS / MLP_RHO) ** (1.0 / 3.0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = SchNetPotential.create(gen, 1, features=MLP_FEATURES,
+                                   num_blocks=MLP_BLOCKS, n_rbf=MLP_RBF,
+                                   cutoff=MLP_CUTOFF, device=dev)
+    species = torch.ones(n, 1, device=dev)
+    box = torch.full((3,), L, device=dev)
+    pot = model.as_potential(species, box)
+    m = int(math.ceil(n ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:n] * (L / m)
+    x0 = (torch.tensor(grid, dtype=torch.float32, device=dev)[None]
+          + 0.05 * torch.randn(MLP_REPLICAS, n, 3, generator=gen,
+                               device=dev))
+    v0 = torch.randn(x0.shape, generator=gen, device=dev)
+    for p in model.parameters():
+        p.requires_grad_(False)
+
+    def run(x, v, steps):
+        return md.baoab(pot, x, v, gen, dt=MLP_DT, n_steps=steps,
+                        friction=1.0, kT=1.0)[0]
+
+    st = run(x0, v0, MLP_STEPS)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = run(st.x, st.v, MLP_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_counts("ml_potential_md")
+    with torch.no_grad():
+        e = pot(out.x)
+    fail_unless(bool(torch.isfinite(e).all() and torch.isfinite(out.x).all()),
+                "ML-potential MD: non-finite energies or positions")
+    kt = float((out.v ** 2).mean())
+    rate = MLP_REPLICAS * n * MLP_STEPS / seconds
+    window_ms, busy_ms, idle = busy_share(lambda: run(out.x, out.v, 10), 10)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    # Energy and force targets near the model's own, on 32 replicas.
+    xs = out.x[:32].detach()
+    targets = (e[:32].detach() + 0.1, 0.1 * torch.randn(
+        xs.shape, generator=gen, device=dev))
+    check_grads("schnet energy_force_loss", model, lambda mod, d: (
+        energy_force_loss(mod, xs.to(d), species.to(d), targets[0].to(d),
+                          targets[1].to(d), box=box.to(d), w_energy=0.1)),
+        dev)
+    row = sampling_row("ml_potential_md", seconds, rate,
+                       "replica-atom-steps/s", counts,
+                       (window_ms, busy_ms, idle),
+                       ms_per_step=1e3 * seconds / MLP_STEPS, kT=kt)
+    return row
+
+
+def two_stage_backmapping_path(dev):
+    """The notebook's backmapping model (``backmapping_experiment_config``)
+    with ``attention="two_stage"`` (plain PyTorch; the decoder on kernels 3
+    and 2): ``predict`` and ``log_prob`` of BM_SITES sites, rotation
+    invariance of ``log_prob``, and ``fit`` at batch BM_BATCH for one
+    epoch of BM_FRAMES frames, with its gradients against a CPU copy."""
+    cfg = backmapping_experiment_config()
+    cfg.model.embedding.attention = "two_stage"
+    bm = cfg.build(dev)
+    fail_unless(isinstance(bm.mask_and_embed.embed.final_attn,
+                           VectorAttentionTwoStage),
+                "attention='two_stage' did not build the two-stage layer")
+    ref, crd, info, tors = backmapping_frames(BM_SITES, 22, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    with torch.no_grad():
+        bm.predict(ref, crd, info, gen)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        samples = bm.predict(ref, crd, info, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lp = bm.log_prob(ref, crd, info, tors)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = path_counts("two_stage_backmapping_serve")
+        R = torch.tensor(np.linalg.qr(np.random.default_rng(24).normal(
+            size=(3, 3)))[0], dtype=torch.float32, device=dev)
+        lp_rot = bm.log_prob(ref @ R.T, crd @ R.T, info, tors)
+    fail_unless(counts["maf_block"] > 0 and counts["dense_stack"] > 0,
+                f"two-stage serving launch counts {counts}")
+    fail_unless(samples.shape == (BM_SITES, 3)
+                and bool(torch.isfinite(samples).all())
+                and bool((samples.abs() <= math.pi + 1e-5).all()),
+                "two-stage samples not finite or outside [-pi, pi]")
+    fail_unless(bool(torch.isfinite(lp).all()), "two-stage log_prob")
+    rot_err = compare("two-stage log_prob under rotation", lp_rot, lp, 1e-4,
+                      1e-4, 1e-3)
+    data_ = tuple(a[:BM_BATCH * TS_FIT_STEPS] for a in
+                  backmapping_frames(BM_FRAMES, 25, dev))
+    fit_gen = torch.Generator(device=dev).manual_seed(26)
+    _, warm = fit(bm, lambda m, b, g: -m.log_prob(*b).mean(), data_,
+                  generator=fit_gen, num_epochs=1, batch_size=BM_BATCH)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    _, hist = fit(bm, lambda m, b, g: -m.log_prob(*b).mean(), data_,
+                  generator=fit_gen, num_epochs=1, batch_size=BM_BATCH)
+    train_counts = path_counts("two_stage_backmapping_train")
+    ms_step = 1e3 * hist["epoch_time_s"][0] / TS_FIT_STEPS
+    fail_unless(math.isfinite(hist["loss"][0])
+                and hist["loss"][0] < warm["loss"][0],
+                f"two-stage loss {warm['loss']} -> {hist['loss']}")
+    window_ms, busy_ms, idle = busy_share(lambda: fit(
+        bm, lambda m, b, g: -m.log_prob(*b).mean(), data_, generator=fit_gen,
+        num_epochs=1, batch_size=BM_BATCH), TS_FIT_STEPS)
+    batch = tuple(a[:512] for a in data_)
+    with torch.no_grad():
+        ctx = bm.embed(*batch[:3])
+    keep = rows_off_knots(bm.decoder.dist.flow, batch[3], ctx, 0.95)
+    batch = tuple(a[keep] for a in batch)
+    check_grads("two-stage backmapping", bm, lambda m, d: -m.log_prob(
+        *(a.to(d) for a in batch)).mean(), dev)
+    row = {"path": "two_stage_backmapping", "sites": BM_SITES,
+           "predict_ms": 1e3 * (t1 - t0), "log_prob_ms": 1e3 * (t2 - t1),
+           "rotation_max_abs_err": rot_err, "ms_per_step": ms_step,
+           "profiled_ms_per_step": window_ms,
+           "device_busy_ms_per_step": busy_ms, "device_idle_share": idle,
+           "launches": counts, "train_launches": train_counts}
+    RESULTS["two_stage_backmapping"] = row
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {window_ms:.3f} ms/step ({idle:.3f} idle)")
+    print(f"two-stage backmapping: predict {BM_SITES} sites in "
+          f"{row['predict_ms']:.3f} ms, log_prob {row['log_prob_ms']:.3f} "
+          f"ms, rotation err {rot_err:.3e}, fit {ms_step:.3f} ms/step "
+          f"(device busy {busy})", flush=True)
+    return row
+
+
+def mcmc_checkpoint_path(vae, dev):
+    """The flagship's fused step (kernel 4) at CK_CHAINS chains for
+    CK_STEPS steps through ``run_mcmc_checkpointed``, a checkpoint every
+    CK_EVERY steps; then the same run stopped after CK_STEPS / 2 steps,
+    its state dropped, restored from the manager into a fresh template
+    and run to the end.  Configurations, energies, counters and the
+    generator's state must equal the uninterrupted run's bit for bit,
+    and the step ids continue (CK_EVERY, 2 CK_EVERY, ..., CK_STEPS).
+    The same once with the generic step (kernels 1 and 2)."""
+    rows = {}
+    for kind, step in (("fused", make_fused_vae_step(vae, log_target)),
+                       ("generic", make_mcmc_step(*vae_proposal_fns(vae),
+                                                  log_target))):
+        def fresh(seed=2):
+            x0 = torch.randn(CK_CHAINS, 2, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(1))
+            return MCMCState.create(x0, log_target(x0), torch.Generator(
+                device=dev).manual_seed(seed))
+
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole = run_mcmc_checkpointed(
+                step, fresh(), CK_STEPS, CK_EVERY,
+                CheckpointManager(os.path.join(workdir, "a")))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = path_counts(f"mcmc_checkpoint_{kind}")
+            manager = CheckpointManager(os.path.join(workdir, "b"),
+                                        max_to_keep=CK_STEPS // CK_EVERY)
+            run_mcmc_checkpointed(step, fresh(), CK_STEPS // 2, CK_EVERY,
+                                  manager)
+            resumed = manager.restore(MCMCState.create(
+                torch.zeros(CK_CHAINS, 2, device=dev),
+                torch.zeros(CK_CHAINS, device=dev),
+                torch.Generator(device=dev).manual_seed(99)))
+            resumed = run_mcmc_checkpointed(step, resumed,
+                                            CK_STEPS - CK_STEPS // 2,
+                                            CK_EVERY, manager)
+            steps = manager.all_steps()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        key = "vae_proposal" if kind == "fused" else "rqs"
+        fail_unless(counts[key] > 0, f"{kind} checkpointed launches {counts}")
+        same = (torch.equal(resumed.configs, whole.configs)
+                and torch.equal(resumed.energies, whole.energies)
+                and int(resumed.num_trials) == int(whole.num_trials)
+                and int(resumed.num_acc) == int(whole.num_acc)
+                and torch.equal(resumed.generator.get_state(),
+                                whole.generator.get_state()))
+        fail_unless(same, f"{kind}: the resumed run differs from the "
+                    "uninterrupted one")
+        want = list(range(CK_EVERY, CK_STEPS + 1, CK_EVERY))
+        fail_unless(steps == want, f"{kind}: checkpoint steps {steps}")
+        fail_unless(int(whole.num_trials) == CK_CHAINS * CK_STEPS,
+                    f"{kind}: {int(whole.num_trials)} trials")
+        acc = float(whole.acceptance_rate)
+        fail_unless(0.0 < acc < 1.0, f"{kind}: acceptance {acc}")
+        rows[kind] = sampling_row(
+            f"mcmc_checkpoint_{kind}", seconds,
+            CK_CHAINS * CK_STEPS / seconds, "proposals/s", counts,
+            ms_per_step=1e3 * seconds / CK_STEPS, checkpoint_steps=steps,
+            acceptance=acc, resumed_bit_for_bit=same)
+    return rows
+
+
+def bf16_flow_path(dev):
+    """Under ``set_compute_dtype(torch.bfloat16)``, the 8-D MAF (FLOW_D,
+    hidden 200, 32 bins, 2 blocks): kernel 3's bf16 mode against its
+    plain bf16 version in both directions at TRAIN_BATCH rows (rows away
+    from the knots, and a fraction 1e-2 of them allowed a bfloat16
+    rounding step of a hidden unit: the kernel's and cuBLAS's float32
+    sums of the same exact products differ in order, and where a tanh
+    output lies within that of a bfloat16 rounding boundary the two
+    round it a step apart), against the float32 mode's time at the same
+    shape; BF_STEPS maximum-likelihood steps at batch TRAIN_BATCH through
+    ``fit`` (falling loss, gradients against a CPU copy in the same mode,
+    to 1e-3 + 1e-2|g|: see below) and ``predict`` of TRAIN_BATCH
+    samples."""
+    flow = ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(
+        MAFConfig(data_dim=FLOW_D, num_blocks=2, rqs=RQSParams()),
+        base=None, static_base_dim=FLOW_D))).build(dev)
+    data_ = gaussian_data(dev)
+    epochs = -(-BF_STEPS // (data_.shape[0] // TRAIN_BATCH))
+    layer = flow.flowed_dist.flow.blocks[0]
+    probe = torch.zeros(TRAIN_BATCH, FLOW_D, device=dev)
+    set_compute_dtype(torch.bfloat16)
+    try:
+        y = data_[:TRAIN_BATCH]
+        with torch.no_grad():
+            keep = knot_safe([layer], y).to(dev)
+            fwd_keep = knot_safe([layer], y, inverse=False).to(dev)
+            keep &= fwd_keep
+            bf = check_maf_case(f"bf16 D={FLOW_D} N={TRAIN_BATCH}", layer, y,
+                                torch.bfloat16, keep, 1e-2)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        _, warm = fit(flow, lambda m, b, g: -m.log_prob(b).mean(),
+                      data_[:TRAIN_BATCH], generator=gen, num_epochs=1,
+                      batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _, hist = fit(flow, lambda m, b, g: -m.log_prob(b).mean(), data_,
+                      generator=gen, num_epochs=epochs,
+                      batch_size=TRAIN_BATCH)
+        counts = path_counts("bf16_flow_train")
+        fail_unless(counts.get("maf_block_bf16", 0) > 0,
+                    f"bf16 training launch counts {counts}")
+        steps = epochs * (data_.shape[0] // TRAIN_BATCH)
+        ms_step = 1e3 * sum(hist["epoch_time_s"]) / steps
+        fail_unless(all(math.isfinite(v) for v in hist["loss"])
+                    and hist["loss"][-1] < warm["loss"][0],
+                    f"bf16 flow loss {warm['loss']} -> {hist['loss']}")
+        window_ms, busy_ms, idle = busy_share(lambda: fit(
+            flow, lambda m, b, g: -m.log_prob(b).mean(),
+            data_[:5 * TRAIN_BATCH], generator=gen, num_epochs=1,
+            batch_size=TRAIN_BATCH), 5)
+        with torch.no_grad():
+            _build.reset_launches()
+            samples = flow.predict(probe, gen)
+            predict_counts = path_counts("bf16_flow_sample")
+            predict_ms = timed(lambda: flow.predict(probe, gen), reps=10)
+        fail_unless(predict_counts.get("maf_block_bf16", 0) > 0,
+                    f"bf16 sampling launch counts {predict_counts}")
+        fail_unless(bool(torch.isfinite(samples).all()),
+                    "bf16 flow samples not finite")
+        x = data_[:TRAIN_BATCH]
+        x = x[rows_off_knots(flow.flowed_dist.flow, x)]
+        # The backward rounds every gradient that flows into a bfloat16
+        # operand to bfloat16 (2^-8 relative, as JAX's transpose of a
+        # bfloat16 product does); where the float32 values being rounded
+        # differ in their last bits between the card and the CPU, they
+        # round a bfloat16 step apart.  So 1e-3 + 1e-2|g|, not the float32
+        # paths' 1e-4 + 1e-3|g| (1.25e-3 of one parameter's entries
+        # exceeded that by up to 1.2e-4 on an H100).
+        check_grads("bf16 flow", flow,
+                    lambda m, d: -m.log_prob(x.to(d)).mean(), dev, 1e-3,
+                    1e-2)
+    finally:
+        set_compute_dtype(None)
+    with torch.no_grad():
+        f32 = check_maf_case(f"D={FLOW_D} N={TRAIN_BATCH} float32 mode, the "
+                             "same weights", layer, y)
+    row = {"path": "bf16_flow", "steps": steps, "ms_per_step": ms_step,
+           "losses": warm["loss"] + hist["loss"],
+           "profiled_ms_per_step": window_ms,
+           "device_busy_ms_per_step": busy_ms, "device_idle_share": idle,
+           "predict_ms": predict_ms, "launches": counts,
+           "predict_launches": predict_counts,
+           "kernel_ms": {"bf16": {k: v[1] for k, v in bf.items()},
+                         "f32": {k: v[1] for k, v in f32.items()}}}
+    RESULTS["bf16_flow"] = row
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} of {window_ms:.3f} ms/step ({idle:.3f} idle)")
+    print(f"bf16 flow: {ms_step:.3f} ms/step (device busy {busy}), predict "
+          f"{predict_ms:.3f} ms; kernel 3 inverse bf16 "
+          f"{bf['inverse'][1]:.4f} ms against f32 {f32['inverse'][1]:.4f}, "
+          f"forward {bf['forward'][1]:.4f} against {f32['forward'][1]:.4f}",
+          flush=True)
+    return row
+
+
+def rqs_outliers(dev):
+    """The case of test_rqs_kernel_edges (K = 8, a row per element,
+    inverse, N = 50 000, seeded as that test) whose log-dets differ from
+    the plain version's by more than 1e-4: each one's input, the bin the
+    kernel took (from its output's place among the x-knots) and the
+    plain version's (from the input among the y-knots), the distance to
+    the nearest y-knot, the discriminant the root takes, and the plain
+    version's result in float64."""
+    K = 8
+    gen = torch.Generator(device=dev).manual_seed(K)
+    for n in (1, 3, 4097, 50_000):  # the test's draws, in its order
+        raw = [torch.randn(n, k, generator=gen, device=dev)
+               for k in (K, K, K - 1)]
+        w, h, s = (_bin_positions(raw[0], -5.0, 5.0, K),
+                   _bin_positions(raw[1], -5.0, 5.0, K), _slopes(raw[2]))
+        y = torch.rand(n + 1, generator=gen, device=dev) * 14.0 - 7.0
+        kx, ky = rqs._knots(w[:1], h[:1], -5.0)
+        on = torch.cat([kx[0], ky[0], torch.tensor(
+            [float("nan"), float("inf"), -float("inf")], device=dev)])
+        y[1:1 + min(n, on.numel())] = on[:n]
+    found = []
+    for shift, yin in (("x[:n]", y[:n]), ("x[1:]", y[1:])):
+        got = rqs.rqs_cuda(yin, w, h, s, -5.0, True)
+        want = rqs.rqs_inverse_plain(yin, w, h, s, -5.0)
+        bad = ((got[1] - want[1]).abs() > 1e-4) & torch.isfinite(want[1])
+        x_knots, y_knots = rqs._knots(w, h, -5.0)
+        for i in torch.nonzero(bad).flatten().tolist():
+            yi = float(yin[i])
+            plain_bin = int((y_knots[i, 1:-1] <= yi).sum())
+            kernel_bin = int((x_knots[i, 1:-1] <= float(got[0][i])).sum())
+            dist = float((y_knots[i] - yi).abs().min())
+            k = plain_bin
+            sl = float(h[i, k] / w[i, k])
+            d = torch.cat([torch.ones(1, device=dev), s[i],
+                           torch.ones(1, device=dev)])
+            dk, dk1 = float(d[k]), float(d[k + 1])
+            t = yi - float(y_knots[i, k])
+            dsum = dk1 + dk - 2 * sl
+            a = float(h[i, k]) * (sl - dk) + t * dsum
+            b = float(h[i, k]) * dk - t * dsum
+            c = -sl * t
+            # The same element in float64: which of the two float32
+            # results is nearer.
+            ref = rqs.rqs_inverse_plain(yin[i:i + 1].double(),
+                                        w[i:i + 1].double(),
+                                        h[i:i + 1].double(),
+                                        s[i:i + 1].double(), -5.0)
+            case = {"input": shift, "i": i, "y": yi,
+                    "ldj_kernel": float(got[1][i]),
+                    "ldj_plain": float(want[1][i]),
+                    "ldj_float64": float(ref[1][0]),
+                    "x_float64": float(ref[0][0]),
+                    "x_kernel": float(got[0][i]), "x_plain": float(want[0][i]),
+                    "bin_kernel": kernel_bin, "bin_plain": plain_bin,
+                    "nearest_knot": dist, "disc": b * b - 4 * a * c,
+                    "b2": b * b}
+            found.append(case)
+            print(f"rqs outlier {case}", flush=True)
+    RESULTS["rqs_outliers"] = found
+    print(f"rqs outliers (K=8 inverse, per element, log-det > 1e-4): "
+          f"{len(found)}", flush=True)
+    return found
+
+
+def repairs_path(dev):
+    """The shapes whose one-launch plan the kernels refuse, on the card: a
+    dense stack of 9 layers (two launches), FCDeepNN(hidden_dim=[1024,
+    1024]) at 10k rows (width 1024: a launch of the wide regime a layer,
+    timed against the plain layers), a VectorAttention at N = 100 (B =
+    2000, H = 40, Fo = 20: a launch of kernel 5's stream regime), an RQS
+    broadcast row of 4470 bins (a launch of the walk, on 50 000 elements
+    and on one) and a cell-pair block of 27 x 700 neighbour slots (a
+    launch for each run of ``cell_lj.neighbour_runs``); each against its
+    plain version, with no plain route taken.  Then kernel 1's log-det
+    outliers."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+    _build.reset_launches()
+    dims = [4] + [32] * 9
+    ks = [torch.randn(a, b, generator=gen, device=dev) / a ** 0.5
+          for a, b in zip(dims, dims[1:])]
+    bs = [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
+    acts = ["tanh"] * 8 + [None]
+    x = torch.randn(TRAIN_BATCH, 4, generator=gen, device=dev)
+    from vaemolsim_tpu_torch.ops.fused_mlp import fused_dense_stack
+    err = compare("9-layer stack", fused_dense_stack(x, ks, bs, acts),
+                  dense_stack_plain(x, ks, bs, acts), 1e-4, 1e-4)
+    out["dense_stack 9 layers"] = (err, _build.launch_counts()["dense_stack"])
+    fc = FCDeepNN.create(gen, 20, 8, hidden_dim=[1024, 1024], device=dev)
+    xf = torch.randn(TRAIN_BATCH, 20, generator=gen, device=dev)
+    before = _build.KERNELS["dense_stack"].launches
+    with torch.no_grad():
+        got = fc(xf)
+        ws = [l.kernel.detach() for l in fc.layers] + [fc.head.kernel.detach()]
+        bb = [l.bias.detach() for l in fc.layers] + [fc.head.bias.detach()]
+        want = dense_stack_plain(xf, ws, bb, ["relu", "relu", None])
+        err = compare("FCDeepNN 1024", got, want, 1e-4, 1e-4)
+    out["FCDeepNN [1024, 1024]"] = (
+        err, _build.KERNELS["dense_stack"].launches - before)
+    # The wide regime's middle layer, 1024 -> 1024 at 10k rows, timed.
+    h = torch.relu(xf @ ws[0] + bb[0])
+    one = ([ws[1]], [bb[1]], ["relu"])
+    ms = timed(lambda: dense_stack_cuda(h, *one))
+    plain_ms = timed(lambda: dense_stack_plain(h, *one))
+    lib_ms = timed(lambda: torch.relu(torch.addmm(bb[1], h, ws[1])))
+    b_us, b_by = stack_bound(TRAIN_BATCH, one[0], one[1])
+    record("dense_stack", f"wide 1024->1024 relu N={TRAIN_BATCH}",
+           compare("wide 1024", dense_stack_cuda(h, *one),
+                   dense_stack_plain(h, *one), 1e-4, 1e-4), ms, plain_ms,
+           bound_us=b_us, bound_by=b_by, library_ms=lib_ms,
+           regime=stack_regime(TRAIN_BATCH, [1024, 1024])[0])
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=40, device=dev)
+    c = torch.randn(2000, 100, 3, generator=gen, device=dev)
+    v = torch.randn(2000, 100, 20, generator=gen, device=dev)
+    m = torch.rand(2000, 100, generator=gen, device=dev) < 0.9
+    before = pa.KERNEL.launches
+    with torch.no_grad():
+        err = compare("VectorAttention N=100", attn(c, v, m),
+                      attn.plain_call(c, v, m), 1e-5, 1e-5)
+    out["VectorAttention N=100"] = (err, pa.KERNEL.launches - before)
+    # 4470 bins of at least 1e-2 each: a range of 100.
+    K = 4470
+    raw = [torch.randn(1, k, generator=gen, device=dev) for k in (K, K, K - 1)]
+    params = (_bin_positions(raw[0], -50.0, 50.0, K),
+              _bin_positions(raw[1], -50.0, 50.0, K), _slopes(raw[2]))
+    xr = torch.rand(50_000, generator=gen, device=dev) * 120.0 - 60.0
+    before = rqs.KERNEL.launches
+    got = rqs.rqs_forward(xr, *params, -50.0)
+    want = rqs.rqs_forward_plain(xr, *params, -50.0)
+    err = max(compare("rqs K=4470 y", got[0], want[0], 1e-5, 1e-5, 1e-4),
+              compare("rqs K=4470 ldj", got[1], want[1], 1e-4, 0.0, 1e-4))
+    one = rqs.rqs_forward(xr[:1], *params, -50.0)
+    err = max(err, compare("rqs K=4470 one element y", one[0],
+                           rqs.rqs_forward_plain(xr[:1], *params, -50.0)[0],
+                           1e-5, 1e-5))
+    out["rqs broadcast K=4470"] = (err, rqs.KERNEL.launches - before)
+    # Dilute (about 0.09 atoms per unit volume), so that few pairs sit in
+    # the linear core, whose energies of ~1e6 would swamp the sums.
+    nc, C = 4, 700
+    Kn = 27 * C
+    L = 60.0
+    cxt = torch.rand(nc, 3, C, generator=gen, device=dev) * L
+    nxt = torch.rand(nc, 3, Kn, generator=gen, device=dev) * L
+    cid = torch.randint(0, 5000, (nc, 1, C), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nid = torch.randint(0, 5000, (nc, 1, Kn), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kw = dict(n_atoms=4900, sigma=1.0, epsilon=1.0, cutoff=2.5,
+              box=(L, L, L))
+    before = cell_lj.KERNEL.launches
+    e, g = cell_lj.cell_pair_energy_force(cxt, nxt, cid, nid, **kw)
+    e_p, g_p = cell_lj.cell_pair_energy_force_plain(cxt, nxt, cid, nid, **kw)
+    err = max(compare("cell_lj K=18900 e", e, e_p, 1e-3, 1e-4),
+              compare("cell_lj K=18900 grad", g, g_p, 1e-3, 1e-4))
+    out["cell_lj 27 x 700 slots"] = (err, cell_lj.KERNEL.launches - before)
+    plain = _build.plain_route_counts()
+    print(f"repairs: {out}; plain routes taken {plain}", flush=True)
+    fail_unless(out["dense_stack 9 layers"][1] == 2
+                and out["FCDeepNN [1024, 1024]"][1] == 3,
+                f"dense-stack repair launches {out}")
+    fail_unless(not any(plain.values()), f"plain routes {plain}")
+    runs = len(cell_lj.neighbour_runs(Kn, cell_lj.max_slots(C)))
+    fail_unless(out["VectorAttention N=100"][1] == 1
+                and out["rqs broadcast K=4470"][1] == 2 and runs > 1
+                and out["cell_lj 27 x 700 slots"][1] == runs,
+                f"repair launches {out}")
+    RESULTS["repairs"] = {k: list(v) if isinstance(v, tuple) else v
+                          for k, v in out.items()}
+    RESULTS["repairs_plain_routes"] = plain
+    return out, rqs_outliers(dev)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+def _bound(nbytes, flops, bf16_flops=0):
+    """(bound µs, what bounds it): bytes over HBM bandwidth against the
+    operations' time, ``flops`` at the float32 rate and ``bf16_flops``
+    (products of bfloat16 operands summed in float32) at the tensor
+    cores' bfloat16 rate."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_F32 + bf16_flops / PEAK_BF16
     return (1e6 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2654,7 +3550,8 @@ def bounds(vae, flow):
     # at the backmapping decoder's widths, and kernels 2 and 1 at the
     # RealNVP paths' shapes (check_coupling_kernels).
     for c in RESULTS["checks"]:
-        if c["kernel"] in ("dense_stack", "rqs") and "bound_us" in c:
+        if (c["kernel"] in ("dense_stack", "rqs", "maf_block")
+                and "bound_us" in c):
             out[f"{c['kernel']} {c['shape']}"] = (c["bound_us"],
                                                  c["bound_by"])
     return out
@@ -2748,6 +3645,13 @@ def main():
     bm_ar, made = stamped(backmapping_ar_path, dev)
     with torch.no_grad():
         check_slice9_kernels(made, bn_model, gen, dev)
+    workflow = stamped(molecular_workflow_path, dev)
+    joint = stamped(joint_backmapping_path, dev)
+    mlp_md = stamped(ml_potential_md_path, dev)
+    two_stage = stamped(two_stage_backmapping_path, dev)
+    ckpt = stamped(mcmc_checkpoint_path, vae, dev)
+    bf16 = stamped(bf16_flow_path, dev)
+    stamped(repairs_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -2771,7 +3675,24 @@ def main():
                 "flow_bn_sample": flow_bn["predict_launches"],
                 "ensemble": ensemble["launches"],
                 "backmapping_ar_train": bm_ar["launches"],
-                "backmapping_ar_serve": bm_ar["serve_launches"]}
+                "backmapping_ar_serve": bm_ar["serve_launches"],
+                "molecular_workflow_train": workflow["launches"],
+                "molecular_workflow_predict": workflow["predict_launches"],
+                "joint_backmapping_schnet_train": joint["launches"],
+                "joint_backmapping_attention_log_prob":
+                    joint["attention_launches"],
+                "joint_backmapping_attention_train":
+                    joint["attention_train_launches"],
+                "ml_potential_md": mlp_md["launches"],
+                "two_stage_backmapping_serve": two_stage["launches"],
+                "two_stage_backmapping_train": two_stage["train_launches"],
+                "mcmc_checkpoint_fused": ckpt["fused"]["launches"],
+                "mcmc_checkpoint_generic": ckpt["generic"]["launches"],
+                "bf16_flow_train": bf16["launches"],
+                "bf16_flow_sample": bf16["predict_launches"]}
+    plain_routes = RESULTS["plain_routes"]
+    print("plain routes on the main paths: " + json.dumps(
+        {k: sum(v.values()) for k, v in plain_routes.items()}), flush=True)
     bound = bounds(vae, flow)
     floor_us = 1e3 * RESULTS["launch_floor_ms"]
     for name, (us, by) in bound.items():
@@ -2786,16 +3707,24 @@ def main():
                   "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}",
                   "pair_attention": PA_MAIN,
                   "cell_lj": MOL_SHAPE}
-    for name, k in _build.KERNELS.items():
-        rows = [c for c in RESULTS["checks"] if c["kernel"] == name]
+    # Kernel 3's bf16 mode is a second entry: its launches are the
+    # maf_block launches made in that mode (maf_block counts both).
+    entries = [(name, k, name, None) for name, k in _build.KERNELS.items()]
+    entries.append(("maf_block_bf16", _build.KERNELS["maf_block"],
+                    "maf_block", "bf16"))
+    main_shape["maf_block_bf16"] = f"inverse bf16 D={FLOW_D} N={TRAIN_BATCH}"
+    for name, k, kernel, mode in entries:
+        rows = [c for c in RESULTS["checks"] if c["kernel"] == kernel
+                and ("bf16" in c["shape"]) == (mode == "bf16")]
         timed_row = next(c for c in rows if c["ms"] is not None
                          and c["shape"].startswith(main_shape[name]))
-        bound_us, bound_by = bound[name]
+        bound_us, bound_by = (bound[name] if mode is None else
+                              (timed_row["bound_us"], timed_row["bound_by"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vaemolsim_tpu_torch/{k.source}",
             "replaces": k.replaces,
-            "launches": sum(c[name] for c in launches.values()),
+            "launches": sum(c.get(name, 0) for c in launches.values()),
             "max_abs_err": max(c["max_abs_err"] for c in rows),
             "ms": timed_row["ms"], "plain_ms": timed_row["plain_ms"],
             "bound_ms": bound_us / 1e3, "bound_us": bound_us,

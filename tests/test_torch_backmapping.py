@@ -355,6 +355,16 @@ def test_backmapping_json_from_jax_builds_same_architecture(tmp_path):
 @pytest.mark.parametrize("field,value", [("kind", "schnet"),
                                          ("attention", "two_stage")])
 def test_unported_embeddings_raise_by_name(field, value):
-    cfg = tconfig.ParticleEmbeddingConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Both embeddings are ported now: each builds on the CPU, and an
+    # unknown value of the same field still raises, naming the value.
+    from vaemolsim_tpu_torch.nn import (SchNetEmbedding,
+                                        VectorAttentionTwoStage)
+    built = tconfig.ParticleEmbeddingConfig(**{field: value}).build(
+        torch.Generator(), "cpu")
+    if field == "kind":
+        assert isinstance(built, SchNetEmbedding)
+    else:
+        assert isinstance(built.final_attn, VectorAttentionTwoStage)
+    cfg = tconfig.ParticleEmbeddingConfig(**{field: "bogus"})
+    with pytest.raises(ValueError, match="bogus"):
         cfg.build(torch.Generator(), "cpu")

@@ -298,7 +298,8 @@ def test_rqs_launch_refuses_a_bad_plan(dev, monkeypatch, field, value):
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     """A CUDA tensor outside a kernel's contract raises; it never falls
-    back to the plain version."""
+    back to the plain version.  A dense stack no one launch takes raises
+    in ``dense_stack_cuda``; its route splits it into launches."""
     gen = torch.Generator(device=dev).manual_seed(4)
     params = _spline(gen, dev, 1, 8)
     with pytest.raises(TypeError):
@@ -306,13 +307,20 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                         *params, -5.0)
     wide = [torch.zeros(1, 30000, device=dev), torch.zeros(30000, 1,
                                                            device=dev)]
+    wide_b = [torch.zeros(30000, device=dev), torch.zeros(1, device=dev)]
+    from vaemolsim_tpu_torch.ops import fused_mlp
     with pytest.raises(ValueError, match="shared memory"):
-        fused_dense_stack(torch.zeros(4, 1, device=dev), wide,
-                          [torch.zeros(30000, device=dev),
-                           torch.zeros(1, device=dev)], ["relu", None])
+        fused_mlp.dense_stack_cuda(torch.zeros(4, 1, device=dev), wide,
+                                   wide_b, ["relu", None])
+    # The route never sends that stack to a refused launch: it splits it
+    # before any launch, a layer a launch (the wide regime).
+    before = fused_mlp.KERNEL.launches
+    got = fused_dense_stack(torch.zeros(4, 1, device=dev), wide, wide_b,
+                            ["relu", None])
+    assert fused_mlp.KERNEL.launches == before + 2
+    assert torch.equal(got, torch.zeros(4, 1, device=dev))
     # What the wrapper mirrors, the kernel refuses itself: the same stack
     # straight through the launch returns cudaErrorInvalidValue.
-    from vaemolsim_tpu_torch.ops import fused_mlp
     import ctypes
     x4, out = torch.zeros(4, 1, device=dev), torch.zeros(4, 1, device=dev)
     ptrs = ctypes.c_void_p * 2
@@ -1199,3 +1207,222 @@ def test_create_without_a_device_builds_on_the_card(dev):
         for m in built:
             ts = list(m.parameters()) + list(m.buffers())
             assert ts and all(t.is_cuda for t in ts), type(m).__name__
+
+
+@pytest.mark.parametrize("D,ctx_dim", [(8, 0), (3, 5), (5, 0)])
+def test_maf_block_bf16_mode_matches_plain_bf16(dev, D, ctx_dim):
+    """Kernel 3's bf16 mode (operands rounded to bfloat16, products
+    summed in float32) against the plain version in the same mode, both
+    directions: values 1e-4 + 1e-4|v|, log-dets 1e-3 + 1e-4|v|, on all
+    but a fraction 1e-2 of the rows: the kernel and cuBLAS sum the same
+    exact products in another order, and a tanh output within that
+    difference of a bfloat16 rounding boundary rounds a step apart.  The
+    route of a bf16 MAFLayer on the card is the kernel, counted in its
+    bf16 mode."""
+    from vaemolsim_tpu_torch.nn.core import set_compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(60 + D)
+    layer = MAFLayer(MaskedSplineConditioner.create(
+        gen, D, conditional=bool(ctx_dim), conditional_event_shape=ctx_dim
+        or None, device=dev))
+    cond = layer.conditioner
+    params = [p.detach() for p in cond.merged_params() if p is not None]
+    deg = cond.w_net.input_order_static
+    y = 3.0 * torch.randn(5000, D, generator=gen, device=dev)
+    ctx = (torch.randn(5000, ctx_dim, generator=gen, device=dev)
+           if ctx_dim else None)
+    for inverse in (True, False):
+        args = (y, params, ctx, D, cond.num_bins, cond.bin_min,
+                cond.bin_max, inverse)
+        got = maf_fused.maf_block_cuda(*args, degrees=deg,
+                                       compute_dtype=torch.bfloat16)
+        want = maf_fused.maf_block_plain(*args, compute_dtype=torch.bfloat16)
+        f32 = maf_fused.maf_block_plain(*args)
+        _close_but("bf16 x", got[0], want[0], 1e-4, 1e-4, 1e-2)
+        _close_but("bf16 ldj", got[1], want[1], 1e-3, 1e-4, 1e-2)
+        # The mode matters: float32 differs from both by far more.
+        assert float((want[0] - f32[0]).abs().max()) > 1e-3
+    set_compute_dtype(torch.bfloat16)
+    try:
+        before = maf_fused.KERNEL.mode_launches.get("bf16", 0)
+        with torch.no_grad():
+            layer.inverse_and_log_det(y, ctx)
+        assert maf_fused.KERNEL.mode_launches["bf16"] == before + 1
+    finally:
+        set_compute_dtype(None)
+
+
+def test_refused_plans_split_or_route_plain(dev):
+    """The shapes whose one-launch plan the kernels refuse run on the
+    card and match their plain versions: a 9-layer stack (two launches),
+    FCDeepNN(hidden_dim=[1024, 1024]) (a launch of the wide regime a
+    layer), a VectorAttention at N = 100 (one launch of the stream
+    regime), an RQS broadcast row of 4470 bins (one launch of the walk,
+    for 20 000 elements and for one) and a neighbour block of 27 x 600
+    slots (one launch a run).  No call takes a plain route."""
+    from vaemolsim_tpu_torch.nn import FCDeepNN
+    from vaemolsim_tpu_torch.ops import cell_lj
+    gen = torch.Generator(device=dev).manual_seed(70)
+    _build.reset_launches()
+    dims = [4] + [32] * 9
+    ks = [torch.randn(a, b, generator=gen, device=dev) / a ** 0.5
+          for a, b in zip(dims, dims[1:])]
+    bs = [0.1 * torch.randn(b, generator=gen, device=dev) for b in dims[1:]]
+    acts = ["tanh"] * 8 + [None]
+    x = torch.randn(3000, 4, generator=gen, device=dev)
+    torch.testing.assert_close(fused_dense_stack(x, ks, bs, acts),
+                               dense_stack_plain(x, ks, bs, acts),
+                               atol=1e-4, rtol=1e-4)
+    assert _build.KERNELS["dense_stack"].launches == 2
+    fc = FCDeepNN.create(gen, 20, 8, hidden_dim=[1024, 1024], device=dev)
+    xf = torch.randn(3000, 20, generator=gen, device=dev)
+    with torch.no_grad():
+        got = fc(xf)
+        want = dense_stack_plain(
+            xf, [l.kernel for l in fc.layers] + [fc.head.kernel],
+            [l.bias for l in fc.layers] + [fc.head.bias],
+            ["relu", "relu", None])
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert _build.KERNELS["dense_stack"].launches == 2 + 3
+    assert _build.KERNELS["dense_stack"].plain_routes == 0
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=40, device=dev)
+    c = torch.randn(2000, 100, 3, generator=gen, device=dev)
+    v = torch.randn(2000, 100, 20, generator=gen, device=dev)
+    m = torch.rand(2000, 100, generator=gen, device=dev) < 0.9
+    with torch.no_grad():
+        torch.testing.assert_close(attn(c, v, m), attn.plain_call(c, v, m),
+                                   atol=1e-5, rtol=1e-5)
+    assert pa.KERNEL.plain_routes == 0 and pa.KERNEL.launches == 1
+    K = 4470
+    params = (_bin_positions(torch.randn(1, K, generator=gen, device=dev),
+                             -50.0, 50.0, K),
+              _bin_positions(torch.randn(1, K, generator=gen, device=dev),
+                             -50.0, 50.0, K),
+              _slopes(torch.randn(1, K - 1, generator=gen, device=dev)))
+    xr = torch.rand(20_000, generator=gen, device=dev) * 120.0 - 60.0
+    for inverse in (False, True):
+        fn = rqs.rqs_inverse if inverse else rqs.rqs_forward
+        plain = rqs.rqs_inverse_plain if inverse else rqs.rqs_forward_plain
+        got, want = fn(xr, *params, -50.0), plain(xr, *params, -50.0)
+        _close_but("K=4470 y", got[0], want[0], 1e-5, 1e-5)
+        _close_but("K=4470 ldj", got[1], want[1], 1e-4, 0.0)
+        one, one_want = fn(xr[:1], *params, -50.0), plain(xr[:1], *params,
+                                                           -50.0)
+        torch.testing.assert_close(one[0], one_want[0], atol=1e-5,
+                                   rtol=1e-5)
+    assert rqs.KERNEL.launches == 4 and rqs.KERNEL.plain_routes == 0
+    nc, C, L = 3, 600, 60.0
+    Kn = 27 * C
+    cxt = torch.rand(nc, 3, C, generator=gen, device=dev) * L
+    nxt = torch.rand(nc, 3, Kn, generator=gen, device=dev) * L
+    cid = torch.randint(0, 4000, (nc, 1, C), generator=gen, device=dev,
+                        dtype=torch.int32)
+    nid = torch.randint(0, 4000, (nc, 1, Kn), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kw = dict(n_atoms=3900, sigma=1.0, epsilon=1.0, cutoff=2.5,
+              box=(L, L, L))
+    e, g = cell_lj.cell_pair_energy_force(cxt, nxt, cid, nid, **kw)
+    e_p, g_p = cell_lj.cell_pair_energy_force_plain(cxt, nxt, cid, nid, **kw)
+    torch.testing.assert_close(e, e_p, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(g, g_p, atol=1e-3, rtol=1e-4)
+    runs = len(cell_lj.neighbour_runs(Kn, cell_lj.max_slots(C)))
+    assert runs > 1 and cell_lj.KERNEL.launches == runs
+    assert sum(_build.plain_route_counts().values()) == 0
+
+
+@pytest.mark.parametrize("C,species,coulomb,most", [
+    (72, False, True, 10848), (484, False, False, 13088),
+    (288, True, True, 7776), (700, True, True, 7616)])
+def test_cell_lj_max_slots(dev, C, species, coulomb, most):
+    """The most neighbour slots a launch takes, from the kernel's own
+    shared-memory layout at two exclusions a centre (the values that
+    ``test_torch_routes.test_cell_lj_neighbour_runs`` splits by)."""
+    from vaemolsim_tpu_torch.ops import cell_lj
+    assert cell_lj.max_slots(C, 2, species, coulomb) == most
+
+
+@pytest.mark.parametrize("N,H,reduce", [(100, 40, False), (100, 40, True),
+                                        (37, 64, False), (37, 64, True),
+                                        (300, 33, True)])
+def test_pair_attention_stream_regime(dev, N, H, reduce):
+    """Kernel 5's stream regime (no pair grid in shared memory) against
+    its plain version, 1e-5 + 1e-5|v| as the other regimes: at N = 100
+    (B = 300, the plan's own choice there), at a small frame forced into
+    it, and at N = 300; fully masked rows and frames exactly zero."""
+    gen = torch.Generator(device=dev).manual_seed(N + H)
+    B = 300 if N <= 100 else 20
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=H,
+                                  reduce=reduce, device=dev)
+    c = 1.5 * torch.randn(B, N, 3, generator=gen, device=dev)
+    v = torch.randn(B, N, 20, generator=gen, device=dev)
+    m = (torch.rand(B, N, generator=gen, device=dev) > 0.3).float()
+    m[0, 1] = 0.0
+    m[1] = 0.0
+    (c_, *nodes, mf, weights), kw = attn.pair_args(c, v, m)
+    args = (c_, *nodes, mf, *weights)
+    want = pa.pair_attention_plain(*args, **kw)
+    if N == 37:
+        real = pa.kernel_plan
+        pa.kernel_plan = lambda *a: real(*a, regime="stream")
+        try:
+            got = pa.pair_attention_cuda(*args, **kw)
+        finally:
+            pa.kernel_plan = real
+    else:
+        assert pa.kernel_plan(B, N, H, 20)["regime"] == "stream"
+        got = pa.pair_attention_cuda(*args, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    empty = (m.sum(-1) == 0) if reduce else (m == 0)
+    assert float(got[empty].abs().max()) == 0.0
+
+
+def test_joint_backmapping_attention_on_the_card_matches_a_cpu_copy(dev):
+    """JointBackmapping with the attention embedding on the card (kernel 5
+    on B x R clouds, kernel 2 in the mapping) against a CPU copy: the
+    log-density to 1e-4 + 1e-4|v| and every parameter's gradient to
+    1e-4 + 1e-3|g|."""
+    from vaemolsim_tpu_torch.dists import (IndependentBlockwise,
+                                           JointBackmapping)
+    gen = torch.Generator(device=dev).manual_seed(80)
+    model = JointBackmapping.create(
+        gen, 2, 1, IndependentBlockwise.create(2, "von_mises"), embed_dim=12,
+        prefix_dim=8, cutoff=4.0, max_included=4, embedding="attention",
+        device=dev)
+    cpu = copy.deepcopy(model).to("cpu")
+    t = torch.arange(6, dtype=torch.float32, device=dev)
+    helix = torch.stack([torch.cos(0.9 * t), torch.sin(0.9 * t), 0.4 * t], -1)
+    cg = helix + 0.25 * torch.randn(256, 6, 3, generator=gen, device=dev)
+    info = (t / 6)[None, :, None].expand(256, 6, 1).contiguous()
+    x = torch.rand(256, 6, 2, generator=gen, device=dev) * 6.0 - 3.0
+    _build.reset_launches()
+    lp = model(cg, info).log_prob(x)
+    got = torch.autograd.grad(-lp.mean(), list(model.parameters()))
+    assert pa.KERNEL.launches > 0 and _build.KERNELS["dense_stack"].launches
+    lp_cpu = cpu(cg.cpu(), info.cpu()).log_prob(x.cpu())
+    want = torch.autograd.grad(-lp_cpu.mean(), list(cpu.parameters()))
+    torch.testing.assert_close(lp.cpu(), lp_cpu, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("din,dout,dc,act", [
+    (20, 1024, 0, "relu"), (1024, 1024, 3, "tanh"), (808, 9, 0, None),
+    (3, 4096, 5, "tanh")])
+def test_dense_stack_wide_regime_matches_plain(dev, din, dout, dc, act):
+    """One layer too wide for the tiled regime (808 or more): the wide
+    regime's 64 x 64 tiles at ragged edges of rows, columns and depth,
+    with a conditional input, against the plain version, 1e-4 +
+    1e-4|y|, one launch a call."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    gen = torch.Generator(device=dev).manual_seed(din + dout)
+    ks, bs, cks = _stack(gen, dev, [din, dout], dc)
+    for n in (0, 17, 63, 65, 10_001):
+        x = torch.randn(n, din, generator=gen, device=dev)
+        c = torch.randn(n, dc, generator=gen, device=dev) if dc else None
+        assert fused_mlp.stack_regime(n, [din, dout], dc)[0] == (
+            "wide" if n > 16 else "small")
+        before = fused_mlp.KERNEL.launches
+        got = fused_mlp.dense_stack_cuda(x, ks, bs, [act], c, cks)
+        assert fused_mlp.KERNEL.launches == before + 1
+        torch.testing.assert_close(
+            got, dense_stack_plain(x, ks, bs, [act], c, cks), atol=1e-4,
+            rtol=1e-4)

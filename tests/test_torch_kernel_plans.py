@@ -286,7 +286,8 @@ def test_pair_attention_plan(N, H, B, plan):
     (whose launch only validates them): rows where H <= 256 and two
     blocks fit an SM or a block holds 32 lane groups, the grid otherwise;
     the notebook shape fits several blocks of
-    34 KB on an SM; a frame too large for shared memory is refused."""
+    34 KB on an SM; a frame too large for both takes the stream regime
+    (no pair grid in shared memory) where H <= 256 and is refused above."""
     got = tpa.kernel_plan(B, N, H, 20)
     assert (got["regime"], got["lanes"], got["units"], got["frames"],
             got["blocks"]) == plan
@@ -295,7 +296,10 @@ def test_pair_attention_plan(N, H, B, plan):
         assert got["lanes"] * got["units"] >= H
     if (N, H) == (10, 40):
         assert got["smem"] < 48 * 1024
-    assert tpa.kernel_plan(1, 400, 64, 20)["refused"]
+    big = tpa.kernel_plan(1, 400, 64, 20)
+    assert big["regime"] == "stream" and not big["refused"]
+    assert (big["lanes"], big["units"], big["frames"]) == (16, 4, 1)
+    assert tpa.kernel_plan(1, 400, 300, 20)["refused"]
     forced = tpa.kernel_plan(B, N, H, 20, regime="grid")
     assert forced["regime"] == "grid"
     if H <= 256:

@@ -252,8 +252,9 @@ def test_rqs_plan_covers_every_element_once(K):
     """The broadcast plan: a thread an element, threads a multiple of 32
     in [128, 256] and at least K + 1 up to 256, blocks covering n exactly
     (no block without elements); shared bytes of the knot table and the
-    row.  A forced thread count is kept.  Per-element rows: 256 threads a
-    block, no shared memory."""
+    row.  A forced thread count is kept.  Per-element rows, and a
+    broadcast row of more bins than a table in shared memory holds (4469):
+    the walk, 256 threads a block, no shared memory."""
     table = 2 * (4 * ((K + 1 + 3) // 4)) + 8 * K
     for n in (1, 3, 4, 5, 4097, 10_000, 50_000, 50_003, 1_000_003):
         plan = trqs.kernel_plan(n, K, 1)
@@ -261,14 +262,17 @@ def test_rqs_plan_covers_every_element_once(K):
         assert T % 32 == 0 and max(128, min(K + 1, 256)) <= T <= 256
         assert (nb - 1) * T < n <= nb * T
         assert plan["smem"] == 4 * (table + 3 * K)
-        assert not plan["refused"]
+        assert plan["regime"] == "table"
         forced = trqs.kernel_plan(n, K, 1, threads=64)
         assert forced["threads"] == 64 and forced["blocks"] == -(-n // 64)
         row = trqs.kernel_plan(n, K, max(n, 2))
         assert row["threads"] == 256 and row["smem"] == 0
+        assert row["regime"] == "walk"
         assert (row["blocks"] - 1) * 256 < n <= row["blocks"] * 256
-    assert trqs.kernel_plan(10, 4470, 1)["refused"]
-    assert not trqs.kernel_plan(10, 4469, 1)["refused"]
+    wide = trqs.kernel_plan(10, 4470, 1)
+    assert wide["regime"] == "walk" and wide["smem"] == 0
+    assert wide["threads"] == 256 and wide["blocks"] == 1
+    assert trqs.kernel_plan(10, 4469, 1)["regime"] == "table"
 
 
 # ---------------------------------------------------------------------------

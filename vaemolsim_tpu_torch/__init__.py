@@ -19,10 +19,17 @@ kernel, PME; ``md``: velocity Verlet and BAOAB, with neighbour-list
 rebuilds), and the sampling stack: the RealNVP flow family, local moves
 (random walk, MALA, HMC) and their tuner, chain diagnostics, simulated
 tempering, replica exchange on one device (``parallel``) and the
-free-energy estimators (see ROADMAP.md for what is still to come).
+free-energy estimators, and the rest of the reference library's
+surface: dual-ELBO and Hamiltonian VAEs, batch-norm flows, the
+autoregressive and von Mises heads, CG maps, ensembles and checkpoints;
+joint backmapping (``dists.JointBackmapping``) with SchNet or two-stage
+attention embeddings, SchNet potentials, BAT/NeRF internal coordinates
+(``coords``), trajectory I/O (``data``: DCD, PDB, XYZ) and checkpointed
+MC (see ROADMAP.md for what is still to come).
 """
 
-from vaemolsim_tpu_torch import config, convert, losses  # noqa: F401
+from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
+from vaemolsim_tpu_torch import losses  # noqa: F401
 from vaemolsim_tpu_torch import md, potentials  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
 from vaemolsim_tpu_torch import parallel  # noqa: F401

@@ -9,8 +9,11 @@ beside this file, which git ignores.
 
 A kernel is reached through a :class:`Kernel`: it checks the C return
 code (``cudaGetLastError()`` right after the launch, so a refused launch
-raises instead of silently never running) and counts its launches.
-Nothing here synchronises with the device.
+raises instead of silently never running) and counts its launches.  A
+call on CUDA tensors that a route sends to the plain version because
+the kernel's launch plan cannot take its shapes counts in the kernel's
+``plain_routes`` instead (:meth:`Kernel.route_plain`).  Nothing here
+synchronises with the device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["Kernel", "KERNELS", "NVCC_FLAGS", "BUILD_LOGS", "build_all",
-           "reset_launches", "launch_counts", "call_with_plain_grad"]
+           "reset_launches", "launch_counts", "plain_route_counts",
+           "call_with_plain_grad"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 CACHE_DIR = Path(__file__).resolve().parent / "_build_cache"
@@ -108,7 +112,10 @@ class Kernel:
 
     ``argtypes`` lists the entry's arguments before the trailing stream
     (``ctypes.c_void_p`` for every pointer).  ``launches`` counts the
-    launches made through :meth:`launch` and nowhere else."""
+    launches made through :meth:`launch` and nowhere else, and
+    ``mode_launches`` those of them made in a named mode (the MAF block's
+    ``"bf16"``); ``plain_routes`` the calls on CUDA tensors that a route
+    decided, from their shapes alone, to give the plain version."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -118,6 +125,8 @@ class Kernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.replaces = replaces
         self.launches = 0
+        self.mode_launches: Dict[str, int] = {}
+        self.plain_routes = 0
         self._fn = None
         KERNELS[name] = self
 
@@ -132,7 +141,8 @@ class Kernel:
         self._fn, self._err = fn, err
         return fn
 
-    def launch(self, device: torch.device, *args) -> None:
+    def launch(self, device: torch.device, *args,
+               mode: Optional[str] = None) -> None:
         fn = self._fn or self._bind()
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -140,18 +150,40 @@ class Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: "
                                f"{self._err(rc).decode()} (cudaError {rc})")
         self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
+
+    def query(self, symbol: str, *args: int) -> int:
+        """An int-valued host function of the kernel's library (a limit
+        of its launch), called with int arguments; no launch, no count."""
+        fn = getattr(_library(Path(self.source).stem), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        return int(fn(*args))
+
+    def route_plain(self, t: torch.Tensor) -> None:
+        """Count a shape-decided plain call, if ``t`` is on the card."""
+        if t.is_cuda:
+            self.plain_routes += 1
 
 
 KERNELS: Dict[str, Kernel] = {}
 
 
 def reset_launches() -> None:
+    """Set every kernel's launch and plain-route counts to 0."""
     for k in KERNELS.values():
         k.launches = 0
+        k.mode_launches = {}
+        k.plain_routes = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def plain_route_counts() -> Dict[str, int]:
+    return {name: k.plain_routes for name, k in KERNELS.items()}
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -247,11 +247,11 @@ class DistanceSelectionConfig:
 
 @dataclass
 class ParticleEmbeddingConfig:
-    """The geometric-algebra attention embedding.  ``attention`` and
-    ``kind`` name the JAX package's choices; only the fused attention
-    embedding is ported, and the others raise.  The SchNet knobs
-    (``n_rbf``, ``rbf_cutoff``, ``pool``) are kept so that every JSON of
-    the JAX package loads."""
+    """The CG-environment embedding: ``kind="attention"`` (the
+    geometric-algebra attention, ``attention="fused"`` or
+    ``"two_stage"``) or ``kind="schnet"`` (continuous-filter
+    convolutions; ``hidden_dim`` is then the per-atom feature width and
+    ``rbf_cutoff`` should match the selection's cutoff)."""
 
     info_dim: int = 1
     embedding_dim: int = 20
@@ -266,9 +266,12 @@ class ParticleEmbeddingConfig:
 
     def build(self, generator: torch.Generator, device=None):
         if self.kind == "schnet":
-            raise NotImplementedError(
-                "the SchNet embedding (kind='schnet') is not ported yet "
-                "(ROADMAP.md, Queue 1 slice 4b)")
+            from vaemolsim_tpu_torch.nn import SchNetEmbedding
+            return SchNetEmbedding.create(
+                generator, self.info_dim, self.embedding_dim,
+                features=self.hidden_dim, num_blocks=self.num_blocks,
+                n_rbf=self.n_rbf, cutoff=self.rbf_cutoff,
+                mask_zero=self.mask_zero, pool=self.pool, device=device)
         if self.kind != "attention":
             raise ValueError(
                 f"kind must be 'attention' or 'schnet', got {self.kind!r}")

@@ -15,7 +15,9 @@ IndependentVonMises, IndependentDeterministic,
 StaticFlowedDistribution, FlowedDistribution, MappingToDistribution,
 FlowModel, the VAE and VAEDualELBO, the seven loss classes, the CG maps,
 DistanceSelection, the attention nets, VectorAttention, AttentionBlock,
-ParticleEmbedding, LocalParticleDescriptors and BackmappingOnly; and
+ParticleEmbedding, LocalParticleDescriptors and BackmappingOnly,
+VectorAttentionTwoStage, SchNetInteraction, SchNetEmbedding,
+SchNetPotential and JointBackmapping; and
 the molecular MD state: a ``CellNeighborList`` (either JAX build,
 evaluated by the port's cell-list energy) and an ``MDState``.  Batch-norm
 running moments become buffers.  Weights and arrays are copied
@@ -356,6 +358,48 @@ def _backmapping(o, device):
                            from_jax(o.decoder, device))
 
 
+def _two_stage(o, device):
+    from vaemolsim_tpu_torch.nn.attention import VectorAttentionTwoStage
+    return VectorAttentionTwoStage(_value_net(o.value_net, device),
+                                   _dense(o.merge, device),
+                                   _dense(o.join, device),
+                                   _score_net(o.score_net, device), o.reduce)
+
+
+def _schnet_interaction(o, device):
+    from vaemolsim_tpu_torch.nn.schnet import SchNetInteraction
+    return SchNetInteraction(*(_dense(getattr(o, f), device) for f in
+                               ("atom_in", "filter1", "filter2", "out1",
+                                "out2")))
+
+
+def _schnet_embedding(o, device):
+    from vaemolsim_tpu_torch.nn.schnet import SchNetEmbedding
+    return SchNetEmbedding(
+        _dense(o.info_net, device), _dense(o.center_net, device),
+        [_schnet_interaction(b, device) for b in o.blocks],
+        _dense(o.out1, device), _dense(o.out2, device), o.n_rbf, o.cutoff,
+        o.mask_zero, o.pool)
+
+
+def _schnet_potential(o, device):
+    from vaemolsim_tpu_torch.nn.schnet import SchNetPotential
+    return SchNetPotential(
+        _dense(o.species_net, device),
+        [_schnet_interaction(b, device) for b in o.blocks],
+        _dense(o.out1, device), _dense(o.out2, device),
+        _t(o.e_scale, device), _t(o.e_ref, device), o.n_rbf, o.cutoff)
+
+
+def _joint_backmapping(o, device):
+    from vaemolsim_tpu_torch.dists.joint import JointBackmapping
+    return JointBackmapping(_local_descriptors(o.cg_embed, device),
+                            _dense(o.residue_encoder, device),
+                            from_jax(o.mapping, device),
+                            from_jax(o.decoder_dist, device),
+                            o.dofs_per_residue)
+
+
 _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "Dense": _dense,
     "LayerNorm": _layer_norm,
@@ -408,6 +452,11 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "ParticleEmbedding": _particle_embedding,
     "LocalParticleDescriptors": _local_descriptors,
     "BackmappingOnly": _backmapping,
+    "VectorAttentionTwoStage": _two_stage,
+    "SchNetInteraction": _schnet_interaction,
+    "SchNetEmbedding": _schnet_embedding,
+    "SchNetPotential": _schnet_potential,
+    "JointBackmapping": _joint_backmapping,
     "CellNeighborList": _cell_neighbor_list,
     "MDState": _md_state,
     "LogProbLoss": _log_prob_loss,

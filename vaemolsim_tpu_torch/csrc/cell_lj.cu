@@ -474,6 +474,20 @@ cudaError_t launch_excl(bool excl, const Args& p, unsigned cells,
 
 }  // namespace
 
+// The most neighbour slots one launch takes at C centre slots, D
+// exclusions a centre, with species and charges or without: a multiple of
+// 32 up to 16384 whose block fits shared memory, 0 where none does.  The
+// caller spreads a larger neighbour block over launches of at most this
+// many slots each (ops/cell_lj.py `neighbour_runs`).
+extern "C" int cell_lj_max_slots(int C, int D, int species, int coulomb) {
+  if (C < 1 || D < 0) return 0;
+  for (int K = kMaxK; K >= 32; K -= 32)
+    if (4LL * layout(K, C, D, species != 0, coulomb != 0).words <=
+        kMaxDynamicSmem)
+      return K;
+  return 0;
+}
+
 // cxt (n_cells, 3, C), nxt (n_cells, 3, K) float32; cid (n_cells, 1, C),
 // nid (n_cells, 1, K) int32 (n_atoms = padding, anywhere in a block);
 // species blocks csig, cse (n_cells, 1, C) and nsig, nse (n_cells, 1, K),

@@ -9,7 +9,7 @@
 // unfused stack's cost is moving each (rows, hidden) intermediate through
 // device memory; the fused one's least time is its float32 FMAs (many
 // rows) or one read of its weights (one row).  No single layout serves
-// both ends, so the launcher picks one of three regimes from the shapes
+// both ends, so the launcher picks one of four regimes from the shapes
 // (ops/fused_mlp.py `stack_regime` mirrors the choice and the limits):
 //
 // * small N (n <= kSmallRows): one row cannot fill a 32-row tile on one
@@ -37,6 +37,15 @@
 //   4-column register micro-tile (a float4 of activations and four
 //   weights serve 16 FMAs).  A layer too narrow to occupy the block
 //   splits its depth over S lanes and reduces with shuffles.
+// * wide (one layer too wide for the tiled regime's shared memory: a
+//   width of 808 or more): an ordinary tiled matrix product with the bias
+//   and the activation in its epilogue.  A block owns a 64-row x 64-column
+//   output tile and walks the depth (the input, then the conditional
+//   input) in steps of 16, staging a 64 x 16 tile of activations
+//   (transposed) and a 16 x 64 tile of weights in shared memory; each
+//   thread keeps a 4 x 4 micro-tile in registers.  The layer's input and
+//   output pass through device memory, so a deep stack of wide layers is
+//   split into one launch a layer (ops/fused_mlp.py `stack_runs`).
 //
 // FP32 FMA throughout, no TF32, like the JAX kernel's HIGHEST precision.
 #include <cooperative_groups.h>
@@ -57,7 +66,10 @@ constexpr int kTileRows = 32;
 constexpr int kTileStride = kTileRows + 4;
 
 enum Act { kLinear = 0, kTanh = 1, kRelu = 2 };
-enum Regime { kRefused = 0, kSmall = 1, kStream = 2, kTiled = 3 };
+enum Regime { kRefused = 0, kSmall = 1, kStream = 2, kTiled = 3,
+              kWide = 4 };
+constexpr int kWideTile = 64;   // wide regime: output rows and columns
+constexpr int kWideDepth = 16;  // wide regime: depth per shared stage
 
 struct Stack {
   const float* W[kMaxLayers];  // (dims[l], dims[l+1]) row-major
@@ -432,6 +444,79 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Wide: one layer as a tiled matrix product, bias and activation after.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    dense_wide_kernel(const float* __restrict__ x,
+                      const float* __restrict__ c, float* __restrict__ out,
+                      long long n, Stack p) {
+  __shared__ __align__(16) float as[kWideDepth][kWideTile];  // (k, row)
+  __shared__ __align__(16) float ws[kWideDepth][kWideTile];  // (k, col)
+  const int d_in = p.dims[0], d_out = p.dims[1], dc = p.dc;
+  const int depth = d_in + dc;
+  const float* W = p.W[0];
+  const float* C = p.C[0];
+  const long long row0 = static_cast<long long>(blockIdx.x) * kWideTile;
+  const int col0 = blockIdx.y * kWideTile;
+  const int tid = threadIdx.x;
+  // Loads: a thread takes 4 consecutive depths of one row of the
+  // activations, and 4 consecutive columns of one depth of the weights.
+  const int a_row = tid / 4, a_k = 4 * (tid % 4);
+  const int w_k = tid / 16, w_col = 4 * (tid % 16);
+  // The micro-tile: rows 4 ty .. 4 ty + 3, columns 4 tx .. 4 tx + 3.
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < depth; k0 += kWideDepth) {
+    const long long row = row0 + a_row;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + a_k + q;
+      float v = 0.f;
+      if (row < n && k < depth)
+        v = k < d_in ? x[row * d_in + k] : c[row * dc + (k - d_in)];
+      as[a_k + q][a_row] = v;
+    }
+    const int kw = k0 + w_k;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = col0 + w_col + q;
+      float v = 0.f;
+      if (kw < depth && col < d_out)
+        v = kw < d_in ? __ldg(W + static_cast<size_t>(kw) * d_out + col)
+                      : __ldg(C + static_cast<size_t>(kw - d_in) * d_out +
+                              col);
+      ws[w_k][w_col + q] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWideDepth; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = row0 + 4 * ty + i;
+    if (row >= n) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = col0 + 4 * tx + q;
+      if (col < d_out)
+        out[row * d_out + col] = activate(acc[i][q] + __ldg(p.b[0] + col),
+                                          p.act[0]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Regime choice (mirrored by ops/fused_mlp.py `stack_regime`).
 // ---------------------------------------------------------------------------
 
@@ -469,6 +554,7 @@ Plan plan_for(long long n, const Stack& p) {
                        (2 * static_cast<size_t>(p.ld) + dc);
   if (bytes <= static_cast<size_t>(kMaxDynamicSmem))
     return {kTiled, bytes, 0, 0};
+  if (L == 1) return {kWide, 0, 0, 0};
   return {kRefused, bytes, 0, 0};
 }
 
@@ -501,8 +587,9 @@ cudaError_t launch_stream(const float* x, const float* c, float* out,
 // x: (n, dims[0]); c: (n, dc) or null; out: (n, dims[n_layers]).
 // W, b, C: arrays of n_layers device pointers (C entries null without a
 // conditional input).  Returns cudaErrorInvalidValue for a stack the
-// kernel does not take (too many layers, or no regime whose shared
-// memory fits at this n).
+// kernel does not take (too many layers, or a stack of two or more layers
+// with no regime whose shared memory fits at this n; a single layer
+// always has the wide regime).
 extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
                                   long long n, int n_layers,
                                   const int* dims, const int* acts,
@@ -562,6 +649,16 @@ extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
       default: err = launch_stream<8, 8>(x, c, out, n, p, plan.smem, stream);
     }
     return static_cast<int>(err);
+  }
+  if (plan.regime == kWide) {
+    const long long row_tiles = (n + kWideTile - 1) / kWideTile;
+    if (row_tiles > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(row_tiles),
+                    static_cast<unsigned>((p.dims[1] + kWideTile - 1) /
+                                          kWideTile));
+    dense_wide_kernel<<<grid, kThreads, 0, stream>>>(x, c, out, n, p);
+    return static_cast<int>(cudaGetLastError());
   }
   err = allow_smem(dense_tiled_kernel, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -11,7 +11,13 @@
 // row-major over (dof, param).  Widths and heights are softmax * span +
 // 1e-2, slopes softplus + 1e-2, then the RQS of each DOF (rqs.cuh),
 // identity outside the bins.  Outputs x (N, D) and the log-det summed
-// over DOFs (N,).  Float32 throughout, no TF32.
+// over DOFs (N,).  Float32 throughout, no TF32; or, in bf16 mode (the
+// JAX kernel's compute_dtype=bfloat16), the conditioner's operands y or
+// the context, K1, C1, the tanh output h, K2 and C2 each rounded to
+// bfloat16 (round to nearest even, as torch's .to(torch.bfloat16)) where
+// they are read, their products accumulated in float32, and the biases,
+// the tanh and the spline in float32.  The outputs are float32 in both
+// modes.
 //
 // The MADE's structure does the pruning.  Hidden unit j of each net has
 // degree j % (D-1) + 1 (0 when D = 1); DOF d has the input degree deg[d];
@@ -46,6 +52,12 @@
 // dependent instructions each).  CUDA-core FMAs; neither wgmma, TMA nor
 // TF32 is used.  Measured on an H100: removing the staging saves a
 // third of the time at D = 8, the FMAs a quarter, the splines a fifth.
+// The bf16 mode is the same kernel with its operands rounded as they are
+// read (a template flag, so the float32 mode is untouched): each product
+// of two bfloat16 numbers is exact in float32, so the FMAs sum exactly
+// the products the plain version's float32 matmul of the rounded
+// operands sums, in another order.
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -101,6 +113,13 @@ __host__ inline size_t smem_bytes(int T, int D, int H, int K, int C) {
   return sizeof(float) * floats + sizeof(int) * H;
 }
 
+// An operand of the conditioner's products: itself in float32 mode,
+// rounded to the nearest bfloat16 (ties to even) in bf16 mode.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 __device__ __forceinline__ float softplus(float v) {
   // torch.nn.functional.softplus with its threshold of 20.
   return v > 20.f ? v : log1pf(expf(v));
@@ -122,7 +141,10 @@ struct Tile {
 };
 
 // h for sorted units [k_lo, k_hi) of all three nets:
-// tanh(cur @ K1 [+ ctx @ C1] + b1), four rows per work item.
+// tanh(cur @ K1 [+ ctx @ C1] + b1), four rows per work item.  In bf16
+// mode the context is rounded already (at staging) and h is stored
+// rounded, as the K2 products read it.
+template <bool kBf16>
 __device__ void hidden_units(const Block& p, const Tile& t, int k_lo,
                              int k_hi) {
   const int D = p.D, H = p.H, C = p.C, T = p.T, H3 = 3 * H;
@@ -136,18 +158,18 @@ __device__ void hidden_units(const Block& p, const Tile& t, int k_lo,
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 8
     for (int i = 0; i < D; ++i) {
-      const float w = __ldg(p.k1 + i * H3 + col);
+      const float w = operand<kBf16>(__ldg(p.k1 + i * H3 + col));
       const float4 a = *reinterpret_cast<const float4*>(t.curT + i * T + r0);
-      acc[0] = fmaf(a.x, w, acc[0]);
-      acc[1] = fmaf(a.y, w, acc[1]);
-      acc[2] = fmaf(a.z, w, acc[2]);
-      acc[3] = fmaf(a.w, w, acc[3]);
+      acc[0] = fmaf(operand<kBf16>(a.x), w, acc[0]);
+      acc[1] = fmaf(operand<kBf16>(a.y), w, acc[1]);
+      acc[2] = fmaf(operand<kBf16>(a.z), w, acc[2]);
+      acc[3] = fmaf(operand<kBf16>(a.w), w, acc[3]);
     }
     if (C > 0) {
       float cacc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
       for (int c = 0; c < C; ++c) {
-        const float w = __ldg(p.c1 + c * H3 + col);
+        const float w = operand<kBf16>(__ldg(p.c1 + c * H3 + col));
         const float4 a = *reinterpret_cast<const float4*>(t.ctT + c * T + r0);
         cacc[0] = fmaf(a.x, w, cacc[0]);
         cacc[1] = fmaf(a.y, w, cacc[1]);
@@ -159,8 +181,10 @@ __device__ void hidden_units(const Block& p, const Tile& t, int k_lo,
     }
     const float bj = __ldg(p.b1 + col);
     *reinterpret_cast<float4*>(t.hT + (hd * H + k) * T + r0) =
-        make_float4(tanhf(acc[0] + bj), tanhf(acc[1] + bj),
-                    tanhf(acc[2] + bj), tanhf(acc[3] + bj));
+        make_float4(operand<kBf16>(tanhf(acc[0] + bj)),
+                    operand<kBf16>(tanhf(acc[1] + bj)),
+                    operand<kBf16>(tanhf(acc[2] + bj)),
+                    operand<kBf16>(tanhf(acc[3] + bj)));
   }
 }
 
@@ -187,7 +211,10 @@ __device__ __forceinline__ void stage_k2(const Block& p, const Tile& t, int d,
 }
 
 // DOF d's raw spline parameters into t.raw: its three heads over its
-// unmasked prefix of sorted hidden units, [+ ctx @ C2] + b2.
+// unmasked prefix of sorted hidden units, [+ ctx @ C2] + b2.  In bf16
+// mode the staged K2 entries and C2 are rounded as they are read (h and
+// the context are rounded already).
+template <bool kBf16>
 __device__ void dof_heads(const Block& p, const Tile& t, int d) {
   const int D = p.D, H = p.H, K = p.K, C = p.C, T = p.T;
   const int P = D * (3 * K - 1), Q = 3 * K - 1, KP = round4(K);
@@ -235,7 +262,8 @@ __device__ void dof_heads(const Block& p, const Tile& t, int d) {
           const float4 a = *reinterpret_cast<const float4*>(hs + kk * T);
           const float4 b =
               *reinterpret_cast<const float4*>(w + kk * 3 * KP);
-          const float wq[4] = {b.x, b.y, b.z, b.w};
+          const float wq[4] = {operand<kBf16>(b.x), operand<kBf16>(b.y),
+                               operand<kBf16>(b.z), operand<kBf16>(b.w)};
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             acc[0][q] = fmaf(a.x, wq[q], acc[0][q]);
@@ -261,7 +289,8 @@ __device__ void dof_heads(const Block& p, const Tile& t, int d) {
         float w[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          w[q] = q < nq ? __ldg(p.c2 + static_cast<size_t>(cc) * P + gcol + q)
+          w[q] = q < nq ? operand<kBf16>(__ldg(
+                              p.c2 + static_cast<size_t>(cc) * P + gcol + q))
                         : 0.f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -408,7 +437,7 @@ __device__ void dof_spline(const Block& p, const Tile& t, int d) {
   }
 }
 
-template <bool kInverse>
+template <bool kInverse, bool kBf16>
 __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D, H = p.H, K = p.K, C = p.C, T = p.T;
@@ -432,7 +461,8 @@ __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
   }
   for (int i = threadIdx.x; i < T * C; i += kThreads) {
     const int r = i / C, c = i % C;
-    t.ctT[c * T + r] = row0 + r < p.n ? p.ctx[(row0 + r) * C + c] : 0.f;
+    t.ctT[c * T + r] =
+        row0 + r < p.n ? operand<kBf16>(p.ctx[(row0 + r) * C + c]) : 0.f;
   }
   // Sorted position -> hidden unit: group g holds the units of degree g
   // in increasing order, j = g - 1 + m (D - 1) (j = m when D = 1).
@@ -445,10 +475,10 @@ __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
   __syncthreads();
 
   if (kInverse) {
-    hidden_units(p, t, 0, H);
+    hidden_units<kBf16>(p, t, 0, H);
     __syncthreads();
     for (int d = 0; d < D; ++d) {
-      dof_heads(p, t, d);  // synchronises before its first read
+      dof_heads<kBf16>(p, t, d);  // synchronises before its first read
       __syncthreads();
       dof_spline<true>(p, t, d);
       __syncthreads();
@@ -459,10 +489,10 @@ __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
     for (int pass = 1; pass <= D; ++pass) {
       // Units of degree pass - 1: their inputs are final now.
       if (p.start[pass] > p.start[pass - 1])
-        hidden_units(p, t, p.start[pass - 1], p.start[pass]);
+        hidden_units<kBf16>(p, t, p.start[pass - 1], p.start[pass]);
       __syncthreads();
       const int d = dof_of[pass];
-      dof_heads(p, t, d);
+      dof_heads<kBf16>(p, t, d);
       __syncthreads();
       dof_spline<false>(p, t, d);
       __syncthreads();
@@ -482,6 +512,16 @@ __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
   }
 }
 
+template <bool kInverse, bool kBf16>
+cudaError_t launch(const Block& p, unsigned blocks, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = maf_block_kernel<kInverse, kBf16>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y, x: (n, D); ctx: (n, C) or null with C = 0; ldj: (n,).  k1, b1, k2,
@@ -489,7 +529,8 @@ __global__ void __launch_bounds__(kThreads) maf_block_kernel(Block p) {
 // .merged_params()'s layout, MADE-masked for the input degrees `deg`
 // (D ints, a permutation of 1..D); `start` (D + 1 ints): start[g] hidden
 // units of each net have degree < g (ops/maf_fused.py
-// `hidden_degree_starts`).  span = bin_max - bin_min - K*1e-2.  Returns
+// `hidden_degree_starts`).  span = bin_max - bin_min - K*1e-2.  bf16: 1
+// for the bf16 mode (see the top of this file), 0 for float32.  Returns
 // cudaErrorInvalidValue for a block the kernel does not take (bad sizes,
 // D > 64, or a 4-row tile that does not fit shared memory).
 extern "C" int maf_block_launch(const float* y, const float* ctx,
@@ -498,7 +539,7 @@ extern "C" int maf_block_launch(const float* y, const float* ctx,
                                 const float* c1, const float* c2, float* x,
                                 float* ldj, long long n, int D, int H, int K,
                                 int C, float bin_min, float span, int inverse,
-                                const int* deg, const int* start,
+                                int bf16, const int* deg, const int* start,
                                 cudaStream_t stream) {
   if (D < 1 || D > kMaxDofs || H < 1 || K < 2 || C < 0 ||
       (C > 0) != (ctx != nullptr) || n < 0)
@@ -536,14 +577,11 @@ extern "C" int maf_block_launch(const float* y, const float* ctx,
   if (n == 0) return static_cast<int>(cudaSuccess);
   const unsigned blocks = static_cast<unsigned>((n + p.T - 1) / p.T);
   cudaError_t err;
-  if (inverse) {
-    err = allow_smem(maf_block_kernel<true>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    maf_block_kernel<true><<<blocks, kThreads, smem, stream>>>(p);
-  } else {
-    err = allow_smem(maf_block_kernel<false>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    maf_block_kernel<false><<<blocks, kThreads, smem, stream>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (inverse)
+    err = bf16 ? launch<true, true>(p, blocks, smem, stream)
+               : launch<true, false>(p, blocks, smem, stream);
+  else
+    err = bf16 ? launch<false, true>(p, blocks, smem, stream)
+               : launch<false, false>(p, blocks, smem, stream);
+  return static_cast<int>(err);
 }

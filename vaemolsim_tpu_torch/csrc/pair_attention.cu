@@ -28,7 +28,7 @@
 // and fitted two blocks of 84 KB on an SM: at B = 2000 a second wave of 22
 // blocks.
 //
-// Two regimes, chosen by the caller from the shapes (ops/attention.py
+// Three regimes, chosen by the caller from the shapes (ops/attention.py
 // `kernel_plan`, which also picks the lanes, units, frames per block and
 // shared memory that this file's launch only validates):
 //
@@ -76,7 +76,22 @@
 // only one rows block and that block only 16 or 8 lane groups, as at N =
 // 50, H = 64 (0.90 against 1.21 ms).
 //
-// No atomics in either regime: every sum has one order.  Neither wgmma,
+// Stream (H <= 256, frames whose pair grid fits neither regime: N = 100
+// at H = 40 needs 282 KB in the rows regime): a block owns one frame and
+// holds no (N, N) array.  Its lane groups own rows as in the rows regime,
+// with the same per-pair arithmetic, but read the node projections from
+// global memory (L1) and compute the invariants per pair from the frame's
+// coordinates; a group keeps one row's scores (N floats) and one row's
+// accumulators (H floats) in shared memory: 23 KB at N = 100, H = 40 (32
+// groups of 8 lanes).  Without reduce a row is the rows regime's: scores, the row's
+// softmax, values, and the head at once.  With reduce the grid's softmax
+// takes two passes: the first computes each row's scores, its maximum and
+// its sum of exponentials, merged per group and then over the block (in
+// group order); the second computes each row's scores again (the same
+// bits) and accumulates alpha act(LN(h_v)) over the group's rows, and the
+// block adds the groups' accumulators in group order before the head.
+//
+// No atomics in any regime: every sum has one order.  Neither wgmma,
 // TMA nor TF32 is used.
 #include <cuda_pipeline.h>
 
@@ -149,6 +164,15 @@ __host__ __device__ inline int grid_weight_floats(int H, int Fo) {
 
 __host__ __device__ inline int grid_frame_floats(int N, int H, int ld) {
   return 4 * N + 4 * N * ld + 7 * N * N + N * H + N;
+}
+
+// Stream regime: the value head's weights and biases, the frame's
+// coordinates and mask; per lane group, a row's scores and a row's
+// accumulators; three partials per group (the reduce softmax's maximum
+// and sum, the sum of alpha).
+__host__ __device__ inline int stream_floats(int N, int H, int Fo, int G) {
+  return round4(H * Fo + Fo) + round4(4 * N) +
+         G * (round4(N) + round4(H)) + 3 * G;
 }
 
 // Sums and maxima over a group of L lanes (unrolled, the steps past the
@@ -688,6 +712,229 @@ __global__ void __launch_bounds__(kThreads, 1) pair_attention_kernel_grid(
   }
 }
 
+template <int A, bool kReduce, int U>
+__global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
+    Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N, H = p.H, Fo = p.Fo, L = p.L;
+  const int G = kThreads / L;
+  float* w2v = smem;
+  float* b2v = w2v + H * Fo;
+  float* xyz = smem + round4(H * Fo + Fo);
+  float* msk = xyz + 3 * N;
+  float* rows = smem + round4(H * Fo + Fo) + round4(4 * N);
+  float* accs = rows + G * round4(N);
+  float* part = accs + G * round4(H);  // max (G), sum (G), sum alpha (G)
+  const long long fb = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int t = tid; t < H * Fo; t += kThreads) w2v[t] = p.w2_v[t];
+  for (int t = tid; t < Fo; t += kThreads) b2v[t] = p.b2_v[t];
+  for (int t = tid; t < 3 * N; t += kThreads) xyz[t] = p.coords[fb * 3 * N + t];
+  for (int t = tid; t < N; t += kThreads) msk[t] = p.mask[fb * N + t];
+  __syncthreads();
+
+  const int grp = tid / L, b = tid - grp * L, lane = tid & 31;
+  const unsigned gmask =
+      L == 32 ? kFull : (((1u << L) - 1u) << (lane & ~(L - 1)));
+  const float inv_h = 1.f / H;
+  const long long off = fb * static_cast<long long>(N) * H;
+  const float* __restrict__ nis = p.ni_s + off;
+  const float* __restrict__ njs = p.nj_s + off;
+  const float* __restrict__ niv = p.ni_v + off;
+  const float* __restrict__ njv = p.nj_v + off;
+  float* s_row = rows + grp * round4(N);
+  float* a_out = accs + grp * round4(H);
+
+  // The invariants of pair (i, j), as the rows regime stages them.
+  auto invariants = [&](int i, int j) {
+    const float xi = xyz[3 * i], yi = xyz[3 * i + 1], zi = xyz[3 * i + 2];
+    const float xj = xyz[3 * j], yj = xyz[3 * j + 1], zj = xyz[3 * j + 2];
+    const float cx = yi * zj - zi * yj, cy = zi * xj - xi * zj,
+                cz = xi * yj - yi * xj;
+    return make_float4(xi * xj + yi * yj + zi * zj,
+                       sqrtf(cx * cx + cy * cy + cz * cz + 1e-12f),
+                       xi * xi + yi * yi + zi * zi,
+                       xj * xj + yj * yj + zj * zj);
+  };
+
+  // Scores of row i into s_row (the rows regime's arithmetic).
+  auto scores = [&](int i) {
+    float wq[4][U], w2[U], a[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int k = b + L * m;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wq[c][m] = k < H ? p.wq_s[c * H + k] : 0.f;
+      w2[m] = k < H ? p.w2_s[k] : 0.f;
+      a[m] = k < H ? nis[i * H + k] + p.b1_s[k] : 0.f;
+    }
+    const float b2 = p.b2_s[0];
+    const float mi = msk[i];
+    for (int j = 0; j < N; ++j) {
+      float s = kNegInf;
+      if (mi * msk[j] > 0.5f) {
+        const float4 qq = invariants(i, j);
+        float part_s = 0.f;
+#pragma unroll
+        for (int m = 0; m < U; ++m) {
+          const int k = b + L * m;
+          float h = a[m] + (k < H ? njs[j * H + k] : 0.f);
+          h = fmaf(qq.x, wq[0][m], h);
+          h = fmaf(qq.y, wq[1][m], h);
+          h = fmaf(qq.z, wq[2][m], h);
+          h = fmaf(qq.w, wq[3][m], h);
+          part_s = fmaf(activate<A>(h), w2[m], part_s);
+        }
+        s = group_sum(part_s, gmask, L) + b2;
+      }
+      if (b == 0) s_row[j] = s;
+    }
+    __syncwarp(gmask);
+  };
+
+  // acc += sum_j alpha_ij act(LN(h_v,ij)) over row i, alpha_ij = wt(j, s).
+  auto values = [&](int i, float (&acc)[U], auto wt) {
+    float wq[4][U], g[U], beta[U], a[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) {
+      const int k = b + L * m;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wq[c][m] = k < H ? p.wq_v[c * H + k] : 0.f;
+      g[m] = k < H ? p.ln_g[k] : 0.f;
+      beta[m] = k < H ? p.ln_b[k] : 0.f;
+      a[m] = k < H ? niv[i * H + k] + p.b1_v[k] : 0.f;
+    }
+    float asum = 0.f;
+    for (int j = 0; j < N; ++j) {
+      const float alpha = wt(j, s_row[j]);
+      asum += alpha;
+      if (alpha == 0.f) continue;
+      const float4 qq = invariants(i, j);
+      float h[U];
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < U; ++m) {
+        const int k = b + L * m;
+        float v = a[m] + (k < H ? njv[j * H + k] : 0.f);
+        v = fmaf(qq.x, wq[0][m], v);
+        v = fmaf(qq.y, wq[1][m], v);
+        v = fmaf(qq.z, wq[2][m], v);
+        h[m] = fmaf(qq.w, wq[3][m], v);
+        sum += h[m];  // padding units hold exactly 0
+      }
+      const float mu = group_sum(sum, gmask, L) * inv_h;
+      float var = 0.f;
+#pragma unroll
+      for (int m = 0; m < U; ++m) {
+        h[m] -= mu;
+        if (b + L * m < H) var = fmaf(h[m], h[m], var);
+      }
+      const float rs = rsqrtf(fmaf(group_sum(var, gmask, L), inv_h, p.eps));
+#pragma unroll
+      for (int m = 0; m < U; ++m)
+        acc[m] = fmaf(alpha, activate<A>(fmaf(h[m] * rs, g[m], beta[m])),
+                      acc[m]);
+    }
+    return asum;
+  };
+
+  auto store = [&](float* dst, const float (&acc)[U]) {
+#pragma unroll
+    for (int m = 0; m < U; ++m)
+      if (b + L * m < H) dst[b + L * m] = acc[m];
+  };
+
+  if (!kReduce) {
+    for (int i = grp; i < N; i += G) {
+      scores(i);
+      // The row's softmax, in place, by the group (the rows regime's).
+      const float mi = msk[i];
+      float mx = -FLT_MAX;
+      for (int t = b; t < N; t += L) mx = fmaxf(mx, s_row[t]);
+      mx = group_max(mx, gmask, L);
+      float sum = 0.f;
+      for (int t = b; t < N; t += L) {
+        const float e = expf(s_row[t] - mx) * (mi * msk[t]);
+        s_row[t] = e;
+        sum += e;
+      }
+      const float inv = 1.f / fmaxf(group_sum(sum, gmask, L), 1e-30f);
+      __syncwarp(gmask);
+      float acc[U];
+#pragma unroll
+      for (int m = 0; m < U; ++m) acc[m] = 0.f;
+      const float asum =
+          values(i, acc, [&](int, float e) { return e * inv; });
+      store(a_out, acc);
+      __syncwarp(gmask);
+      for (int o = b; o < Fo; o += L) {
+        float v = 0.f;
+        for (int k = 0; k < H; ++k) v = fmaf(a_out[k], w2v[k * Fo + o], v);
+        p.out[(fb * N + i) * Fo + o] = fmaf(b2v[o], asum, v);
+      }
+      __syncwarp(gmask);  // s_row and a_out are the next row's
+    }
+    return;
+  }
+
+  // Pass 1: each group's running maximum and sum of exp(s - max) m_i m_j.
+  float gmax = -FLT_MAX, gsum = 0.f;
+  for (int i = grp; i < N; i += G) {
+    scores(i);
+    const float mi = msk[i];
+    float mx = -FLT_MAX;
+    for (int t = b; t < N; t += L) mx = fmaxf(mx, s_row[t]);
+    mx = group_max(mx, gmask, L);
+    float sum = 0.f;
+    for (int t = b; t < N; t += L) sum += expf(s_row[t] - mx) * (mi * msk[t]);
+    sum = group_sum(sum, gmask, L);
+    const float top = fmaxf(gmax, mx);
+    gsum = gsum * expf(gmax - top) + sum * expf(mx - top);
+    gmax = top;
+    __syncwarp(gmask);  // s_row is the next row's
+  }
+  if (b == 0) {
+    part[grp] = gmax;
+    part[G + grp] = gsum;
+  }
+  __syncthreads();
+  float top = -FLT_MAX;
+  for (int u = 0; u < G; ++u) top = fmaxf(top, part[u]);
+  float tot = 0.f;
+  for (int u = 0; u < G; ++u) tot += part[G + u] * expf(part[u] - top);
+  const float inv = 1.f / fmaxf(tot, 1e-30f);
+
+  // Pass 2: the scores again, alpha = exp(s - max) m_i m_j / sum.
+  float acc[U];
+#pragma unroll
+  for (int m = 0; m < U; ++m) acc[m] = 0.f;
+  float asum = 0.f;
+  for (int i = grp; i < N; i += G) {
+    scores(i);
+    const float mi = msk[i];
+    asum += values(i, acc, [&](int j, float s) {
+      return (expf(s - top) * (mi * msk[j])) * inv;
+    });
+    __syncwarp(gmask);
+  }
+  store(a_out, acc);
+  if (b == 0) part[2 * G + grp] = asum;
+  __syncthreads();
+  for (int k = tid; k < H; k += kThreads) {
+    float v = 0.f;
+    for (int u = 0; u < G; ++u) v += accs[u * round4(H) + k];
+    accs[k] = v;  // column k is this thread's alone
+  }
+  float atot = 0.f;
+  for (int u = 0; u < G; ++u) atot += part[2 * G + u];
+  __syncthreads();
+  for (int o = tid; o < Fo; o += kThreads) {
+    float v = 0.f;
+    for (int k = 0; k < H; ++k) v = fmaf(accs[k], w2v[k * Fo + o], v);
+    p.out[fb * Fo + o] = fmaf(b2v[o], atot, v);
+  }
+}
+
 template <typename K>
 cudaError_t launch(K kernel, const Args& p, unsigned blocks, size_t smem,
                    cudaStream_t stream) {
@@ -697,33 +944,43 @@ cudaError_t launch(K kernel, const Args& p, unsigned blocks, size_t smem,
   return cudaGetLastError();
 }
 
-template <int A, bool kReduce>
-cudaError_t launch_regime(bool grid, int units, const Args& p,
-                          unsigned blocks, size_t smem, cudaStream_t stream) {
-  if (grid)
-    return launch(pair_attention_kernel_grid<A, kReduce>, p, blocks, smem,
-                  stream);
-  if (units == 2)
-    return launch(pair_attention_kernel<A, kReduce, 2>, p, blocks, smem,
-                  stream);
-  if (units == 4)
-    return launch(pair_attention_kernel<A, kReduce, 4>, p, blocks, smem,
-                  stream);
-  if (units == 5)
-    return launch(pair_attention_kernel<A, kReduce, 5>, p, blocks, smem,
-                  stream);
-  return launch(pair_attention_kernel<A, kReduce, 8>, p, blocks, smem,
+enum Regime { kRows = 0, kGrid = 1, kStream = 2 };
+
+template <int A, bool kReduce, int U>
+cudaError_t launch_units(int regime, const Args& p, unsigned blocks,
+                         size_t smem, cudaStream_t stream) {
+  if (regime == kStream)
+    return launch(pair_attention_kernel_stream<A, kReduce, U>, p, blocks,
+                  smem, stream);
+  return launch(pair_attention_kernel<A, kReduce, U>, p, blocks, smem,
                 stream);
 }
 
+template <int A, bool kReduce>
+cudaError_t launch_regime(int regime, int units, const Args& p,
+                          unsigned blocks, size_t smem, cudaStream_t stream) {
+  if (regime == kGrid)
+    return launch(pair_attention_kernel_grid<A, kReduce>, p, blocks, smem,
+                  stream);
+  if (units == 2)
+    return launch_units<A, kReduce, 2>(regime, p, blocks, smem, stream);
+  if (units == 4)
+    return launch_units<A, kReduce, 4>(regime, p, blocks, smem, stream);
+  if (units == 5)
+    return launch_units<A, kReduce, 5>(regime, p, blocks, smem, stream);
+  return launch_units<A, kReduce, 8>(regime, p, blocks, smem, stream);
+}
+
 template <bool kReduce>
-cudaError_t launch_act(int act, bool grid, int units, const Args& p,
+cudaError_t launch_act(int act, int regime, int units, const Args& p,
                        unsigned blocks, size_t smem, cudaStream_t stream) {
   if (act == kRelu)
-    return launch_regime<kRelu, kReduce>(grid, units, p, blocks, smem, stream);
+    return launch_regime<kRelu, kReduce>(regime, units, p, blocks, smem,
+                                         stream);
   if (act == kTanh)
-    return launch_regime<kTanh, kReduce>(grid, units, p, blocks, smem, stream);
-  return launch_regime<kLinear, kReduce>(grid, units, p, blocks, smem,
+    return launch_regime<kTanh, kReduce>(regime, units, p, blocks, smem,
+                                         stream);
+  return launch_regime<kLinear, kReduce>(regime, units, p, blocks, smem,
                                          stream);
 }
 
@@ -733,12 +990,13 @@ cudaError_t launch_act(int act, bool grid, int units, const Args& p,
 // wq_s, wq_v (4, H); b1_s, w2_s, b1_v, ln_g, ln_b (H,); b2_s (1,);
 // w2_v (H, Fo); b2_v (Fo,); out (B, N, Fo), or (B, Fo) with reduce.
 // act: 0 linear, 1 relu, 2 tanh.  The plan is the caller's: regime (0
-// rows, 1 grid), lanes per row and units per lane (rows), frames per
-// block and the dynamic shared memory in bytes.  Returns
-// cudaErrorInvalidValue for bad sizes and for a plan that the kernel
-// cannot run: lanes not a power of two up to 32, units not compiled or
-// lanes x units < H, frames outside [1, 8], or shared memory short of the
-// frames' need or above the card's limit.
+// rows, 1 grid, 2 stream), lanes per row and units per lane (rows,
+// stream), frames per block (1 in the stream regime) and the dynamic
+// shared memory in bytes.  Returns cudaErrorInvalidValue for bad sizes
+// and for a plan that the kernel cannot run: lanes not a power of two up
+// to 32, units not compiled or lanes x units < H, frames outside [1, 8]
+// (or not 1 in the stream regime), or shared memory short of the plan's
+// need or above the card's limit.
 extern "C" int pair_attention_launch(
     const float* coords, const float* ni_s, const float* nj_s,
     const float* ni_v, const float* nj_v, const float* mask,
@@ -749,21 +1007,24 @@ extern "C" int pair_attention_launch(
     int act, int reduce, float eps, int regime, int lanes, int units,
     int frames, long long smem, cudaStream_t stream) {
   if (B < 0 || N < 1 || H < 1 || Fo < 1 || act < kLinear || act > kTanh ||
-      regime < 0 || regime > 1 || frames < 1 || frames > kMaxFrames ||
+      regime < kRows || regime > kStream || frames < 1 ||
+      frames > kMaxFrames || (regime == kStream && frames != 1) ||
       smem < 0 || smem > kMaxDynamicSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool grid = regime == 1;
+  const bool grid = regime == kGrid;
   const int ld = H | 1;
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  const bool units_ok = units == 2 || units == 4 || units == 5 || units == 8;
+  if (!grid && (!lanes_ok || !units_ok || lanes * units < H))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long need =
       grid ? 4LL * (grid_weight_floats(H, Fo) +
                     static_cast<long long>(frames) * grid_frame_floats(N, H, ld))
-           : 4LL * (weight_floats(H, Fo) +
-                    static_cast<long long>(frames) * frame_floats(N, H));
-  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
-  const bool units_ok = units == 2 || units == 4 || units == 5 || units == 8;
-  if (smem < need ||
-      (!grid && (!lanes_ok || !units_ok || lanes * units < H)))
-    return static_cast<int>(cudaErrorInvalidValue);
+      : regime == kStream
+          ? 4LL * stream_floats(N, H, Fo, kThreads / lanes)
+          : 4LL * (weight_floats(H, Fo) +
+                   static_cast<long long>(frames) * frame_floats(N, H));
+  if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   Args p{coords, ni_s, nj_s, ni_v, nj_v, mask, wq_s, b1_s, w2_s, b2_s,
          wq_v, b1_v, ln_g, ln_b, w2_v, b2_v, out, B, N, H, Fo, frames,
@@ -771,7 +1032,7 @@ extern "C" int pair_attention_launch(
   const unsigned blocks = static_cast<unsigned>((B + frames - 1) / frames);
   const size_t bytes = static_cast<size_t>(smem);
   const cudaError_t err =
-      reduce ? launch_act<true>(act, grid, units, p, blocks, bytes, stream)
-             : launch_act<false>(act, grid, units, p, blocks, bytes, stream);
+      reduce ? launch_act<true>(act, regime, units, p, blocks, bytes, stream)
+             : launch_act<false>(act, regime, units, p, blocks, bytes, stream);
   return static_cast<int>(err);
 }

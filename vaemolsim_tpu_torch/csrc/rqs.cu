@@ -7,7 +7,8 @@
 // flops), but at the main path's sizes (one broadcast row, N = 10k-50k:
 // under a microsecond of traffic) the time is one thread's latency
 // chain plus the launch.  Two kernels, by the parameters' layout:
-// - One broadcast row (p_rows == 1; the constant-spline prior): each
+// - One broadcast row whose table fits shared memory (p_rows == 1, smem
+//   given; the constant-spline prior): each
 //   block stages the row into shared memory and builds its knot table
 //   there, thread k summing knot k left to right as rqs_eval does
 //   (rqs.cuh); each thread then finds its element's bin by binary
@@ -17,9 +18,11 @@
 //   element: runs of 2 or 4 elements a thread with 8- and 16-byte loads
 //   were slower on the H100 at 10k and 50k.  Threads a block are the
 //   plan's (ops/rqs.py `kernel_plan`).
-// - A row per element (p_rows > 1): one thread per element walks its
-//   row with the knot sums in registers (rqs_eval); element i reads row
-//   i % p_rows; the ragged edge is masked, not padded.
+// - A row per element (p_rows > 1), or one broadcast row of more bins
+//   than a table in shared memory holds (K > 4469, no smem given): one
+//   thread per element walks its row with the knot sums in registers
+//   (rqs_eval); element i reads row i % p_rows; the ragged edge is
+//   masked, not padded.
 #include "common.cuh"
 #include "rqs.cuh"
 
@@ -73,13 +76,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 // uses parameter row i % p_rows.  The launch plan (threads a block,
 // blocks, dynamic shared bytes) comes from ops/rqs.py `kernel_plan`; it
 // is only checked here: threads a multiple of 32 in [32, 256], a thread
-// an element; the shared bytes the row's table needs (0 per-row).
+// an element; the shared bytes the row's table needs with one row and a
+// table (smem > 0), 0 for the walk.
 extern "C" int rqs_launch(const float* x, const float* w, const float* h,
                           const float* s, float* y, float* ldj, long long n,
                           int K, long long p_rows, float range_min,
                           int inverse, int threads, long long blocks,
                           long long smem, cudaStream_t stream) {
-  const bool row = p_rows == 1;
+  const bool row = p_rows == 1 && smem != 0;
   const size_t want_smem = row ? row_smem(K) : 0;
   if (K < 1 || p_rows < 1 || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || blocks != (n + threads - 1) / threads ||

@@ -14,3 +14,7 @@ from vaemolsim_tpu_torch.dists.layers import (  # noqa: F401
     register_family,
     register_von_mises_mixture,
 )
+from vaemolsim_tpu_torch.dists.joint import (  # noqa: F401
+    JointBackmapping,
+    JointBackmappingDistribution,
+)

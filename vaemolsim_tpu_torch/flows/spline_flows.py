@@ -24,11 +24,13 @@ MAFLayer runs a whole block through the MAF-block kernel
 (``ops/maf_fused.py``, ``csrc/maf_block.cu``) on every CUDA input that
 the kernel supports: a mergeable conditioner whose three nets share one
 hidden width, a spline that is not circular, a 2-D input (and context),
-the float32 compute dtype, at most ``maf_fused.MAX_DOFS`` DOFs (the
-kernel is given the conditioner's input degrees), and not the 1-D
-unconditional block, which
-keeps its constant-spline shortcut (one conditioner row for the whole
-batch).  Every other block, and every CPU input, takes the unfused route
+the float32 or the bfloat16 compute dtype (the kernel's bf16 mode
+rounds the conditioner's operands to bfloat16 and accumulates in
+float32, as the merged conditioner does under
+``set_compute_dtype(torch.bfloat16)``), at most ``maf_fused.MAX_DOFS``
+DOFs (the kernel is given the conditioner's input degrees), and not the
+1-D unconditional block, which keeps its constant-spline shortcut (one
+conditioner row for the whole batch).  Every other block, and every CPU input, takes the unfused route
 (conditioner through the dense-stack kernel, then the RQS kernel).
 There is no switch: the JAX package's ``set_maf_fused`` /
 ``maf_fused_enabled`` chose a backend for the TPU, where its own study
@@ -256,10 +258,13 @@ class MaskedSplineConditioner(nn.Module):
                 cond=conditional_input,
                 cond_kernels=None if c1 is None else [c1, c2])
         else:
-            # Low-precision products with float32 accumulation and a
-            # float32 tanh, as the JAX merged path does.
+            # Low-precision operands with float32 accumulation and a
+            # float32 tanh, as the JAX merged path does: the operands are
+            # rounded to ``cd`` and widened again, so that each product
+            # is exact in float32 and the sum is a float32 sum (a product
+            # taken in ``cd`` would round the sum itself to ``cd``).
             def mm(a, b):
-                return (a.to(cd) @ b.to(cd)).to(torch.float32)
+                return a.to(cd).float() @ b.to(cd).float()
 
             ctx = conditional_input
             h = torch.tanh(mm(x, k1) + b1 + (mm(ctx, c1) if c1 is not None
@@ -301,7 +306,7 @@ class MAFLayer(bj.Bijector, nn.Module):
         if not (t.is_cuda and cond.mergeable and not cond.circular
                 and t.dim() == 2
                 and (context is None or context.dim() == 2)
-                and compute_dtype() in (None, torch.float32)
+                and compute_dtype() in maf_fused.COMPUTE_DTYPES
                 and (cond.w_net.event_size > 1 or cond.conditional)
                 and cond.w_net.event_size <= maf_fused.MAX_DOFS
                 and len({n.kernels[0].shape[1] for n in cond.nets}) == 1):
@@ -322,9 +327,11 @@ class MAFLayer(bj.Bijector, nn.Module):
         cond = self.conditioner
         fn = (maf_fused.maf_block_inverse_fused if inverse
               else maf_fused.maf_block_forward_fused)
+        from vaemolsim_tpu_torch.nn.core import compute_dtype
         return fn(t, params, ctx, cond.w_net.event_size, cond.num_bins,
                   cond.bin_min, cond.bin_max,
-                  degrees=cond.w_net.input_order_static)
+                  degrees=cond.w_net.input_order_static,
+                  compute_dtype=compute_dtype())
 
     def _spline(self, t: Tensor, context: Optional[Tensor]):
         cond = self.conditioner

@@ -17,6 +17,7 @@ from vaemolsim_tpu_torch.mcmc.engine import (  # noqa: F401
     make_mcmc_step,
     mh_propose,
     run_mcmc,
+    run_mcmc_checkpointed,
     vae_proposal_fns,
 )
 from vaemolsim_tpu_torch.mcmc.free_energy import (  # noqa: F401

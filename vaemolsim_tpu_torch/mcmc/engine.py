@@ -24,7 +24,8 @@ import torch
 Tensor = torch.Tensor
 
 __all__ = ["MCMCState", "apply_mh", "mh_propose", "make_mcmc_step",
-           "run_mcmc", "vae_proposal_fns", "MCMC", "log_uniform"]
+           "run_mcmc", "run_mcmc_checkpointed", "vae_proposal_fns", "MCMC",
+           "log_uniform"]
 
 
 def log_uniform(generator: torch.Generator, shape, dtype=torch.float32,
@@ -130,6 +131,32 @@ def run_mcmc(step_fn: Callable[[MCMCState], MCMCState], state: MCMCState,
         if collect_every and (i + 1) % collect_every == 0:
             traj.append(state.configs)
     return state, (torch.stack(traj) if collect_every else None)
+
+
+def run_mcmc_checkpointed(step_fn: Callable[[MCMCState], MCMCState],
+                          state: MCMCState, n_steps: int,
+                          checkpoint_every: int, manager) -> MCMCState:
+    """Run ``n_steps`` steps in segments of ``checkpoint_every``, saving
+    the whole chain state after each through ``manager`` (a
+    ``train.CheckpointManager``): configurations, energies, the exact
+    counters and the generator's state (``Generator.get_state()``), which
+    is all a step draws from (the fused step's Philox key words too).
+    Resume by restoring the latest state into a template
+    (``manager.restore(state)``) and calling again with the remaining
+    steps: the run then goes on bit for bit as if it had not stopped.
+    Step ids continue from ``manager.latest_step()``, so a resumed run
+    never reuses an id."""
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got "
+                         f"{checkpoint_every}")
+    base = manager.latest_step() or 0
+    done = 0
+    while done < n_steps:
+        seg = min(checkpoint_every, n_steps - done)
+        state, _ = run_mcmc(step_fn, state, seg)
+        done += seg
+        manager.save(base + done, state)
+    return state
 
 
 def vae_proposal_fns(vae, train: bool = False):

@@ -20,5 +20,15 @@ from vaemolsim_tpu_torch.nn.attention import (  # noqa: F401
     LocalParticleDescriptors,
     ParticleEmbedding,
     VectorAttention,
+    VectorAttentionTwoStage,
     pair_invariants,
+)
+from vaemolsim_tpu_torch.nn.schnet import (  # noqa: F401
+    SchNetEmbedding,
+    SchNetInteraction,
+    SchNetPotential,
+    cosine_cutoff,
+    energy_force_loss,
+    gaussian_rbf,
+    shifted_softplus,
 )

@@ -14,12 +14,22 @@ A CUDA :class:`VectorAttention` whose wiring the pair-attention kernel
 supports runs through it (``ops/attention.py``, ``csrc/pair_attention.cu``):
 one activation, relu, tanh or linear, shared by the score trunk and the
 value net, no activation on ``value_net.d1`` or on either head, and the
-float32 compute dtype.  Every other wiring takes the plain path.  There
+float32 compute dtype.  Every other wiring takes the plain path, and so
+does a call whose shapes the kernel's launch plan refuses
+(``ops.attention.kernel_plan``: a hidden width above 256 with a frame
+beyond the grid regime, or a frame of more than about 1500 particles),
+decided from the shapes before any launch and counted in the kernel's
+``plain_routes`` on the card.  There
 is no switch: the JAX package's ``set_attention_pallas`` /
 ``use_attention_pallas`` chose a TPU backend that its own study measured
 slower than XLA; here the kernel is the route whenever it applies.  On
 the CPU the kernel route runs the kernel's plain version.
-``VectorAttentionTwoStage`` and the SchNet embedding are still to come.
+
+``VectorAttentionTwoStage`` (``attention="two_stage"``) is the
+paper-faithful two-stage layer: a value net on the pair invariants
+alone, a learned merge of the node values, a learned join of the two,
+and scores from the joined representation.  The JAX package runs it on
+XLA; here it is plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -34,13 +44,14 @@ from vaemolsim_tpu_torch.nn.core import (Dense, LayerNorm, compute_dtype,
                                          resolve_activation)
 from vaemolsim_tpu_torch.nn.mappings import DistanceSelection
 from vaemolsim_tpu_torch.ops.attention import (_NEG_INF, ACT_CODES,
+                                               KERNEL, kernel_plan,
                                                pair_attention,
                                                pair_invariants)
 
 Tensor = torch.Tensor
 
-__all__ = ["pair_invariants", "VectorAttention", "AttentionBlock",
-           "ParticleEmbedding", "LocalParticleDescriptors"]
+__all__ = ["pair_invariants", "VectorAttention", "VectorAttentionTwoStage",
+           "AttentionBlock", "ParticleEmbedding", "LocalParticleDescriptors"]
 
 
 def _dense_blocks(d: Dense, parts: Sequence[Tuple[Tensor, Optional[str]]]
@@ -146,9 +157,19 @@ class VectorAttention(nn.Module):
                 and ACT_CODES.get(v.d2.activation) == 0
                 and compute_dtype() in (None, torch.float32))
 
+    def kernel_takes(self, frames: int, n: int) -> bool:
+        """Whether the kernel's launch plan takes ``frames`` clouds of
+        ``n`` particles at this layer's widths (decided from the shapes
+        alone, before any launch)."""
+        return not kernel_plan(frames, n, self.score_net.d1.out_dim,
+                               self.value_net.d2.out_dim)["refused"]
+
     def forward(self, coords: Tensor, values: Tensor,
                 mask: Optional[Tensor] = None) -> Tensor:
-        if self.kernel_wiring:
+        if self.kernel_wiring and not self.kernel_takes(
+                coords[..., 0, 0].numel(), coords.shape[-2]):
+            KERNEL.route_plain(coords)
+        elif self.kernel_wiring:
             maskf = (torch.ones(coords.shape[:-1], dtype=coords.dtype,
                                 device=coords.device) if mask is None
                      else mask.to(coords.dtype))
@@ -250,17 +271,75 @@ class AttentionBlock(nn.Module):
         return self.post_d2(act(self.post_ln(self.post_d1(new)))) + embedding
 
 
+class VectorAttentionTwoStage(nn.Module):
+    """The two-stage geometric-algebra attention (Spellings 2021 §3, the
+    layer the reference configures): ``value_net`` reads the pair
+    invariants alone; ``merge`` projects ``concat(v_i, v_j)``; ``join``
+    projects ``concat(merged, value_net(q_ij))``; ``score_net`` scores
+    the joined representation, and the output is the attention-weighted
+    sum of the joined representations.  Same call and invariances as
+    :class:`VectorAttention`.  Plain PyTorch (split-weight Dense over the
+    grid, as ``_dense_blocks``)."""
+
+    def __init__(self, value_net: _ValueNet, merge: Dense, join: Dense,
+                 score_net: _ScoreNet, reduce: bool = False):
+        super().__init__()
+        self.value_net, self.merge, self.join = value_net, merge, join
+        self.score_net = score_net
+        self.reduce = reduce
+
+    @classmethod
+    def create(cls, generator, value_dim: int, out_dim: int,
+               hidden_dim: int = 40, reduce: bool = False,
+               activation: str = "relu",
+               device=None) -> "VectorAttentionTwoStage":
+        device = default_device(device)
+        return cls(_ValueNet.create(generator, 4, hidden_dim, out_dim,
+                                    activation, device),
+                   Dense.create(generator, 2 * value_dim, out_dim,
+                                device=device),
+                   Dense.create(generator, 2 * out_dim, out_dim,
+                                device=device),
+                   _ScoreNet.create(generator, out_dim, hidden_dim,
+                                    activation, device), reduce)
+
+    def forward(self, coords: Tensor, values: Tensor,
+                mask: Optional[Tensor] = None) -> Tensor:
+        N = coords.shape[-2]
+        inv_vals = self.value_net(pair_invariants(coords))
+        merged = _dense_blocks(self.merge, [(values, "i"), (values, "j")])
+        joined = _dense_blocks(self.join, [(merged, None),
+                                           (inv_vals, None)])
+        scores = self.score_net(joined)
+        pair_mask = (None if mask is None
+                     else mask[..., :, None] & mask[..., None, :])
+        if pair_mask is not None:
+            scores = torch.where(pair_mask, scores,
+                                 torch.full_like(scores, _NEG_INF))
+        if self.reduce:
+            flat = scores.reshape(scores.shape[:-2] + (N * N,))
+            alpha = torch.softmax(flat, -1).reshape(scores.shape)
+            out = torch.einsum("...ij,...ijf->...f", alpha, joined)
+            if mask is not None:
+                out = torch.where(mask.any(-1)[..., None], out, 0.0)
+            return out
+        alpha = torch.softmax(scores, -1)
+        if pair_mask is not None:
+            alpha = torch.where(pair_mask, alpha, 0.0)
+        return torch.einsum("...ij,...ijf->...if", alpha, joined)
+
+
 def _make_attention(kind: str, generator, value_dim: int, out_dim: int,
                     hidden_dim: int, reduce: bool, activation: str, device):
+    if kind == "fused":
+        return VectorAttention.create(generator, value_dim, out_dim,
+                                      hidden_dim, reduce, activation, device)
     if kind == "two_stage":
-        raise NotImplementedError(
-            "VectorAttentionTwoStage (attention='two_stage') is not ported "
-            "yet (ROADMAP.md, Queue 1 slice 4b)")
-    if kind != "fused":
-        raise ValueError(
-            f"attention must be 'fused' or 'two_stage', got {kind!r}")
-    return VectorAttention.create(generator, value_dim, out_dim, hidden_dim,
-                                  reduce, activation, device)
+        return VectorAttentionTwoStage.create(generator, value_dim, out_dim,
+                                              hidden_dim, reduce, activation,
+                                              device)
+    raise ValueError(
+        f"attention must be 'fused' or 'two_stage', got {kind!r}")
 
 
 class ParticleEmbedding(nn.Module):

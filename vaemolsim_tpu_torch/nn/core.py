@@ -58,7 +58,8 @@ def set_compute_dtype(dtype) -> None:
     """Matmul compute dtype for Dense/MADE stacks (e.g. ``torch.bfloat16``);
     outputs are cast back to the input dtype.  ``None`` restores full
     precision.  The dense-stack kernel runs float32 only, so any other
-    dtype takes the plain path."""
+    dtype takes its plain path; the MAF-block kernel also has a bf16 mode,
+    which keeps a bfloat16 MAF block on the kernel."""
     global _COMPUTE_DTYPE
     _COMPUTE_DTYPE = dtype
 

@@ -59,6 +59,7 @@ _THREADS, _MAX_FRAMES, _MIN_BLOCKS, _MAX_SMEM = 256, 8, 264, 232448
 _SM_SMEM, _BLOCK_RESERVE = 233472, 1024
 _UNITS = (2, 4, 5, 8)
 _GRID_PAIRS = 512
+_REGIMES = {"rows": 0, "grid": 1, "stream": 2}
 
 
 def _frames(B: int, want: int, smem_of) -> int:
@@ -87,10 +88,14 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
     regime or one within 4% of it (chip_turns.py's sweep); the grid wins
     where an SM holds one rows block of 16 or 8 lane groups (N = 50 and 64
     at H = 64, N = 50 at H = 100, N = 37 and 50 at H = 128, N = 37 at H =
-    200).  ``smem`` bytes per block, ``blocks``;
-    ``refused`` where no regime fits one frame in shared memory.  A
-    given ``regime`` is taken where the shapes allow it (to measure or
-    test one regime at a shape the rule gives the other)."""
+    200).  "stream" where H <= 256 and one frame fits neither (N = 100
+    at H = 40): a block a frame, the rows regime's lane groups, no (N, N)
+    array in shared memory, only a row's scores and accumulators per
+    group.  ``smem`` bytes per block, ``blocks``; ``refused`` where no
+    regime fits a block's shared memory (H > 256 with a frame beyond the
+    grid regime, or N above 1552 at H = 40).  A given ``regime``
+    is taken where the shapes allow it (to measure or test one regime at
+    a shape the rule gives another)."""
     def r4(v):
         return (v + 3) & ~3
 
@@ -109,7 +114,12 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
         return 4 * (13 * H + H * Fo + Fo + 1
                     + T * (4 * N + 4 * N * ld + 7 * N * N + N * H + N))
 
+    def stream_smem(G):
+        return 4 * (r4(H * Fo + Fo) + r4(4 * N) + G * (r4(N) + r4(H))
+                    + 3 * G)
+
     rows_ok = units is not None and rows_smem(1) <= _MAX_SMEM
+    asked = regime
     if regime is None:
         two = 2 * (rows_smem(1) + _BLOCK_RESERVE) <= _SM_SMEM
         regime = ("rows" if rows_ok and (two or _THREADS // lanes >= 32
@@ -123,6 +133,10 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
         T = _frames(B, -(-_GRID_PAIRS // (N * N)), grid_smem)
         plan = dict(regime="grid", lanes=None, units=None, frames=T,
                     smem=grid_smem(T))
+    if units is not None and (asked == "stream" or (
+            asked is None and plan["smem"] > _MAX_SMEM)):
+        plan = dict(regime="stream", lanes=lanes, units=units, frames=1,
+                    smem=stream_smem(_THREADS // lanes))
     plan.update(blocks=-(-B // plan["frames"]),
                 refused=plan["smem"] > _MAX_SMEM)
     return plan
@@ -197,8 +211,7 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
                         b2_v: Tensor, *, reduce: bool, act=None,
                         ln_eps: float = 1e-3) -> Tensor:
     """Launch ``csrc/pair_attention.cu`` on float32 CUDA tensors with the
-    plan of :func:`kernel_plan`.  Raises where one frame's pair grid does
-    not fit shared memory."""
+    plan of :func:`kernel_plan`.  Raises where the plan is refused."""
     if coords.dim() != 3 or coords.shape[-1] != 3:
         raise ValueError(f"coords: expected (B, N, 3), got "
                          f"{tuple(coords.shape)}")
@@ -230,7 +243,7 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
                       device=coords.device)
     KERNEL.launch(coords.device, *[t.data_ptr() for t in args],
                   out.data_ptr(), B, N, H, Fo, ACT_CODES[act], int(reduce),
-                  float(ln_eps), int(plan["regime"] == "grid"),
+                  float(ln_eps), _REGIMES[plan["regime"]],
                   plan["lanes"] or 0, plan["units"] or 0, plan["frames"],
                   plan["smem"])
     return out

@@ -22,7 +22,12 @@ layout.  Padding slots carry the id ``n_atoms``.
 Pallas function's signature, shapes and outputs.
 :func:`cell_pair_energy_force_cuda` launches ``csrc/cell_lj.cu`` on
 CUDA tensors.  :func:`cell_pair_energy_force` runs the plain version on
-a CPU tensor; on a CUDA tensor it launches the kernel or raises.  The
+a CPU tensor; on a CUDA tensor it launches the kernel or raises.  A
+neighbour block larger than one launch takes (16384 slots, or less
+where a block's shared memory runs out first) is spread over several
+launches, each on a run of the neighbour slots (:func:`neighbour_runs`),
+whose half-energies and gradients add: every term is a sum over
+neighbour slots.  The
 kernel and the plain version both take erfc from the math library
 (``erfcf``, ``torch.special.erfc``); the Pallas kernel used an
 Abramowitz-Stegun form, within 1.5e-7 of it.  The pair displacement and
@@ -43,8 +48,8 @@ from vaemolsim_tpu_torch import _build
 Tensor = torch.Tensor
 
 __all__ = ["cell_pair_energy_force", "cell_pair_energy_force_plain",
-           "cell_pair_energy_force_cuda", "cluster_split", "SLOPE_F",
-           "KERNEL"]
+           "cell_pair_energy_force_cuda", "cluster_split",
+           "neighbour_runs", "max_slots", "SLOPE_F", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "cell_lj", "csrc/cell_lj.cu", "cell_lj_launch",
@@ -56,6 +61,31 @@ KERNEL = _build.Kernel(
 # cell (the split is decided here and only validated by the launch),
 # aiming at 2 centres per warp.
 WARPS, MAX_SPLIT, CENTRES_PER_WARP = 8, 8, 2
+_max_slots: dict = {}
+
+
+def max_slots(C: int, D: int = 0, species: bool = False,
+              coulomb: bool = False) -> int:
+    """The most neighbour slots one launch of ``csrc/cell_lj.cu`` takes
+    (its ``cell_lj_max_slots``, from its own shared-memory layout; needs
+    the built library).  Raises where no launch takes C centre slots."""
+    key = (C, D, bool(species), bool(coulomb))
+    if key not in _max_slots:
+        _max_slots[key] = KERNEL.query("cell_lj_max_slots", C, D,
+                                       int(species), int(coulomb))
+    if _max_slots[key] < 1:
+        raise ValueError(f"cell_lj: a block of C = {C} centre slots does "
+                         f"not fit shared memory")
+    return _max_slots[key]
+
+
+def neighbour_runs(K: int, most: int) -> list:
+    """The runs ``(first, end)`` of K neighbour slots, one launch each:
+    all K in one where ``most`` (the slots a launch takes,
+    :func:`max_slots`) allows, else equal runs of at most ``most``."""
+    n = -(-K // most)
+    size = -(-K // n)
+    return [(lo, min(lo + size, K)) for lo in range(0, K, size)]
 
 
 def cluster_split(n_atoms: int, n_cells: int) -> int:
@@ -197,8 +227,34 @@ def cell_pair_energy_force_cuda(
 def cell_pair_energy_force(cxt: Tensor, *args, **kwargs
                            ) -> Tuple[Tensor, Tensor]:
     """The cell-pair block: the plain version on a CPU tensor, the kernel
-    on a CUDA tensor.  Not differentiable itself: it returns the gradient
+    on a CUDA tensor, in the neighbour runs of :func:`neighbour_runs`.
+    Not differentiable itself: it returns the gradient
     (``potentials.lennard_jones_cell_neighbor`` wraps it)."""
-    if cxt.is_cuda:
-        return cell_pair_energy_force_cuda(cxt, *args, **kwargs)
-    return cell_pair_energy_force_plain(cxt, *args, **kwargs)
+    if not cxt.is_cuda:
+        return cell_pair_energy_force_plain(cxt, *args, **kwargs)
+    return _split_call(cell_pair_energy_force_cuda, cxt, *args, **kwargs)
+
+
+def _split_call(fn, cxt: Tensor, *args, **kwargs) -> Tuple[Tensor, Tensor]:
+    """``fn`` (the kernel's wrapper, or any function of its signature) on
+    each run of :func:`neighbour_runs`, the half-energies and gradients
+    added."""
+    nxt, cid, nid, species, charge, exclusion = (
+        list(args) + [None] * (6 - len(args)))
+    species = kwargs.pop("species", species)
+    charge = kwargs.pop("charge", charge)
+    exclusion = kwargs.pop("exclusion", exclusion)
+    runs = neighbour_runs(nxt.shape[-1], max_slots(
+        cxt.shape[-1], 0 if exclusion is None else exclusion.shape[1],
+        species is not None, charge is not None))
+    e = grad = None
+    for lo, hi in runs:
+        def part(t):
+            return t[..., lo:hi].contiguous() if len(runs) > 1 else t
+        sp = None if species is None else [
+            t if i % 2 == 0 else part(t) for i, t in enumerate(species)]
+        ch = None if charge is None else [charge[0], part(charge[1])]
+        e_r, g_r = fn(cxt, part(nxt), cid, part(nid), sp, ch, exclusion,
+                      **kwargs)
+        e, grad = (e_r, g_r) if e is None else (e + e_r, grad + g_r)
+    return e, grad

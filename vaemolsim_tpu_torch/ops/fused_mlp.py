@@ -8,12 +8,19 @@ relu, and the float32 compute dtype.  Inside that set a CUDA tensor runs
 ``csrc/dense_stack.cu``, whose gradient recomputes through
 :func:`dense_stack_plain`; outside it, or on the CPU, the plain version
 runs.  Weights keep the JAX ``(in, out)`` layout.
+
+A stack the kernel cannot take in one launch is split, from its shapes
+alone, before any launch (:func:`stack_runs`): into runs of at most
+``_MAX_LAYERS`` layers, each the longest whose launch plan is not
+refused, each one launch.  A single layer always has a plan: one too
+wide for the tiled regime's shared memory (808 or more at more than 16
+rows) takes the wide regime, a tiled matrix product.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,7 +29,7 @@ from vaemolsim_tpu_torch import _build
 Tensor = torch.Tensor
 
 __all__ = ["fused_dense_stack", "dense_stack_plain", "dense_stack_cuda",
-           "stack_regime", "KERNEL"]
+           "stack_regime", "stack_runs", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "dense_stack", "csrc/dense_stack.cu", "dense_stack_launch",
@@ -53,7 +60,9 @@ def stack_regime(n: int, dims: Sequence[int], dc: int = 0
     layer's weights), ``"stream"`` (two layers, din + dc + 1 <= 8
     and dout <= 8, one thread per row), ``"tiled"`` (32-row tiles),
     or ``"refused"`` where none fits; the first that fits, in that
-    order."""
+    order.  A single layer that none of them takes runs ``"wide"`` (a
+    tiled matrix product, 64 x 64 output tiles, no dynamic shared
+    memory)."""
     L = len(dims) - 1
     if n <= _SMALL_ROWS:
         slice_ = max([-(-d // _CLUSTER) for d in dims[1:L]], default=0)
@@ -69,7 +78,26 @@ def stack_regime(n: int, dims: Sequence[int], dc: int = 0
                     return "stream", stream
                 break
     tiled = 4 * _TILE_STRIDE * (2 * max(dims) + dc)
-    return ("tiled" if tiled <= _MAX_SMEM else "refused"), tiled
+    if tiled <= _MAX_SMEM:
+        return "tiled", tiled
+    return ("wide", 0) if L == 1 else ("refused", tiled)
+
+
+def stack_runs(n: int, dims: Sequence[int], dc: int = 0
+               ) -> List[Tuple[int, int]]:
+    """How a stack of widths ``dims`` at ``n`` rows (conditional input
+    ``dc`` wide) is split into launches: ``(first layer, end layer)``
+    runs in order, each the longest run from ``first`` of at most
+    ``_MAX_LAYERS`` layers whose plan is not refused (a single layer's
+    never is)."""
+    runs, lo, L = [], 0, len(dims) - 1
+    while lo < L:
+        hi = min(lo + _MAX_LAYERS, L)
+        while stack_regime(n, dims[lo:hi + 1], dc)[0] == "refused":
+            hi -= 1
+        runs.append((lo, hi))
+        lo = hi
+    return runs
 
 
 def dense_stack_plain(x: Tensor, kernels: Sequence[Tensor],
@@ -180,7 +208,7 @@ def fused_dense_stack(x: Tensor, kernels: Sequence[Tensor],
                       cond_kernels: Optional[Sequence[Tensor]] = None
                       ) -> Tensor:
     """Dense stack: the kernel for a CUDA tensor inside its supported
-    set, the plain version otherwise."""
+    set, in the runs of :func:`stack_runs`; the plain version otherwise."""
     from vaemolsim_tpu_torch.nn.core import compute_dtype
     supported = (all(a in _ACT_CODES for a in activations)
                  and compute_dtype() in (None, torch.float32))
@@ -189,5 +217,22 @@ def fused_dense_stack(x: Tensor, kernels: Sequence[Tensor],
                                  cond_kernels)
     if (cond is None) != (cond_kernels is None):
         raise ValueError("cond and cond_kernels must be provided together")
-    return _call(dense_stack_cuda, x, kernels, biases, activations, cond,
-                 cond_kernels)
+    return _split_call(dense_stack_cuda, x, kernels, biases, activations,
+                       cond, cond_kernels)
+
+
+def _split_call(kernel_fn, x: Tensor, kernels: Sequence[Tensor],
+                biases: Sequence[Tensor],
+                activations: Sequence[Optional[str]],
+                cond: Optional[Tensor],
+                cond_kernels: Optional[Sequence[Tensor]]) -> Tensor:
+    """The stack in the runs of :func:`stack_runs`, ``kernel_fn`` (through
+    :func:`_call`) on each."""
+    dims = [x.shape[-1]] + [W.shape[-1] for W in kernels]
+    dc = 0 if cond is None else cond.shape[-1]
+    h = x
+    for lo, hi in stack_runs(x[..., 0].numel(), dims, dc):
+        h = _call(kernel_fn, h, kernels[lo:hi], biases[lo:hi],
+                  activations[lo:hi], cond,
+                  None if cond is None else cond_kernels[lo:hi])
+    return h

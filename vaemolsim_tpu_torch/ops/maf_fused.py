@@ -13,6 +13,11 @@ gives per DOF K widths, K heights and K-1 knot slopes (columns
 the RQS of each DOF, identity outside the bins.  The inverse (density)
 is one pass; the forward (sampling) is the D-pass fixed point.  Both
 return ``(x (N, D), ldj (N,))`` with the log-det summed over DOFs.
+With ``compute_dtype=torch.bfloat16`` (the JAX kernel's bf16 mode) the
+conditioner's operands, y or the context, K1, C1, the tanh output, K2
+and C2, are each rounded to bfloat16 (round to nearest even) before
+their products, which accumulate in float32; the biases, the tanh, the
+spline and its log-det stay float32, and so do the outputs.
 ``params`` is ``(k1, b1, k2, b2)``, or ``(k1, b1, k2, b2, c1, c2)`` with
 a context ``(N, C)``; the layout is ``MaskedSplineConditioner
 .merged_params()``'s.  The kernel takes the weights as
@@ -49,18 +54,29 @@ Tensor = torch.Tensor
 
 __all__ = ["maf_block_plain", "maf_block_cuda", "maf_block_inverse_fused",
            "maf_block_forward_fused", "hidden_degrees",
-           "hidden_degree_starts", "hidden_order", "MAX_DOFS", "KERNEL"]
+           "hidden_degree_starts", "hidden_order", "MAX_DOFS",
+           "COMPUTE_DTYPES", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "maf_block", "csrc/maf_block.cu", "maf_block_launch",
     [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-       ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p, ctypes.c_void_p],
     replaces="vaemolsim_tpu/ops/maf_fused.py:171")
 
 # csrc/maf_block.cu's kMaxDofs: the per-DOF degrees ride in the launch's
 # parameter block.
 MAX_DOFS = 64
+# The compute dtypes the kernel takes: float32 (None is float32) and its
+# bf16 mode.
+COMPUTE_DTYPES = (None, torch.float32, torch.bfloat16)
+
+
+def _bf16(compute_dtype) -> bool:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"the MAF block takes the compute dtypes "
+                         f"{COMPUTE_DTYPES}, got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
 
 
 def hidden_degrees(data_dim: int, hidden: int) -> np.ndarray:
@@ -108,21 +124,29 @@ def _span(bin_min: float, bin_max: float, num_bins: int) -> float:
 
 def maf_block_plain(y: Tensor, params: Sequence[Tensor],
                     ctx: Optional[Tensor], data_dim: int, num_bins: int,
-                    bin_min: float, bin_max: float, inverse: bool
-                    ) -> Tuple[Tensor, Tensor]:
-    """The block in plain PyTorch (the reference and the gradient path)."""
+                    bin_min: float, bin_max: float, inverse: bool,
+                    compute_dtype=None) -> Tuple[Tensor, Tensor]:
+    """The block in plain PyTorch (the reference and the gradient path).
+    In bf16 mode each product's operands are rounded to bfloat16 and
+    widened again, so that the float32 matmul sums exact products."""
     k1, b1, k2, b2 = params[:4]
     D, K = data_dim, num_bins
     span = _span(bin_min, bin_max, K)
+    if _bf16(compute_dtype):
+        def mm(a, b):
+            return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+    else:
+        def mm(a, b):
+            return a @ b
 
     def conditioner(t):
-        h = t @ k1
+        h = mm(t, k1)
         if ctx is not None:
-            h = h + ctx @ params[4]
+            h = h + mm(ctx, params[4])
         h = torch.tanh(h + b1)
-        out = h @ k2
+        out = mm(h, k2)
         if ctx is not None:
-            out = out + ctx @ params[5]
+            out = out + mm(ctx, params[5])
         out = out + b2
         lead = out.shape[:-1]
         raw_w = out[..., :D * K].reshape(lead + (D, K))
@@ -145,13 +169,15 @@ def maf_block_plain(y: Tensor, params: Sequence[Tensor],
 def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
                    ctx: Optional[Tensor], data_dim: int, num_bins: int,
                    bin_min: float, bin_max: float, inverse: bool,
-                   degrees: Optional[Sequence[int]] = None
-                   ) -> Tuple[Tensor, Tensor]:
+                   degrees: Optional[Sequence[int]] = None,
+                   compute_dtype=None) -> Tuple[Tensor, Tensor]:
     """Launch ``csrc/maf_block.cu`` on float32 CUDA tensors, for weights
     MADE-masked for the input ``degrees`` (required; see the module
-    docstring for the entries of ``k2`` that are not read).  A block
-    whose 4-row tile does not fit shared memory is refused by the
+    docstring for the entries of ``k2`` that are not read), in the
+    kernel's bf16 mode when ``compute_dtype`` is ``torch.bfloat16``.  A
+    block whose 4-row tile does not fit shared memory is refused by the
     kernel's launch, which raises."""
+    bf16 = _bf16(compute_dtype)
     if y.dim() != 2 or y.shape[1] != data_dim:
         raise ValueError(f"the MAF-block kernel takes (N, {data_dim}) rows, "
                          f"got {tuple(y.shape)}")
@@ -186,15 +212,16 @@ def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
                   _build.ptr(c1), _build.ptr(c2), x.data_ptr(),
                   ldj.data_ptr(), n, D, H, K, C, float(bin_min),
                   float(_span(bin_min, bin_max, K)), int(inverse),
-                  (ctypes.c_int * D)(*deg),
-                  (ctypes.c_int * (D + 1))(*hidden_degree_starts(D, H)))
+                  int(bf16), (ctypes.c_int * D)(*deg),
+                  (ctypes.c_int * (D + 1))(*hidden_degree_starts(D, H)),
+                  mode="bf16" if bf16 else None)
     return x, ldj
 
 
 def _call(kernel_fn: Callable, y: Tensor, params: Sequence[Tensor],
           ctx: Optional[Tensor], data_dim: int, num_bins: int,
           bin_min: float, bin_max: float, inverse: bool,
-          degrees: Optional[Sequence[int]] = None):
+          degrees: Optional[Sequence[int]] = None, compute_dtype=None):
     """``kernel_fn`` on the block (given ``degrees=`` where it takes
     them), differentiable through the plain version with respect to y,
     every merged parameter and the context."""
@@ -208,42 +235,44 @@ def _call(kernel_fn: Callable, y: Tensor, params: Sequence[Tensor],
                       inverse, **kw)
         return run
 
+    mode = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
     kw = {} if degrees is None else {"degrees": degrees}
     tensors = [y, *params] + ([ctx] if has_ctx else [])
-    return _build.call_with_plain_grad(unpack(kernel_fn, **kw),
-                                       unpack(maf_block_plain), *tensors)
+    return _build.call_with_plain_grad(unpack(kernel_fn, **kw, **mode),
+                                       unpack(maf_block_plain, **mode),
+                                       *tensors)
 
 
 def _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-              inverse, degrees):
+              inverse, degrees, compute_dtype):
     if not y.is_cuda:
         return maf_block_plain(y, params, ctx, data_dim, num_bins, bin_min,
-                               bin_max, inverse)
+                               bin_max, inverse, compute_dtype)
     return _call(maf_block_cuda, y, params, ctx, data_dim, num_bins,
                  bin_min, bin_max, inverse,
-                 _degree_args(degrees, data_dim))
+                 _degree_args(degrees, data_dim), compute_dtype)
 
 
 def maf_block_inverse_fused(y: Tensor, params: Sequence[Tensor],
                             ctx: Optional[Tensor], data_dim: int,
                             num_bins: int, bin_min: float, bin_max: float,
-                            degrees: Optional[Sequence[int]] = None
-                            ) -> Tuple[Tensor, Tensor]:
+                            degrees: Optional[Sequence[int]] = None,
+                            compute_dtype=None) -> Tuple[Tensor, Tensor]:
     """The block's inverse (density) pass: (x, ldj summed over DOFs).
     On CUDA the weights must be block-diagonal and MADE-masked for the
     input ``degrees``, which the kernel then needs."""
     return _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-                     True, degrees)
+                     True, degrees, compute_dtype)
 
 
 def maf_block_forward_fused(y: Tensor, params: Sequence[Tensor],
                             ctx: Optional[Tensor], data_dim: int,
                             num_bins: int, bin_min: float, bin_max: float,
-                            degrees: Optional[Sequence[int]] = None
-                            ) -> Tuple[Tensor, Tensor]:
+                            degrees: Optional[Sequence[int]] = None,
+                            compute_dtype=None) -> Tuple[Tensor, Tensor]:
     """The block's forward (sampling) pass, the D-pass fixed point:
     (x, ldj summed over DOFs).  On CUDA the weights must be
     block-diagonal and MADE-masked for the input ``degrees``, which the
     kernel then needs."""
     return _dispatch(y, params, ctx, data_dim, num_bins, bin_min, bin_max,
-                     False, degrees)
+                     False, degrees, compute_dtype)

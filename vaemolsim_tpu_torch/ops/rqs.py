@@ -11,7 +11,10 @@ the output shape is the broadcast of both.
 :func:`rqs_forward` / :func:`rqs_inverse` run the plain PyTorch version
 on a CPU tensor and the CUDA kernel ``csrc/rqs.cu`` on a CUDA tensor
 (float32 only; anything else raises).  The kernel's gradient recomputes
-through the plain version.  The circular splines stay plain PyTorch, as
+through the plain version.  One broadcast row whose knot table does not
+fit a block's shared memory (more than 4469 bins) runs the same kernel's
+walk, which has no such limit (:func:`kernel_plan`).  The circular
+splines stay plain PyTorch, as
 on the TPU, where the kernel had no circular branch either.
 """
 
@@ -55,21 +58,22 @@ def kernel_plan(n: int, K: int, p_rows: int,
                 threads: int | None = None) -> dict:
     """How ``csrc/rqs.cu`` runs a call, decided here and only validated
     by the kernel's launch: a thread an element.  One broadcast row
-    (``p_rows == 1``): ``threads`` a block a multiple of 32, at least
-    K + 1 (each knot of the table one thread's sum) and at least 128, at
-    most 256 (128 and 256 were the fastest at 10k and 50k elements,
-    chip_turns.py's sweep); the shared bytes of the row's knot table and
-    the row itself, ``refused`` where they exceed a block's shared
-    memory (K above 4469).  A given ``threads`` is taken as it is, to
-    measure one plan at a shape.  A row per element: 256 threads a
-    block, no shared memory."""
-    if p_rows == 1:
+    (``p_rows == 1``) whose knot table fits a block's shared memory (K up
+    to 4469): the ``"table"`` regime, ``threads`` a block a multiple of
+    32, at least K + 1 (each knot of the table one thread's sum) and at
+    least 128, at most 256 (128 and 256 were the fastest at 10k and 50k
+    elements, chip_turns.py's sweep), and the shared bytes of the row's
+    knot table and the row itself.  A given ``threads`` is taken as it
+    is, to measure one plan at a shape.  Otherwise (a row per element,
+    or a broadcast row of more bins) the ``"walk"``: 256 threads a
+    block, no shared memory, each thread walking its element's row."""
+    smem = 4 * (table_floats(K) + 3 * K)
+    if p_rows == 1 and smem <= MAX_SMEM:
         if threads is None:
             threads = min(256, max(128, 32 * -(-(K + 1) // 32)))
-        smem = 4 * (table_floats(K) + 3 * K)
-        return dict(threads=threads, blocks=-(-n // threads), smem=smem,
-                    refused=smem > MAX_SMEM)
-    return dict(threads=256, blocks=-(-n // 256), smem=0, refused=False)
+        return dict(regime="table", threads=threads,
+                    blocks=-(-n // threads), smem=smem)
+    return dict(regime="walk", threads=256, blocks=-(-n // 256), smem=0)
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +210,6 @@ def rqs_cuda(x: Tensor, widths: Tensor, heights: Tensor, slopes: Tensor,
     s = _build.require(_param_rows(slopes, batch, K - 1), "knot_slopes",
                        (rows, K - 1))
     plan = kernel_plan(xf.numel(), K, rows)
-    if plan["refused"]:
-        raise ValueError(f"the RQS kernel's knot table of K = {K} bins "
-                         f"does not fit a block's shared memory")
     out = torch.empty_like(xf)
     ldj = torch.empty_like(xf)
     KERNEL.launch(x.device, xf.data_ptr(), w.data_ptr(), h.data_ptr(),

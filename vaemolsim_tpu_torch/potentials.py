@@ -41,7 +41,8 @@ __all__ = ["harmonic_bonds", "exclusions_from_bonds", "lennard_jones",
 
 _EPS = 1e-12  # guards sqrt gradients at coincident points
 _TWO_OPI = 2.0 / math.sqrt(math.pi)
-_LATER = "ROADMAP.md, Queue 1, slice 5b"
+_LATER = "ROADMAP.md, Queue 1 item 3, slice 11"
+_MESH = "ROADMAP.md, Queue 1 item 4, slice 12"
 
 
 def _f32(a, device) -> Tensor:
@@ -231,7 +232,7 @@ def lennard_jones_cell_neighbor(
     ``(args, kwargs)``.  ``mesh=`` is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
-            f"a mesh-sharded cell grid is not ported yet ({_LATER}: "
+            f"a mesh-sharded cell grid is not ported yet ({_MESH}: "
             "mesh-sharded cell grid over torch.distributed)")
     if skin < 0:
         raise ValueError(f"skin must be >= 0; got {skin}")
@@ -675,7 +676,7 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
             "box= for an orthorhombic box")
     if mesh is not None:
         raise NotImplementedError(
-            f"mesh-sharded PME is not ported yet ({_LATER}: PME over "
+            f"mesh-sharded PME is not ported yet ({_MESH}: PME over "
             "torch.distributed)")
     q_np = np.asarray(charges, np.float64)
     if q_np.ndim != 1:
