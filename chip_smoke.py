@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD,
-sampling-stack paths, the rest of the reference library's surface and
-joint backmapping with its tools on one NVIDIA GPU.
+sampling-stack paths, the rest of the reference library's surface,
+joint backmapping with its tools and the rest of the molecular stack on
+one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
 1. builds the CUDA kernels from ``vaemolsim_tpu_torch/csrc`` (nvcc, one
-   process per source, in parallel);
+   process per source, in parallel, from a thread), and meanwhile runs
+   the slice-11 phases that launch no kernel (examples 22, 14 + 19 + 21
+   and 13, item 11);
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the paths below, with the tolerances stated beside
    each check, and times both by CUDA events behind a device spin, so
@@ -116,12 +119,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    (kernel 3's bf16 mode against its plain version and against its
    float32 mode's time, MLE steps, sampling); and the shapes whose
    one-launch plan the kernels refuse (split launches, the dense stack's
-   wide regime, the counted plain attention route) with kernel 1's
-   log-det outliers against float64.
+   wide regime, kernel 5's stream regime) with kernel 1's log-det
+   outliers against float64;
+11. runs slice 11 at the examples' --full widths, with fewer steps
+   (PERF.md section 4 lists the cuts) and each example's own asserts:
+   example 15's molten salt (1728 ions; the split Ewald sum, kernel 6's
+   erfc mode plus the reciprocal sum, against the dense sum, also with
+   TF32 allowed; BAOAB on the neighbour list; charge ordering; kernel 6
+   at that shape), example 39 (512 dimers; PME and kernel 6 against the
+   exact Ewald sum; bonds, charge ordering, kT), example 22 (rigid water
+   with SHAKE / RATTLE and Ewald, its polar run and apolar control in
+   one batch, constrained NVE, a TF32 run), example 11 (the Boltzmann
+   generator: HMC, the 3-block MAF by MLE and reverse KL on kernels 3
+   and 2, flow MC; kernel 3 at that shape; gradients against a CPU
+   copy), examples 14, 19 and 21 (NPT, GCMC and Gibbs-ensemble MC),
+   example 13 (soft-core decoupling, MBAR against TI), and kernel 5's
+   key-chunked stream regime at N = 1553, 4096 and 8192 and at H = 300
+   and 512.
 
 Every path runs with the launch counters zeroed just before it and read
-just after, and fails if it took a shape-decided plain route (the
-kernels' ``plain_routes``).  Any failed check raises and the script
+just after; a path whose layers reach kernel 5 fails unless it launched
+it (a CUDA call never takes a plain version).  Any failed check raises
+and the script
 exits non-zero;
 there is no CPU fallback.  The last stdout lines are the card's name and
 power limit, one JSON line of per-kernel results, and
@@ -138,6 +157,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -215,7 +235,7 @@ RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 10, 10_000
 STATS_CHAINS, STATS_STEPS = 10_000, 1500
 HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 200, 10
 FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 400, 96, 20
-TFEP_N, TFEP_STEPS = 20_000, 1500
+TFEP_N, TFEP_STEPS = 20_000, 500
 REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
 ST_RUNGS, ST_CHAINS, ST_STEPS = 6, 2000, 2000
 # Slice 9 at full width: the dual ELBO and the HVAE (5 leapfrog steps)
@@ -1107,7 +1127,7 @@ def backmapping_path(dev):
             lp = bm.log_prob(ref, coords, info, tors)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = path_counts("backmapping_path")
+        counts = path_counts("backmapping_path", expect=("pair_attention",))
         predict_wall, prof = profiled(lambda: bm.predict(ref, coords, info,
                                                          gen))
         busy_us, pa_us = device_time(prof, "pair_attention_kernel")
@@ -2522,7 +2542,7 @@ def backmapping_ar_path(dev):
             lp = bm.log_prob(ref, coords, info, tors)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        counts = path_counts("backmapping_ar_path")
+        counts = path_counts("backmapping_ar_path", expect=("pair_attention",))
         busy = busy_share(lambda: bm.predict(ref, coords, info, gen), 1)
         R = torch.tensor(np.linalg.qr(np.random.default_rng(48).normal(
             size=(3, 3)))[0], dtype=torch.float32, device=dev)
@@ -2604,19 +2624,18 @@ def check_slice9_kernels(made, bn_model, gen, dev):
 # ---------------------------------------------------------------------------
 
 
-def path_counts(name):
+def path_counts(name, expect=()):
     """The launch counts since the last reset, with each kernel's
     named-mode launches as ``<kernel>_<mode>`` (the MAF block's bf16
-    mode: ``maf_block_bf16``); fails if a call of this main path took a
-    shape-decided plain route (``plain_routes``)."""
+    mode: ``maf_block_bf16``); fails unless every kernel named in
+    ``expect`` launched on this main path."""
     counts = _build.launch_counts()
     for kname, k in _build.KERNELS.items():
         for mode, n in k.mode_launches.items():
             counts[f"{kname}_{mode}"] = n
-    plain = _build.plain_route_counts()
-    RESULTS.setdefault("plain_routes", {})[name] = plain
-    fail_unless(not any(plain.values()),
-                f"{name}: a main path took a plain route: {plain}")
+    RESULTS.setdefault("path_launches", {})[name] = dict(counts)
+    fail_unless(all(counts.get(k, 0) > 0 for k in expect),
+                f"{name}: expected launches of {expect}, got {counts}")
     return counts
 
 
@@ -2917,7 +2936,8 @@ def joint_backmapping_path(dev):
     with torch.no_grad():
         _build.reset_launches()
         lp = att(cg, info).log_prob(x)
-        att_counts = path_counts("joint_backmapping_attention_log_prob")
+        att_counts = path_counts("joint_backmapping_attention_log_prob",
+                                 expect=("pair_attention",))
         fail_unless(att_counts["pair_attention"] > 0
                     and att_counts["dense_stack"] > 0,
                     f"attention log_prob launch counts {att_counts}")
@@ -2931,7 +2951,8 @@ def joint_backmapping_path(dev):
         cg.to(d), info.to(d)).log_prob(x.to(d)).mean(), dev)
     _build.reset_launches()
     _, ms_att, _ = jb_train(att, cg, info, x, 20)
-    att_train = path_counts("joint_backmapping_attention_train")
+    att_train = path_counts("joint_backmapping_attention_train",
+                            expect=("pair_attention",))
     fail_unless(att_train["pair_attention"] > 0,
                 f"attention training launch counts {att_train}")
     with torch.no_grad():
@@ -3424,12 +3445,10 @@ def repairs_path(dev):
     err = max(compare("cell_lj K=18900 e", e, e_p, 1e-3, 1e-4),
               compare("cell_lj K=18900 grad", g, g_p, 1e-3, 1e-4))
     out["cell_lj 27 x 700 slots"] = (err, cell_lj.KERNEL.launches - before)
-    plain = _build.plain_route_counts()
-    print(f"repairs: {out}; plain routes taken {plain}", flush=True)
+    print(f"repairs: {out}", flush=True)
     fail_unless(out["dense_stack 9 layers"][1] == 2
                 and out["FCDeepNN [1024, 1024]"][1] == 3,
                 f"dense-stack repair launches {out}")
-    fail_unless(not any(plain.values()), f"plain routes {plain}")
     runs = len(cell_lj.neighbour_runs(Kn, cell_lj.max_slots(C)))
     fail_unless(out["VectorAttention N=100"][1] == 1
                 and out["rqs broadcast K=4470"][1] == 2 and runs > 1
@@ -3437,8 +3456,916 @@ def repairs_path(dev):
                 f"repair launches {out}")
     RESULTS["repairs"] = {k: list(v) if isinstance(v, tuple) else v
                           for k, v in out.items()}
-    RESULTS["repairs_plain_routes"] = plain
     return out, rqs_outliers(dev)
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: Ewald and the remaining force-field terms, constrained and
+# thermostatted MD, observables, NPT / GCMC / Gibbs MC, and kernel 5's
+# key-chunked stream regime
+# ---------------------------------------------------------------------------
+
+# Example 15 at --full (1728 ions) with its MD cut to MS_STEPS; example 39
+# at --full width (512 dimers) with EX_EQUIL + EX_PROD steps; example 22 at
+# --full (24 molecules, 8 replicas) with RW_STEPS a run; example 11 at
+# --full widths with BG_* cuts; examples 14, 19 and 21 at --full widths
+# with NPT_STEPS, GC_SWEEPS and GB_SWEEPS; example 13 at --full width with
+# AL_STEPS.  PERF.md section 4 lists every cut beside the example's own.
+MS_LAT, MS_STEPS, MS_TOL = 12, 1000, 1e-5
+EX_MOL, EX_EQUIL, EX_PROD, EX_CHUNK = 512, 250, 1000, 250
+RW_MOL, RW_STEPS, RW_REPLICAS, RW_TF32_STEPS = 24, 5000, 8, 200
+BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 7, 50
+BG_PROPOSALS, BG_TUNE_ROUNDS = 100, 10
+NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 400
+NPT_PRESSURES = (0.01, 0.02, 0.05, 0.1, 0.2)
+GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 1200, 96, 3000
+AL_REPLICAS, AL_WINDOWS, AL_STEPS = 1024, 11, 1500
+# Kernel 5's key-chunked stream regime at the shapes the plans refused
+# before it: (B, N, H).
+PA_CHUNKED = ((2, 1553, 40), (2, 4096, 40), (2, 400, 300), (2, 1024, 512))
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card_busy(fn, per, dev):
+    """busy_share on the card; (None, None, None) on the CPU."""
+    return busy_share(fn, per) if dev.type == "cuda" else (None, None, None)
+
+
+def rock_salt(n_lat, rho, q_abs):
+    """Example 15's start: an even rock-salt lattice at density rho,
+    charge +-q by site parity (exactly neutral)."""
+    n = n_lat ** 3
+    L = float((n / rho) ** (1.0 / 3.0))
+    g = np.stack(np.meshgrid(*[np.arange(n_lat)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    return L, g * (L / n_lat), np.where(g.sum(-1) % 2 == 0, q_abs, -q_abs)
+
+
+def first_shell(x, L, sign, r_shell, mol=None):
+    """(opposite-charge, like-charge) pair counts within r_shell (minimum
+    image; intermolecular only where ``mol`` is given), over the leading
+    frames of x (..., n, 3)."""
+    xw = x - L * torch.floor(x / L)
+    d = xw[..., :, None, :] - xw[..., None, :, :]
+    d = d - L * torch.round(d / L)
+    r = torch.sqrt((d * d).sum(-1).clamp_min(1e-12))
+    n = x.shape[-2]
+    s = torch.as_tensor(sign, device=x.device)
+    keep = ~torch.eye(n, dtype=torch.bool, device=x.device)
+    if mol is not None:
+        m = torch.as_tensor(mol, device=x.device)
+        keep = keep & (m[:, None] != m[None, :])
+    same = (s[:, None] * s[None, :]) > 0
+    close = (r < r_shell) & keep
+    return int((close & ~same).sum()), int((close & same).sum())
+
+
+def molten_salt_path(dev):
+    """Example 15 at --full: 1728 ions (rho 0.35, q +-1.5, cutoff 2.5, skin
+    0.4, capacity 32, Ewald tolerance 1e-5).  The split sum (kernel 6's
+    LJ + erfc on the cell list, plus the reciprocal Ewald sum) equals the
+    dense ewald_coulomb + lennard_jones at t = 0 within 1e-4|E| + 1e-3;
+    the dense sum with TF32 allowed equals the TF32-off one to 1e-5
+    relative (the phases are multiply-adds, no product is rounded); then
+    MS_STEPS of baoab_neighbor (rebuild every 8, friction 2) and the
+    first-shell check (opposite > 1.5 x like).  Records ms/step, the
+    device's idle share, kernel-6 launches and the reciprocal sum's
+    device time."""
+    L, x0_np, q = rock_salt(MS_LAT, 0.35, 1.5)
+    n = x0_np.shape[0]
+    box = [L] * 3
+    x0 = torch.tensor(x0_np, dtype=torch.float32, device=dev)
+    recip = potentials.ewald_coulomb(q, box=box, r_cutoff=2.5,
+                                     tolerance=MS_TOL,
+                                     include_real_space=False, device=dev)
+    build, cell_e = potentials.lennard_jones_cell_neighbor(
+        box=box, cutoff=2.5, skin=0.4, capacity=32, charges=q,
+        coulomb_alpha=recip.ewald_alpha, device=dev)
+    dense_ewald = potentials.ewald_coulomb(q, box=box, r_cutoff=2.5,
+                                           tolerance=MS_TOL, device=dev)
+    dense_lj = potentials.lennard_jones(box=box, cutoff=2.5, device=dev)
+    with torch.no_grad():
+        e_split = float(cell_e(build(x0), x0) + recip(x0))
+        e_ewald = dense_ewald(x0)
+        e_dense = float(e_ewald + dense_lj(x0))
+        prior = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            e_tf32 = dense_ewald(x0)
+            r_tf32 = recip(x0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prior
+        r_off = recip(x0)
+    fail_unless(abs(e_split - e_dense) <= 1e-4 * abs(e_dense) + 1e-3,
+                f"molten salt: split {e_split} against dense {e_dense}")
+    tf32_rel = max(float((e_tf32 - e_ewald).abs() / e_ewald.abs()),
+                   float((r_tf32 - r_off).abs() / r_off.abs()))
+    fail_unless(tf32_rel <= 1e-5, f"ewald with TF32 allowed: rel {tf32_rel}")
+    print(f"molten salt: {n} ions, box {L:.3f}, {recip.n_modes} modes; "
+          f"split {e_split:.3f} == dense {e_dense:.3f}; TF32 on/off rel "
+          f"{tf32_rel:.2e}", flush=True)
+    recip_ms = grad_ms = None
+    if dev.type == "cuda":
+        recip_ms = timed(lambda: recip(x0), reps=10)
+        xg = x0.clone().requires_grad_(True)
+        grad_ms = timed(lambda: torch.autograd.grad(recip(xg), xg), reps=5)
+
+    def energy_nl(nl, x):
+        return cell_e(nl, x) + recip(x)
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    v0 = torch.randn(x0.shape, generator=gen, device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, _ = md.baoab_neighbor(build, energy_nl, x0, v0, gen, dt=0.002,
+                              n_steps=MS_STEPS, rebuild_every=8,
+                              friction=2.0, kT=1.0)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("molten_salt", expect=("cell_lj",))
+    fail_unless(bool(torch.isfinite(st.x).all()), "molten salt: MD blew up")
+    kt = float(md.temperature(st.v))
+
+    def chunk():
+        nl = build(st.x)
+        md.baoab(lambda x: energy_nl(nl, x), st.x, st.v, gen, dt=0.002,
+                 n_steps=8, friction=2.0, kT=1.0, f0=st.force)
+
+    busy = card_busy(chunk, 8, dev)
+    if dev.type == "cuda":
+        with torch.no_grad():
+            check_cell_lj_case("molten salt ex15 erfc", cell_e, build(st.x),
+                               st.x, True)
+    n_opp, n_same = first_shell(st.x, L, q, 1.6)
+    fail_unless(n_opp > 1.5 * max(n_same, 1),
+                f"molten salt: no charge ordering ({n_opp}, {n_same})")
+    row = sampling_row(
+        "molten_salt_ex15", wall, n * MS_STEPS / wall, "ion-steps/s",
+        counts, busy, ms_per_step=1e3 * wall / MS_STEPS, steps=MS_STEPS,
+        ions=n, e_split=e_split, e_dense=e_dense, tf32_rel=tf32_rel,
+        recip_modes=recip.n_modes, recip_ms=recip_ms,
+        recip_force_ms=grad_ms, kT=kt, first_shell=[n_opp, n_same])
+    print(f"molten salt: {1e3 * wall / MS_STEPS:.3f} ms/step, kT {kt:.3f}, "
+          f"first shell opposite {n_opp} like {n_same}; reciprocal sum "
+          f"{recip_ms} ms (energy), {grad_ms} ms (energy and forces)",
+          flush=True)
+    return row
+
+
+def dimer_salt(n_mol, rho, dev):
+    """Example 39's system: n_mol +-1.5 dimers (k 200, r0 1) on a lattice
+    at density rho, relaxed on the dense LJ + bonds (400 Adam steps)."""
+    n = 2 * n_mol
+    L = float((n / rho) ** (1.0 / 3.0))
+    bonds = [[2 * k, 2 * k + 1] for k in range(n_mol)]
+    charges = np.tile([1.5, -1.5], n_mol)
+    excl = potentials.exclusions_from_bonds(n, bonds, through_angles=False)
+    side = int(np.ceil(n_mol ** (1.0 / 3.0)))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n_mol]
+    x0 = np.repeat((g + 0.5) * (L / side), 2, axis=0)
+    x0[0::2, 0] -= 0.5
+    x0[1::2, 0] += 0.5
+    bonded = potentials.harmonic_bonds(bonds, k=200.0, r0=1.0, device=dev)
+    dense_lj = potentials.lennard_jones(box=[L] * 3, cutoff=2.5,
+                                        exclude=excl, device=dev)
+    x0 = potentials.minimize_energy(
+        potentials.composite(dense_lj, bonded),
+        torch.tensor(x0, dtype=torch.float32, device=dev), steps=400,
+        lr=0.02)
+    return dict(n=n, L=L, bonds=bonds, charges=charges, excl=excl,
+                bonded=bonded, dense_lj=dense_lj, x0=x0)
+
+
+def molecular_exact_path(dev):
+    """Example 39 at --full width: 512 charged dimers, bonds + the cell
+    list's LJ + erfc with bonded exclusions (kernel 6) + PME's reciprocal
+    sum, held against the exact ewald_coulomb with exclusions + the dense
+    LJ + bonds (relative error < 3e-4); then EX_EQUIL + EX_PROD steps of
+    baoab_neighbor (rebuild every 5) and the example's asserts: the bond
+    length's mean and width against the radial Boltzmann law, unlike
+    first-shell pairs > 1.15 x like, kinetic kT within 0.05."""
+    s = dimer_salt(EX_MOL, 0.6, dev)
+    n, L, q, excl = s["n"], s["L"], s["charges"], s["excl"]
+    box = [L] * 3
+    recip = potentials.pme_coulomb(q, box=box, r_cutoff=2.5, tolerance=1e-4,
+                                   exclude=excl, include_real_space=False,
+                                   device=dev)
+    build, cell_e = potentials.lennard_jones_cell_neighbor(
+        box=box, cutoff=2.5, skin=0.4, capacity=32, charges=q,
+        coulomb_alpha=recip.ewald_alpha, exclude=excl, device=dev)
+
+    def energy(nl, x):
+        return cell_e(nl, x) + recip(x) + s["bonded"](x)
+
+    x0 = s["x0"]
+    with torch.no_grad():
+        exact = float(potentials.ewald_coulomb(
+            q, box=box, r_cutoff=2.5, tolerance=1e-4, exclude=excl,
+            device=dev)(x0) + s["dense_lj"](x0) + s["bonded"](x0))
+        split = float(energy(build(x0), x0))
+    rel = abs(split - exact) / max(abs(exact), 1.0)
+    fail_unless(rel < 3e-4, f"example 39: split {split} exact {exact}")
+    gen = torch.Generator(device=dev).manual_seed(39)
+    v0 = torch.randn(x0.shape, generator=gen, device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, _ = md.baoab_neighbor(build, energy, x0, v0, gen, dt=0.002,
+                              n_steps=EX_EQUIL, rebuild_every=5,
+                              friction=2.0, kT=1.0)
+    xs, vs = [], []
+    for _ in range(EX_PROD // EX_CHUNK):
+        st, _ = md.baoab_neighbor(build, energy, st.x, st.v, gen, dt=0.002,
+                                  n_steps=EX_CHUNK, rebuild_every=5,
+                                  friction=2.0, kT=1.0)
+        xs.append(st.x)
+        vs.append(st.v)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("molecular_exact", expect=("cell_lj",))
+    xs, vs = torch.stack(xs), torch.stack(vs)
+    fail_unless(bool(torch.isfinite(xs).all()), "example 39: drift guard")
+
+    def chunk():
+        nl = build(st.x)
+        md.baoab(lambda x: energy(nl, x), st.x, st.v, gen, dt=0.002,
+                 n_steps=5, friction=2.0, kT=1.0, f0=st.force)
+
+    busy = card_busy(chunk, 5, dev)
+    d = xs[:, 0::2] - xs[:, 1::2]
+    d = d - L * torch.round(d / L)
+    r = d.norm(dim=-1).double().cpu().numpy().ravel()
+    rg = np.linspace(1.0 - 6 * np.sqrt(1 / 200.0), 1.0 + 6 * np.sqrt(
+        1 / 200.0), 4001)
+    w = rg ** 2 * np.exp(-0.5 * 200.0 * (rg - 1.0) ** 2)
+    w /= np.trapezoid(w, rg)
+    mean_exact = np.trapezoid(rg * w, rg)
+    sd_exact = np.sqrt(np.trapezoid((rg - mean_exact) ** 2 * w, rg))
+    fail_unless(abs(r.mean() - mean_exact) < 0.025
+                and abs(r.std() - sd_exact) < 0.01,
+                f"example 39: bond {r.mean()} +- {r.std()} against "
+                f"{mean_exact} +- {sd_exact}")
+    mol = np.repeat(np.arange(EX_MOL), 2)
+    sign = np.tile([1, -1], EX_MOL)
+    n_unlike = n_like = 0
+    for f in xs:
+        a, b = first_shell(f, L, sign, 1.3, mol)
+        n_unlike, n_like = n_unlike + a, n_like + b
+    fail_unless(n_unlike > 1.15 * n_like,
+                f"example 39: unlike {n_unlike} like {n_like}")
+    t_kin = float((vs.double() ** 2).sum() / (3 * n * len(vs)))
+    fail_unless(abs(t_kin - 1.0) < 0.05, f"example 39: kinetic kT {t_kin}")
+    steps = EX_EQUIL + EX_PROD
+    row = sampling_row(
+        "molecular_exact_ex39", wall, n * steps / wall, "atom-steps/s",
+        counts, busy, ms_per_step=1e3 * wall / steps, steps=steps, atoms=n,
+        split=split, exact=exact, rel_err=rel, bond=[r.mean(), r.std()],
+        bond_exact=[mean_exact, sd_exact], shell=[n_unlike, n_like],
+        kT=t_kin)
+    print(f"example 39: split {split:.4f} exact {exact:.4f} (rel {rel:.2e});"
+          f" {1e3 * wall / steps:.3f} ms/step; bond {r.mean():.4f} +- "
+          f"{r.std():.4f} (exact {mean_exact:.4f} +- {sd_exact:.4f}); "
+          f"unlike {n_unlike} like {n_like}; kT {t_kin:.3f}", flush=True)
+    return row
+
+
+def water_system(M, dev):
+    """Example 22's rigid three-site model: charges, species LJ, the
+    constraint bonds and lengths, intramolecular exclusions, box."""
+    d_oh, ang = 0.40, 1.9106
+    box = (M / 0.10) ** (1.0 / 3.0)
+    d_hh = float(2 * d_oh * np.sin(ang / 2))
+    n = 3 * M
+    intra = np.zeros((n, n), bool)
+    for m in range(M):
+        intra[3 * m:3 * m + 3, 3 * m:3 * m + 3] = True
+    return dict(
+        M=M, n=n, box=box, d_oh=d_oh, ang=ang, intra=intra,
+        charges=np.tile([-8.0, 4.0, 4.0], M).astype(np.float32),
+        masses=np.tile([16.0, 1.0, 1.0], M).astype(np.float32),
+        sigma=np.tile([1.0, 0.7, 0.7], M).astype(np.float32),
+        eps=np.tile([1.0, 0.0, 0.0], M).astype(np.float32),
+        bonds=np.concatenate([np.array([[0, 1], [0, 2], [1, 2]]) + 3 * m
+                              for m in range(M)]),
+        lengths=np.tile([d_oh, d_oh, d_hh], M).astype(np.float32))
+
+
+def water_start(w, gen, dev):
+    """Molecules on a jittered lattice with random orientations (one QR
+    rotation each)."""
+    M, box, d_oh, ang = w["M"], w["box"], w["d_oh"], w["ang"]
+    half = d_oh * np.sin(ang / 2)
+    template = torch.tensor([[0.0, 0.0, 0.0], [half, 0.0, d_oh * np.cos(
+        ang / 2)], [-half, 0.0, d_oh * np.cos(ang / 2)]], device=dev)
+    g = int(np.ceil(M ** (1 / 3)))
+    sites = (np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"),
+                      -1).reshape(-1, 3)[:M] + 0.5) * (box / g)
+    rot, _ = torch.linalg.qr(torch.randn(M, 3, 3, generator=gen,
+                                         device=dev))
+    mols = (rot[:, None, :, :] * template[None, :, None, :]).sum(-1)
+    x = mols + torch.tensor(sites, dtype=torch.float32, device=dev)[:, None]
+    x = x + 0.05 * torch.randn(x.shape, generator=gen, device=dev)
+    return x.reshape(w["n"], 3)
+
+
+def o_h_contacts(frames, w):
+    """Median nearest intermolecular O-H distance and the mean number of
+    H within 1.0 of an O."""
+    n, box = w["n"], w["box"]
+    o = list(range(0, n, 3))
+    h = [i for i in range(n) if i % 3]
+    d = frames[..., o, None, :] - frames[..., None, h, :]
+    d = d - box * torch.round(d / box)
+    r = torch.sqrt((d * d).sum(-1))
+    mask = torch.as_tensor(~w["intra"][np.ix_(o, h)], device=frames.device)
+    r = torch.where(mask, r, 1e9)
+    return (float(r.amin(-1).median()),
+            float((r < 1.0).sum(-1).double().mean()))
+
+
+def rigid_water_path(dev):
+    """Example 22 at --full: 24 rigid three-site molecules (72 sites),
+    dense LJ + ewald_coulomb with intramolecular exclusions,
+    bond_constraints, RW_STEPS of baoab_constrained, and the example's
+    asserts: the largest bond deviation < 2e-3, H pulled toward O against
+    the apolar control, and the constrained NVE drift over 1000 steps <
+    5e-3.  The polar run and its apolar control (charges off) are one
+    batch of 2 x 8 replicas, the Ewald energy scaled by 1 or 0 per
+    replica, so both take the same steps at once.  A run of RW_TF32_STEPS
+    with TF32 allowed prints its bond deviation beside the TF32-off
+    run's."""
+    w = water_system(RW_MOL, dev)
+    box = [w["box"]] * 3
+    R = RW_REPLICAS
+    con = md.bond_constraints(w["bonds"], w["lengths"], w["n"], w["masses"],
+                              device=dev)
+    m_col = torch.tensor(w["masses"], device=dev)[:, None]
+    lj = potentials.lennard_jones(sigma=w["sigma"], epsilon=w["eps"],
+                                  box=box, cutoff=2.5, exclude=w["intra"],
+                                  device=dev)
+    ewald = potentials.ewald_coulomb(
+        w["charges"], box=box, r_cutoff=min(2.5, w["box"] / 2 - 1e-3),
+        exclude=w["intra"], tolerance=1e-4, device=dev)
+    polar = torch.tensor([1.0] * R + [0.0] * R, device=dev)
+
+    def pot(x):
+        return lj(x) + polar[:x.shape[0]] * ewald(x)
+
+    def run(steps, seed):
+        x0 = water_start(w, torch.Generator(device=dev).manual_seed(3),
+                         dev)[None].repeat(2 * R, 1, 1)
+        return md.baoab_constrained(
+            pot, x0, torch.zeros_like(x0),
+            torch.Generator(device=dev).manual_seed(seed), dt=1.5e-3,
+            n_steps=steps, friction=2.0, kT=1.0, constraints=con,
+            masses=m_col, collect_every=100)
+
+    def deviation(x):
+        d = x[..., w["bonds"][:, 0], :] - x[..., w["bonds"][:, 1], :]
+        return float((d.norm(dim=-1) - con.d0).abs().max())
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, traj = run(RW_STEPS, 0)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("rigid_water")
+    dev_bond = deviation(st.x)
+    busy = card_busy(lambda: md.baoab_constrained(
+        pot, st.x, st.v, torch.Generator(device=dev).manual_seed(9),
+        dt=1.5e-3, n_steps=2, friction=2.0, kT=1.0, constraints=con,
+        masses=m_col), 2, dev)
+    half = traj[traj.shape[0] // 2:]
+    near_oh, coord_oh = o_h_contacts(half[:, :R].reshape(-1, w["n"], 3), w)
+    near0, coord0 = o_h_contacts(half[:, R:].reshape(-1, w["n"], 3), w)
+    x_p, v_p = st.x[:R], st.v[:R]
+    stn, _ = md.velocity_verlet_constrained(pot, x_p, v_p, dt=5e-4,
+                                            n_steps=1000, constraints=con,
+                                            masses=m_col)
+    with torch.no_grad():
+        e0 = float((pot(x_p) + md.kinetic_energy(v_p, w["masses"])).mean())
+        e1 = float((pot(stn.x) + md.kinetic_energy(stn.v,
+                                                   w["masses"])).mean())
+    drift = abs(e1 - e0) / max(1.0, abs(e0))
+    prior = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        st_tf, _ = run(RW_TF32_STEPS, 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prior
+    st_off, _ = run(RW_TF32_STEPS, 5)
+    dev_tf32, dev_off = deviation(st_tf.x), deviation(st_off.x)
+    print(f"example 22: {1e3 * wall / RW_STEPS:.3f} ms/step ({2 * R} "
+          f"replicas); bond deviation {dev_bond:.2e}; O-H polar "
+          f"{near_oh:.3f} / {coord_oh:.2f}, apolar {near0:.3f} / "
+          f"{coord0:.2f}; NVE drift {drift:.2e}; after {RW_TF32_STEPS} steps "
+          f"bond deviation TF32 on {dev_tf32:.2e} off {dev_off:.2e}",
+          flush=True)
+    fail_unless(dev_bond < 2e-3, f"example 22: bond deviation {dev_bond}")
+    fail_unless(near_oh < near0 - 0.1 and coord_oh > 1.5 * max(coord0, 0.1),
+                f"example 22: polar O-H {near_oh} {coord_oh}, apolar "
+                f"{near0} {coord0}")
+    fail_unless(drift < 5e-3, f"example 22: NVE drift {drift}")
+    fail_unless(dev_tf32 < 2e-3, f"example 22 with TF32: {dev_tf32}")
+    return sampling_row(
+        "rigid_water_ex22", wall, RW_STEPS / wall, "steps/s", counts, busy,
+        ms_per_step=1e3 * wall / RW_STEPS, steps=RW_STEPS,
+        sites=w["n"], replicas=2 * R, bond_deviation=dev_bond,
+        o_h=[near_oh, coord_oh], o_h_apolar=[near0, coord0],
+        nve_drift=drift, tf32_bond_deviation=[dev_tf32, dev_off])
+
+
+BG_A = 5
+
+
+def bg_force_field(dev):
+    """Example 11's chain of 5 atoms: bonds, angles, a bimodal n = 2
+    torsion and LJ with bonded exclusions."""
+    bonds = [[i, i + 1] for i in range(BG_A - 1)]
+    return potentials.composite(
+        potentials.harmonic_bonds(bonds, k=200.0, r0=1.0, device=dev),
+        potentials.harmonic_angles([[i, i + 1, i + 2]
+                                    for i in range(BG_A - 2)],
+                                   k=20.0, theta0=1.9, device=dev),
+        potentials.periodic_torsions([[i, i + 1, i + 2, i + 3]
+                                      for i in range(BG_A - 3)],
+                                     k=1.5, n=2, phase=0.0, device=dev),
+        potentials.lennard_jones(
+            sigma=0.8, epsilon=0.3, device=dev,
+            exclude=potentials.exclusions_from_bonds(BG_A, bonds)))
+
+
+def bg_log_jac(bonds, angles):
+    return (torch.log(bonds[..., 1]) + (2.0 * torch.log(bonds[..., 2:])).sum(
+        -1) + torch.log(torch.sin(angles[..., 1:])).sum(-1))
+
+
+def bg_split(bat):
+    return bat[..., :4], bat[..., 4:7], bat[..., 7:]
+
+
+def bg_q(flow, dev):
+    """Uniform(-1, 1)^9 base -> the MAF -> the per-DOF affine map to the
+    physical intervals (example 11's make_q)."""
+    lo = torch.full((9,), -1.0, device=dev)
+    base = dist.Independent(dist.Uniform(lo, -lo), 1)
+    domains = [(0.5, 1.5)] * 4 + [(0.8, 3.0)] * 3 + [(-np.pi, np.pi)] * 2
+    to_phys = bj.Block(bj.make_domain_transform(domains, from_target=True,
+                                                device=dev), 1)
+    return dist.TransformedDistribution(flow(base), to_phys)
+
+
+def boltzmann_generator_path(dev):
+    """Example 11 at --full widths: the bonded force field, minimize_energy,
+    tuned HMC on 2048 chains (BG_HMC steps, every 10th kept), the 3-block
+    MAF (D = 9, K = 12, H = 64; kernel 3, and kernel 2 where a block takes
+    the unfused route) trained by MLE (BG_MLE_EPOCHS at batch 1024) then
+    reverse KL (BG_RKL_STEPS at batch 1024), the example's four asserts,
+    and the flow's gradients against a CPU copy on rows off the knots."""
+    zmat = coords.chain_zmatrix(BG_A)
+    ff = bg_force_field(dev)
+    lp_cart = potentials.as_log_prob(ff)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x0 = torch.randn(BG_CHAINS, BG_A, 3, generator=gen, device=dev)
+    x0[:, :, 0] += torch.arange(BG_A, device=dev)
+    x0 = potentials.minimize_energy(ff, x0, steps=1000, lr=0.05)
+    with torch.no_grad():
+        st = MCMCState.create(x0, lp_cart(x0), gen)
+        eps, st = tune_scale(lp_cart, st, kind="hmc", init_scale=0.02,
+                             n_leapfrog=8, rounds=BG_TUNE_ROUNDS)
+        st, traj = run_mcmc(make_hmc_step(lp_cart, step_size=eps,
+                                          n_leapfrog=8), st, BG_HMC,
+                            collect_every=10)
+    tors_md = coords.bat_from_cartesian(st.configs, zmat)[2]
+    obs_md = float(torch.cos(2.0 * tors_md).mean())
+    b_md, a_md, t_md = coords.bat_from_cartesian(traj.reshape(-1, BG_A, 3),
+                                                 zmat)
+    lo = torch.tensor([0.5] * 4 + [0.8] * 3 + [-np.pi] * 2, device=dev)
+    hi = torch.tensor([1.5] * 4 + [3.0] * 3 + [np.pi] * 2, device=dev)
+    bat_data = torch.minimum(torch.maximum(
+        torch.cat([b_md, a_md, t_md], -1), lo + 1e-3), hi - 1e-3)
+    flow = RQSSplineMAF.create(
+        gen, 9, num_blocks=3, rqs_params={"num_bins": 12, "hidden_dim": 64,
+                                          "bin_range": [-1.0, 1.0]},
+        device=dev)
+
+    def nll(f, batch, d):
+        return -bg_q(f, d).log_prob(batch).mean()
+
+    def mle_loss(f, batch, g):
+        return nll(f, batch, dev)
+
+    def rkl_loss(f, batch, g):
+        bat, lq = bg_q(f, dev).sample_and_log_prob(g, (1024,))
+        bonds, angles, tors = bg_split(bat)
+        x = coords.cartesian_from_bat(bonds, angles, tors, zmat)
+        return (lq - (-ff(x) + bg_log_jac(bonds, angles))).mean()
+
+    fit_gen = torch.Generator(device=dev).manual_seed(13)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    flow, hist = fit(flow, mle_loss, bat_data, generator=fit_gen,
+                     num_epochs=BG_MLE_EPOCHS, batch_size=1024)
+    flow, hist_r = fit(flow, rkl_loss,
+                       torch.zeros(BG_RKL_STEPS, 1, device=dev),
+                       generator=fit_gen, num_epochs=1, batch_size=1,
+                       shuffle=False, learning_rate=2e-4)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("boltzmann_generator_train", expect=("maf_block",))
+    _build.reset_launches()
+    steps = BG_MLE_EPOCHS * (bat_data.shape[0] // 1024) + BG_RKL_STEPS
+    with torch.no_grad():
+        q = bg_q(flow, dev)
+        bat, lq = q.sample_and_log_prob(fit_gen, (8192,))
+        bonds, angles, tors = bg_split(bat)
+        x = coords.cartesian_from_bat(bonds, angles, tors, zmat)
+        logw = (-ff(x) + bg_log_jac(bonds, angles)) - lq
+        wts = torch.softmax(logw, 0)
+        ess = float(1.0 / (wts ** 2).sum())
+        obs_q = float((wts * torch.cos(2.0 * tors).mean(-1)).sum())
+
+        def lp_bat(b):
+            bo, an, to = bg_split(b)
+            return (-ff(coords.cartesian_from_bat(bo, an, to, zmat))
+                    + bg_log_jac(bo, an))
+
+        cur, lq_cur = q.sample_and_log_prob(fit_gen, (1024,))
+        e_cur = lp_bat(cur)
+        acc = torch.zeros((), device=dev)
+        for _ in range(BG_PROPOSALS):
+            prop, lq_prop = q.sample_and_log_prob(fit_gen, (1024,))
+            e_prop = lp_bat(prop)
+            take = ((e_prop - e_cur) + (lq_cur - lq_prop)) >= \
+                torch.log(torch.rand(1024, generator=fit_gen, device=dev)
+                          .clamp_min(1e-38))
+            cur = torch.where(take[:, None], prop, cur)
+            lq_cur = torch.where(take, lq_prop, lq_cur)
+            e_cur = torch.where(take, e_prop, e_cur)
+            acc = acc + take.float().mean()
+        acc = float(acc) / BG_PROPOSALS
+        tors_f = bg_split(cur)[2]
+        obs_f = float(torch.cos(2.0 * tors_f).mean())
+        frac_pos = float((tors_f > 0).float().mean())
+    sample_counts = path_counts("boltzmann_generator_sample",
+                                expect=("maf_block",))
+    print(f"example 11: HMC acc {float(st.acceptance_rate):.2f} <cos 2phi> "
+          f"{obs_md:+.4f}; MLE NLL {hist['loss'][0]:.3f} -> "
+          f"{hist['loss'][-1]:.3f}; reverse KL {hist_r['loss'][0]:.3f} -> "
+          f"{hist_r['loss'][-1]:.3f}; {1e3 * wall / steps:.3f} ms/train step;"
+          f" reweighted {obs_q:+.4f} (ESS {ess:.0f}); flow-MC acc {acc:.2f} "
+          f"{obs_f:+.4f} balance {frac_pos:.2f}; launches {counts}",
+          flush=True)
+    fail_unless(acc > 0.2, f"example 11: flow acceptance {acc}")
+    fail_unless(0.2 < frac_pos < 0.8, f"example 11: well balance {frac_pos}")
+    fail_unless(abs(obs_q - obs_md) < 0.08 and abs(obs_f - obs_md) < 0.08,
+                f"example 11: <cos 2 phi> {obs_q} {obs_f} against {obs_md}")
+    rows = bat_data[:2048]
+    if dev.type == "cuda":
+        with torch.no_grad():
+            y = bg_q(flow, dev).bijector.inverse_and_log_det(
+                bat_data[:1024])[0]
+            for i, layer in enumerate(flow.blocks):
+                check_maf_case(f"ex11 block {i} D=9 K=12 H=64 N=1024", layer,
+                               y.contiguous(), allowed=1e-3)
+        with torch.no_grad():
+            y = bg_q(flow, dev).bijector.inverse_and_log_det(rows)[0]
+        rows = rows[rows_off_knots(flow, y, min_share=0.9)]
+        check_grads("boltzmann_generator", flow,
+                    lambda f, d: nll(f, rows.to(d), d), dev)
+    row = {"path": "boltzmann_generator_ex11", "seconds": wall,
+           "ms_per_step": 1e3 * wall / steps, "steps": steps,
+           "nll": [hist["loss"][0], hist["loss"][-1]],
+           "reverse_kl": [hist_r["loss"][0], hist_r["loss"][-1]],
+           "obs_hmc": obs_md, "obs_reweighted": obs_q, "obs_flow_mc": obs_f,
+           "ess": ess, "acceptance": acc, "well_balance": frac_pos,
+           "hmc_acceptance": float(st.acceptance_rate), "launches": counts,
+           "sample_launches": sample_counts}
+    RESULTS["train"].append(row)
+    return row
+
+
+def npt_gcmc_gibbs_path(dev):
+    """Examples 14, 19 and 21 at --full widths, sweeps cut: NPT LJ gas
+    (256 chains x 32 atoms, kT 2, five pressures, NPT_STEPS each): the
+    mean virial pressure (observables.virial_pressure, per chain's box by
+    torch.func.vmap) within 25% of the set pressure and volume acceptance
+    in (0.2, 0.98); GCMC isotherm (5 mu x 256 replicas, capacity 128,
+    GC_SWEEPS): the capacity never binds, rho(mu) increases, the dilute
+    point near the ideal gas, the Widom cross-check at the middle point;
+    Gibbs ensemble (96 chains, N = 96, kT 0.95, GB_SWEEPS): the boxes
+    phase-separate and the two phases' Widom chemical potentials agree."""
+    from vaemolsim_tpu_torch import observables
+    from vaemolsim_tpu_torch.mcmc import (gcmc_init, gibbs_init, lj_pair_u,
+                                          make_gcmc_step, make_gibbs_step,
+                                          make_npt_step, npt_init, run_gcmc,
+                                          run_gibbs, run_npt)
+    from vaemolsim_tpu_torch.mcmc.gcmc import _one_particle_energy
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kt = 2.0
+    _build.reset_launches()
+
+    def factory(b):
+        return potentials.lennard_jones(box=b, cutoff=2.5, device=dev)
+
+    def p_virial(x, b):
+        return observables.virial_pressure(factory, x, box=b, kt=kt)
+
+    t0 = time.perf_counter()
+    npt_rows = []
+    for p_set in NPT_PRESSURES:
+        L0 = (NPT_ATOMS * kt / p_set) ** (1.0 / 3.0)
+        x0 = torch.rand(NPT_CHAINS, NPT_ATOMS, 3, generator=gen,
+                        device=dev) * L0
+        state = npt_init(factory, x0, [L0] * 3, gen)
+        step = make_npt_step(factory, pressure=p_set, beta=1.0 / kt,
+                             dx_scale=0.25, dlnv_scale=0.08)
+        state, (xs, boxes) = run_npt(step, state, NPT_STEPS,
+                                     collect_every=20)
+        burn = xs.shape[0] // 4
+        xs, boxes = xs[burn:], boxes[burn:]
+        rho = float((NPT_ATOMS / boxes.prod(-1)).mean())
+        pv = torch.func.vmap(torch.func.vmap(p_virial))(xs, boxes)
+        p_vir = float(pv.mean())
+        acc = float(state.vol_acceptance_rate)
+        npt_rows.append([p_set, rho, p_vir, acc])
+        fail_unless(abs(p_vir - p_set) < 0.25 * p_set + 1e-3,
+                    f"example 14: virial {p_vir} against {p_set}")
+        fail_unless(0.2 < acc < 0.98, f"example 14: volume acceptance {acc}")
+    sync(dev)
+    out["npt_seconds"] = time.perf_counter() - t0
+    out["npt"] = npt_rows
+    print("example 14 (P_set, rho, P_virial, volume acceptance): "
+          + "; ".join(f"{p:.3f} {r:.4f} {v:.4f} {a:.3f}"
+                      for p, r, v, a in npt_rows), flush=True)
+
+    t0 = time.perf_counter()
+    box_l, n_max, kt = 6.0, 128, 2.0
+    vol = box_l ** 3
+    mus = kt * np.log(np.array([0.002, 0.01, 0.04, 0.1, 0.2]))
+    n_mu = len(mus)
+    mu_grid = torch.tensor(mus, dtype=torch.float32,
+                           device=dev).repeat_interleave(GC_REP)
+    x0 = box_l * torch.rand(n_mu * GC_REP, n_max, 3, generator=gen,
+                            device=dev)
+    n0 = (torch.exp(mu_grid / kt) * vol).long().clamp(1, n_max // 2)
+    active0 = torch.arange(n_max, device=dev)[None, :] < n0[:, None]
+    pair = lj_pair_u(cutoff=2.5)
+    state = gcmc_init(x0, active0, gen)
+    step = make_gcmc_step(pair, box=box_l, mu=mu_grid, beta=1.0 / kt,
+                          dx_scale=0.35, n_disp=2)
+    state, ns = run_gcmc(step, state, GC_SWEEPS, collect_every=10)
+    burn = ns.shape[0] // 3
+    rho = ns[burn:].double().reshape(-1, n_mu, GC_REP).mean((0, 2)).cpu() \
+        .numpy() / vol
+    n_high = int(state.n.max())
+    fail_unless(n_high < n_max, f"example 19: capacity binds ({n_high})")
+    fail_unless(bool(np.all(np.diff(rho) > 0)), f"example 19: rho {rho}")
+    z0 = np.exp(mus[0] / kt)
+    fail_unless(abs(rho[0] / z0 - 1.0) < 0.15,
+                f"example 19: dilute rho {rho[0]} against z {z0}")
+    i_mid = n_mu // 2
+    n_final = state.n.reshape(n_mu, GC_REP)[i_mid].cpu().numpy()
+    n_star = int(np.bincount(n_final).argmax())
+    sel = np.nonzero(n_final == n_star)[0]
+    x_mid = state.x.reshape(n_mu, GC_REP, n_max, 3)[i_mid]
+    a_mid = state.active.reshape(n_mu, GC_REP, n_max)[i_mid]
+    xs = torch.stack([x_mid[c][a_mid[c]][:n_star] for c in sel])
+    mu_ex, stderr = observables.widom_insertion(
+        potentials.lennard_jones(box=[box_l] * 3, cutoff=2.5, device=dev),
+        xs, box=[box_l] * 3, generator=gen, n_insertions=4000, kT=kt)
+    mu_pred = kt * np.log(rho[i_mid]) + float(mu_ex)
+    fail_unless(abs(mu_pred - mus[i_mid]) < max(4.0 * float(stderr), 0.3),
+                f"example 19: Widom mu {mu_pred} against {mus[i_mid]}")
+    sync(dev)
+    out["gcmc_seconds"] = time.perf_counter() - t0
+    out["gcmc"] = dict(rho=rho.tolist(), high_water=n_high,
+                       mu_widom=mu_pred, mu_set=float(mus[i_mid]),
+                       exchange_acceptance=float(
+                           state.exchange_acceptance_rate))
+    print(f"example 19: rho {np.round(rho, 5).tolist()}, high water "
+          f"{n_high}/{n_max}, Widom mu {mu_pred:.3f} against "
+          f"{mus[i_mid]:.3f} ({out['gcmc_seconds']:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    kt, n_max, n_tot, L0 = 0.95, 88, 96, 6.2
+    pair = lj_pair_u(cutoff=2.5)
+    x_a = L0 * torch.rand(GB_CHAINS, n_max, 3, generator=gen, device=dev)
+    x_b = L0 * torch.rand(GB_CHAINS, n_max, 3, generator=gen, device=dev)
+    act = (torch.arange(n_max, device=dev)[None, :] < n_tot // 2).expand(
+        GB_CHAINS, n_max)
+    st = gibbs_init(x_a, act, x_b, act, L0, L0, gen)
+    step = make_gibbs_step(pair, beta=1.0 / kt, dx_scale=0.25,
+                           dlnv_scale=0.03, n_disp=6, min_box=5.0)
+    st, (ra, rb) = run_gibbs(step, st, GB_SWEEPS, collect_every=20)
+    tail = ra.shape[0] // 3
+    r_a, r_b = ra[-tail:].mean(0), rb[-tail:].mean(0)
+    rl = float(torch.maximum(r_a, r_b).median())
+    rv = float(torch.minimum(r_a, r_b).median())
+    fail_unless(rl / max(rv, 1e-6) > 5.0 and rl > 0.45 and rv < 0.2,
+                f"example 21: rho_liq {rl} rho_vap {rv}")
+    a_liq = r_a >= r_b
+
+    def pick(a, b):
+        shape = (-1,) + (1,) * (a.dim() - 1)
+        return torch.where(a_liq.reshape(shape), a, b)
+
+    def mu_phase(x, act_, box, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        n_ins = 4000 // GB_CHAINS
+        pos = torch.rand(n_ins, GB_CHAINS, 3, generator=g,
+                         device=dev) * box[None, :, None]
+        none = torch.full((n_ins, GB_CHAINS), n_max, dtype=torch.long,
+                          device=dev)
+        du = _one_particle_energy(pair, x[None], act_[None], pos,
+                                  box[None, :, None, None], none)
+        wts = torch.exp(-du / kt).double().reshape(-1)
+        mu_ex = -kt * float(torch.log(wts.mean()))
+        err = kt * float(wts.std() / (wts.mean() * math.sqrt(wts.numel())))
+        rho_p = float((act_.sum(1) / box ** 3).mean())
+        return kt * math.log(rho_p) + mu_ex, err
+
+    mu_l, e_l = mu_phase(pick(st.x_a, st.x_b), pick(st.act_a, st.act_b),
+                         pick(st.box_a, st.box_b), 11)
+    mu_v, e_v = mu_phase(pick(st.x_b, st.x_a), pick(st.act_b, st.act_a),
+                         pick(st.box_b, st.box_a), 12)
+    tol = max(4.0 * math.hypot(e_l, e_v), 0.4)
+    fail_unless(abs(mu_l - mu_v) < tol,
+                f"example 21: mu_liq {mu_l} mu_vap {mu_v} (tol {tol})")
+    sync(dev)
+    out["gibbs_seconds"] = time.perf_counter() - t0
+    out["gibbs"] = dict(rho_liq=rl, rho_vap=rv, mu_liq=mu_l, mu_vap=mu_v,
+                        xfer_acceptance=float(st.xfer_acceptance_rate))
+    print(f"example 21: rho_liq {rl:.3f} rho_vap {rv:.4f}, mu_liq {mu_l:+.3f}"
+          f" mu_vap {mu_v:+.3f} (tol {tol:.2f}) ({out['gibbs_seconds']:.1f}"
+          f" s)", flush=True)
+    out["launches"] = path_counts("npt_gcmc_gibbs")
+    RESULTS["npt_gcmc_gibbs"] = out
+    return out
+
+
+def alchemical_path(dev):
+    """Example 13 at --full width: LJ7 at kT 0.2, atom 0 decoupled by the
+    soft core over 11 windows of 1024 replicas (AL_STEPS BAOAB steps,
+    every window in one batch), MBAR against TI with dU/dlambda by
+    autograd, within the example's --full tolerance max(6 se, 0.35), and
+    dF > 1."""
+    from vaemolsim_tpu_torch.mcmc import mbar_free_energy
+    n, kt = 7, 0.2
+    alch = np.asarray([True] + [False] * (n - 1))
+    u_sc = potentials.lennard_jones_softcore(sigma=1.0, epsilon=1.0,
+                                             alchemical=alch, device=dev)
+    u_rest = potentials.composite(
+        potentials.com_restraint(2.0),
+        potentials.harmonic_bonds([[0, 1]], k=2.0, r0=1.2, device=dev))
+
+    def u_total(x, lam):
+        return u_sc(x, lam) + u_rest(x)
+
+    lams = np.linspace(1.0, 0.0, AL_WINDOWS)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    full = potentials.composite(potentials.lennard_jones(device=dev),
+                                potentials.com_restraint(2.0))
+    x0 = potentials.minimize_energy(
+        full, 0.7 * torch.randn(AL_REPLICAS, n, 3, generator=gen,
+                                device=dev), steps=1500, lr=0.1)
+    # Every window's replicas in one batch (AL_WINDOWS, AL_REPLICAS, n, 3),
+    # lambda per window: the windows are independent, so this samples
+    # what the example's window-by-window loop does, in one run.
+    lam_w = torch.tensor(lams, dtype=torch.float32, device=dev)[:, None]
+    xw = x0[None].repeat(AL_WINDOWS, 1, 1, 1)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, _ = md.baoab(lambda x: u_total(x, lam_w), xw, torch.zeros_like(xw),
+                     gen, dt=0.004, n_steps=AL_STEPS, friction=1.0, kT=kt)
+    lg = lam_w.clone().requires_grad_(True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(u_sc(st.x, lg).sum(), lg)
+    dudl = (g[:, 0] / AL_REPLICAS).tolist()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("alchemical")
+    pooled = st.x.reshape(-1, n, 3)
+    with torch.no_grad():
+        L = torch.stack([-u_total(pooled, torch.tensor(
+            lam, dtype=torch.float32, device=dev)) / kt for lam in lams])
+    res = mbar_free_energy(L, [AL_REPLICAS] * AL_WINDOWS)
+    df_mbar = float(res.free_energies[-1])
+    se = float(res.stderrs[-1])
+    df_ti = float(np.trapezoid(dudl, lams)) / kt
+    tol = max(6 * se, 0.35)
+    print(f"example 13: dF MBAR {df_mbar:+.3f} +- {se:.3f}, TI {df_ti:+.3f} "
+          f"(tol {tol:.2f}); {1e3 * wall / AL_STEPS:.3f} ms a step of "
+          f"{AL_WINDOWS} x {AL_REPLICAS} replicas", flush=True)
+    fail_unless(abs(df_mbar - df_ti) < tol and df_mbar > 1.0,
+                f"example 13: MBAR {df_mbar} +- {se}, TI {df_ti}")
+    return sampling_row(
+        "alchemical_ex13", wall, AL_WINDOWS * AL_REPLICAS * AL_STEPS / wall,
+        "replica-steps/s", counts, None, ms_per_step=1e3 * wall / AL_STEPS,
+        steps=AL_STEPS, df_mbar=df_mbar, se_mbar=se, df_ti=df_ti)
+
+
+def timed_once(fn):
+    """Device milliseconds of one fn() after one warm-up call, by CUDA
+    events: for calls of 0.1 s and more, where ``timed``'s repeats and
+    device spin buy nothing."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def chunked_stream_path(dev):
+    """Kernel 5's key-chunked stream regime on the card, at the shapes the
+    plans refused before it: N = 1553 and 4096 (B = 2, H = 40, Fo = 20),
+    H = 300 at N = 400 and H = 512 at N = 1024 (B = 2; 12 and 16 units a
+    lane), both modes, against the plain version
+    (1e-5 + 1e-5|v|) with device ms of each by ``timed_once`` and the
+    bound;
+    at N = 8192 (B = 1), where the plain pair grid would be 10.7 GB a
+    trunk, the valid rows equal the kernel's own N = 4096 output with the
+    extra 4096 particles masked out.  A VectorAttention of each shape
+    launches the kernel once (its launches are this path's)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    launches = 0
+    for B, N, H in PA_CHUNKED:
+        for reduce in (False, True):
+            attn = VectorAttention.create(gen, 20, 20, hidden_dim=H,
+                                          reduce=reduce, device=dev)
+            c = 1.5 * torch.randn(B, N, 3, generator=gen, device=dev)
+            v = torch.randn(B, N, 20, generator=gen, device=dev)
+            m = (torch.rand(B, N, generator=gen, device=dev) > 0.3).float()
+            m[-1, :7] = 0.0
+            (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+            args = (c_, *[t.detach() for t in nodes], mf_,
+                    *[t.detach() for t in weights])
+            plan = pa.kernel_plan(B, N, H, 20)
+            fail_unless(plan["regime"] == "stream" and not plan["refused"],
+                        f"kernel 5 plan at {(B, N, H)}: {plan}")
+            _build.reset_launches()
+            with torch.no_grad():
+                got = attn(c, v, m)
+            launches += pa.KERNEL.launches
+            fail_unless(pa.KERNEL.launches == 1,
+                        f"VectorAttention {(B, N, H)}: launches "
+                        f"{pa.KERNEL.launches}")
+            with torch.no_grad():
+                want = pa.pair_attention_plain(*args, **kw)
+                err = compare(f"pair_attention stream {(B, N, H, reduce)}",
+                              got, want, 1e-5, 1e-5)
+                ms = timed_once(lambda: pa.pair_attention_cuda(*args, **kw))
+                plain_ms = timed_once(lambda: pa.pair_attention_plain(
+                    *args, **kw))
+            del want
+            nbytes, flops, head_flops = pair_attention_work(B, N, H, 20, m,
+                                                            reduce)
+            bound_us, by = _bound(nbytes, flops)
+            shape = (f"chunked stream N={N} H={H} B={B} "
+                     f"{'reduce' if reduce else 'rows'}")
+            RESULTS.setdefault("pair_attention_bound_by", {})[shape] = by
+            record("pair_attention", shape, err, ms, plain_ms,
+                   bound_us=bound_us, bound_by=by,
+                   per_pair_head_bound_us=_bound(nbytes, head_flops)[0],
+                   units=plan["units"], lanes=plan["lanes"])
+            torch.cuda.empty_cache()
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=40, device=dev)
+    c = 1.5 * torch.randn(1, 8192, 3, generator=gen, device=dev)
+    v = torch.randn(1, 8192, 20, generator=gen, device=dev)
+    m = torch.zeros(1, 8192, device=dev)
+    m[:, :4096] = 1.0
+    with torch.no_grad():
+        _build.reset_launches()
+        big = attn(c, v, m)
+        launches += pa.KERNEL.launches
+        small = attn(c[:, :4096], v[:, :4096], m[:, :4096])
+        err = compare("pair_attention N=8192 masked", big[:, :4096], small,
+                      1e-5, 1e-5)
+        fail_unless(float(big[:, 4096:].abs().max()) == 0.0,
+                    "pair_attention N=8192: masked rows not zero")
+        (c_, *nodes, mf_, weights), kw = attn.pair_args(c, v, m)
+        args = (c_, *nodes, mf_, *weights)
+        ms = timed_once(lambda: pa.pair_attention_cuda(*args, **kw))
+    nbytes, flops, head_flops = pair_attention_work(1, 8192, 40, 20, m, False)
+    bound_us, by = _bound(nbytes, flops)
+    shape = "chunked stream N=8192 H=40 B=1 rows (masked half)"
+    RESULTS.setdefault("pair_attention_bound_by", {})[shape] = by
+    record("pair_attention", shape, err, None, None, kernel_ms=ms,
+           bound_us=bound_us, bound_by=by,
+           per_pair_head_bound_us=_bound(nbytes, head_flops)[0])
+    counts = {name: 0 for name in _build.KERNELS}
+    counts["pair_attention"] = launches
+    RESULTS.setdefault("path_launches", {})["chunked_stream"] = counts
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3560,6 +4487,17 @@ def bounds(vae, flow):
 _T0 = time.perf_counter()
 
 
+def build_kernels(out):
+    """_build.build_all() into ``out``: its libraries and seconds, or
+    the error it raised (for a thread; main raises it after the join)."""
+    t0 = time.perf_counter()
+    try:
+        out["libs"] = _build.build_all()
+    except BaseException as err:
+        out["error"] = err
+    out["seconds"] = time.perf_counter() - t0
+
+
 def stamped(phase, *args):
     """phase(*args), with the script's elapsed seconds at its start and
     end printed."""
@@ -3587,10 +4525,22 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    # nvcc compiles in a thread (it waits on its processes, so the host
+    # stays free) while the slice-11 phases that launch no kernel run;
+    # the kernel checks and every other phase come after the build.
+    build = {}
+    build_thread = threading.Thread(target=build_kernels, args=(build,))
+    build_thread.start()
+    try:
+        water = stamped(rigid_water_path, dev)
+        ensembles = stamped(npt_gcmc_gibbs_path, dev)
+        alch = stamped(alchemical_path, dev)
+    finally:
+        build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    print(f"built {sorted(build['libs'])} in {build['seconds']:.1f} s, "
+          f"beside the phases that launch no kernel", flush=True)
     for src in ("rqs", "dense_stack", "vae_proposal", "maf_block",
                 "cell_lj", "pair_attention"):
         for line in _build.BUILD_LOGS.get(src, "(cached)").splitlines():
@@ -3652,6 +4602,10 @@ def main():
     ckpt = stamped(mcmc_checkpoint_path, vae, dev)
     bf16 = stamped(bf16_flow_path, dev)
     stamped(repairs_path, dev)
+    salt = stamped(molten_salt_path, dev)
+    exact = stamped(molecular_exact_path, dev)
+    bgen = stamped(boltzmann_generator_path, dev)
+    chunked = stamped(chunked_stream_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -3689,10 +4643,17 @@ def main():
                 "mcmc_checkpoint_fused": ckpt["fused"]["launches"],
                 "mcmc_checkpoint_generic": ckpt["generic"]["launches"],
                 "bf16_flow_train": bf16["launches"],
-                "bf16_flow_sample": bf16["predict_launches"]}
-    plain_routes = RESULTS["plain_routes"]
-    print("plain routes on the main paths: " + json.dumps(
-        {k: sum(v.values()) for k, v in plain_routes.items()}), flush=True)
+                "bf16_flow_sample": bf16["predict_launches"],
+                "molten_salt": salt["launches"],
+                "molecular_exact": exact["launches"],
+                "rigid_water": water["launches"],
+                "boltzmann_generator_train": bgen["launches"],
+                "boltzmann_generator_sample": bgen["sample_launches"],
+                "npt_gcmc_gibbs": ensembles["launches"],
+                "alchemical": alch["launches"],
+                "chunked_stream": chunked}
+    print("kernel launches on the main paths: " + json.dumps(
+        {k: sum(v.values()) for k, v in launches.items()}), flush=True)
     bound = bounds(vae, flow)
     floor_us = 1e3 * RESULTS["launch_floor_ms"]
     for name, (us, by) in bound.items():

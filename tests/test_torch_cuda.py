@@ -1258,7 +1258,8 @@ def test_refused_plans_split_or_route_plain(dev):
     layer), a VectorAttention at N = 100 (one launch of the stream
     regime), an RQS broadcast row of 4470 bins (one launch of the walk,
     for 20 000 elements and for one) and a neighbour block of 27 x 600
-    slots (one launch a run).  No call takes a plain route."""
+    slots (one launch a run).  Every call launches its kernel: the
+    launch counts are exactly those."""
     from vaemolsim_tpu_torch.nn import FCDeepNN
     from vaemolsim_tpu_torch.ops import cell_lj
     gen = torch.Generator(device=dev).manual_seed(70)
@@ -1283,7 +1284,7 @@ def test_refused_plans_split_or_route_plain(dev):
             ["relu", "relu", None])
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert _build.KERNELS["dense_stack"].launches == 2 + 3
-    assert _build.KERNELS["dense_stack"].plain_routes == 0
+    assert sum(_build.launch_counts().values()) == 2 + 3
     attn = VectorAttention.create(gen, 20, 20, hidden_dim=40, device=dev)
     c = torch.randn(2000, 100, 3, generator=gen, device=dev)
     v = torch.randn(2000, 100, 20, generator=gen, device=dev)
@@ -1291,7 +1292,7 @@ def test_refused_plans_split_or_route_plain(dev):
     with torch.no_grad():
         torch.testing.assert_close(attn(c, v, m), attn.plain_call(c, v, m),
                                    atol=1e-5, rtol=1e-5)
-    assert pa.KERNEL.plain_routes == 0 and pa.KERNEL.launches == 1
+    assert pa.KERNEL.launches == 1
     K = 4470
     params = (_bin_positions(torch.randn(1, K, generator=gen, device=dev),
                              -50.0, 50.0, K),
@@ -1309,7 +1310,7 @@ def test_refused_plans_split_or_route_plain(dev):
                                                            -50.0)
         torch.testing.assert_close(one[0], one_want[0], atol=1e-5,
                                    rtol=1e-5)
-    assert rqs.KERNEL.launches == 4 and rqs.KERNEL.plain_routes == 0
+    assert rqs.KERNEL.launches == 4 and pa.KERNEL.launches == 1
     nc, C, L = 3, 600, 60.0
     Kn = 27 * C
     cxt = torch.rand(nc, 3, C, generator=gen, device=dev) * L
@@ -1326,7 +1327,8 @@ def test_refused_plans_split_or_route_plain(dev):
     torch.testing.assert_close(g, g_p, atol=1e-3, rtol=1e-4)
     runs = len(cell_lj.neighbour_runs(Kn, cell_lj.max_slots(C)))
     assert runs > 1 and cell_lj.KERNEL.launches == runs
-    assert sum(_build.plain_route_counts().values()) == 0
+    assert {k: n for k, n in _build.launch_counts().items() if n} == {
+        "dense_stack": 5, "pair_attention": 1, "rqs": 4, "cell_lj": runs}
 
 
 @pytest.mark.parametrize("C,species,coulomb,most", [
@@ -1373,6 +1375,86 @@ def test_pair_attention_stream_regime(dev, N, H, reduce):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     empty = (m.sum(-1) == 0) if reduce else (m == 0)
     assert float(got[empty].abs().max()) == 0.0
+
+
+def _chunked_stream_case(dev, B, N, H, reduce, activation="relu"):
+    gen = torch.Generator(device=dev).manual_seed(N + H)
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=H, reduce=reduce,
+                                  activation=activation, device=dev)
+    c = 1.5 * torch.randn(B, N, 3, generator=gen, device=dev)
+    v = torch.randn(B, N, 20, generator=gen, device=dev)
+    m = (torch.rand(B, N, generator=gen, device=dev) > 0.3).float()
+    m[0, 1] = 0.0
+    m[1] = 0.0
+    (c_, *nodes, mf, weights), kw = attn.pair_args(c, v, m)
+    args = (c_, *nodes, mf, *weights)
+    plan = pa.kernel_plan(B, N, H, 20)
+    assert plan["regime"] == "stream" and not plan["refused"]
+    before = pa.KERNEL.launches
+    with torch.no_grad():
+        got = attn(c, v, m)
+    assert pa.KERNEL.launches == before + 1
+    with torch.no_grad():
+        want = pa.pair_attention_plain(*args, **kw)
+    del args, nodes, weights
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    empty = (m.sum(-1) == 0) if reduce else (m == 0)
+    assert float(got[empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,N,H,reduce", [
+    (2, 1553, 40, False), (2, 1553, 40, True), (2, 4096, 40, False),
+    (2, 4096, 40, True), (2, 400, 300, False), (2, 400, 300, True),
+    (2, 1024, 512, False), (2, 1024, 512, True)])
+def test_pair_attention_chunked_stream_regime(dev, B, N, H, reduce):
+    """Kernel 5's stream regime beyond one key chunk and one warp's 8
+    units: N = 1553 and 4096 at H = 40 (13 and 32 chunks of 128 keys),
+    H = 300 at N = 400 (12 units a lane) and H = 512 at N = 1024 (16
+    units a lane, 8 chunks), against its plain version, 1e-5 + 1e-5|v| as
+    the other regimes; a fully masked row and frame exactly zero.  The
+    plans refused all four before the online softmax."""
+    _chunked_stream_case(dev, B, N, H, reduce)
+
+
+@pytest.mark.parametrize("B,N,H,reduce", [
+    (2, 400, 300, True), (2, 1024, 512, False)])
+def test_pair_attention_chunked_stream_regime_tanh(dev, B, N, H, reduce):
+    """The 12- and 16-unit stream kernels with tanh for the nets'
+    activation, against the plain version, 1e-5 + 1e-5|v|."""
+    _chunked_stream_case(dev, B, N, H, reduce, activation="tanh")
+
+
+def test_pair_attention_8192_rows_equal_the_masked_4096_frame(dev):
+    """N = 8192 (B = 1, H = 40), where the plain pair grid would take
+    10.7 GB a trunk: with the last 4096 particles masked out, the valid
+    rows equal the kernel's own N = 4096 output, 1e-5 + 1e-5|v| (only
+    the order of the chunk merges differs)."""
+    gen = torch.Generator(device=dev).manual_seed(8192)
+    attn = VectorAttention.create(gen, 20, 20, hidden_dim=40, device=dev)
+    c = 1.5 * torch.randn(1, 8192, 3, generator=gen, device=dev)
+    v = torch.randn(1, 8192, 20, generator=gen, device=dev)
+    m = torch.zeros(1, 8192, device=dev)
+    m[:, :4096] = 1.0
+    with torch.no_grad():
+        big = attn(c, v, m)
+        small = attn(c[:, :4096], v[:, :4096], m[:, :4096])
+    torch.testing.assert_close(big[:, :4096], small, atol=1e-5, rtol=1e-5)
+    assert float(big[:, 4096:].abs().max()) == 0.0
+
+
+def test_vector_attention_beyond_the_stream_regime_raises(dev):
+    """A CUDA call no regime takes (H = 520 > 512 on a frame beyond the
+    grid regime) raises with the limit and launches nothing; it never
+    runs the plain layer."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    attn = VectorAttention.create(gen, 4, 4, hidden_dim=520, device=dev)
+    c = torch.randn(1, 400, 3, generator=gen, device=dev)
+    v = torch.randn(1, 400, 4, generator=gen, device=dev)
+    before = pa.KERNEL.launches
+    with pytest.raises(ValueError, match="H=512"):
+        with torch.no_grad():
+            attn(c, v)
+    assert pa.KERNEL.launches == before
 
 
 def test_joint_backmapping_attention_on_the_card_matches_a_cpu_copy(dev):
@@ -1426,3 +1508,106 @@ def test_dense_stack_wide_regime_matches_plain(dev, din, dout, dc, act):
         torch.testing.assert_close(
             got, dense_stack_plain(x, ks, bs, [act], c, cks), atol=1e-4,
             rtol=1e-4)
+
+
+def _rock_salt(dev, n_lat=12, rho=0.35, q_abs=1.5):
+    """Example 15's --full start: 1728 ions on a rock-salt lattice."""
+    import numpy as np
+    n = n_lat ** 3
+    L = float((n / rho) ** (1.0 / 3.0))
+    g = np.stack(np.meshgrid(*[np.arange(n_lat)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    x = torch.tensor(g * (L / n_lat), dtype=torch.float32, device=dev)
+    return L, x, np.where(g.sum(-1) % 2 == 0, q_abs, -q_abs)
+
+
+def test_ewald_with_tf32_allowed_matches_tf32_off(dev):
+    """ewald_coulomb at example 15's --full size (1728 ions, tolerance
+    1e-5, ~3e4 modes) with TF32 allowed for matrix products equals the
+    TF32-off energy and forces to 1e-5 relative: its phases are
+    multiply-adds and its sums reductions, so no product is rounded."""
+    from vaemolsim_tpu_torch import potentials
+    L, x, q = _rock_salt(dev)
+    x = x + 0.1 * torch.randn(x.shape, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    energy = potentials.ewald_coulomb(q, box=[L] * 3, r_cutoff=2.5,
+                                      tolerance=1e-5, device=dev)
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            xg = x.clone().requires_grad_(True)
+            e = energy(xg)
+            (g,) = torch.autograd.grad(e, xg)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[tf32] = (e.detach(), g)
+    torch.testing.assert_close(out[True][0], out[False][0], atol=0,
+                               rtol=1e-5)
+    scale = float(out[False][1].abs().max())
+    torch.testing.assert_close(out[True][1], out[False][1],
+                               atol=1e-5 * scale, rtol=0)
+
+
+def test_cell_lj_at_example_15_shape_matches_plain(dev):
+    """Kernel 6 in its Ewald real-space (erfc) mode at example 15's
+    --full shape (1728 ions, capacity 32, cutoff 2.5, skin 0.4) against
+    its plain version on the same gathered inputs: per-cell energies to
+    1e-5 of the largest, the total to 1e-5 relative, gradients to 1e-4 of
+    the largest + 1e-5; one launch."""
+    from vaemolsim_tpu_torch import potentials
+    from vaemolsim_tpu_torch.ops import cell_lj
+    L, x, q = _rock_salt(dev)
+    x = (x + 0.15 * torch.randn(x.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)) % L
+    recip = potentials.ewald_coulomb(q, box=[L] * 3, r_cutoff=2.5,
+                                     tolerance=1e-5,
+                                     include_real_space=False, device=dev)
+    build, energy = potentials.lennard_jones_cell_neighbor(
+        box=[L] * 3, cutoff=2.5, skin=0.4, capacity=32, charges=q,
+        coulomb_alpha=recip.ewald_alpha, device=dev)
+    args, kw = energy.cell_pair_inputs(build(x), x)
+    before = cell_lj.KERNEL.launches
+    e, g = cell_lj.cell_pair_energy_force_cuda(*args, **kw)
+    assert cell_lj.KERNEL.launches == before + 1
+    ew, gw = cell_lj.cell_pair_energy_force_plain(*args, **kw)
+    torch.testing.assert_close(e, ew, atol=1e-5 * float(ew.abs().max()),
+                               rtol=1e-5)
+    assert abs(float(e.sum()) - float(ew.sum())) <= 1e-5 * abs(
+        float(ew.sum()))
+    torch.testing.assert_close(g, gw, atol=1e-4 * float(gw.abs().max())
+                               + 1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("replicas", [16, 8])
+def test_bond_constraint_projections_replay_their_graphs(dev, replicas):
+    """On the card SHAKE and RATTLE replay a CUDA graph of their 50 Jacobi
+    sweeps, captured at the first call of a shape: results equal the
+    eager sweeps' to 1e-6 (the same kernels; index_add's atomics may
+    reorder a sum), a second call reuses the graph, and under autograd
+    the projection runs eagerly."""
+    from vaemolsim_tpu_torch import md
+    import numpy as np
+    M = 24
+    bonds = np.concatenate([np.array([[0, 1], [0, 2], [1, 2]]) + 3 * m
+                            for m in range(M)])
+    lengths = np.tile([0.4, 0.4, 0.653], M)
+    masses = np.tile([16.0, 1.0, 1.0], M)
+    con = md.bond_constraints(bonds, lengths, 3 * M, masses, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = 3.0 * torch.randn(replicas, 3 * M, 3, generator=gen, device=dev)
+    moved = x + 0.01 * torch.randn(x.shape, generator=gen, device=dev)
+    v = torch.randn(x.shape, generator=gen, device=dev)
+    got = con.shake_delta(x, moved)
+    want = con._shake(x, moved)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(con.rattle(x, v), con._rattle(x, v)[0],
+                               atol=1e-6, rtol=1e-6)
+    assert len(con.graphs) == 2
+    again = con.shake_delta(x, moved)
+    torch.testing.assert_close(again[0], got[0], atol=1e-6, rtol=1e-6)
+    assert len(con.graphs) == 2
+    xg = x.clone().requires_grad_(True)
+    out = con.rattle(xg, v)
+    assert out.requires_grad and len(con.graphs) == 2

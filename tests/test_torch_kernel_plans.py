@@ -279,6 +279,9 @@ def test_dense_stack_wrapper_refuses_where_the_kernel_would():
     (6, 100, 33, ("rows", 32, 4, 1, 33)),
     (6, 256, 33, ("rows", 32, 8, 1, 33)),
     (6, 300, 33, ("grid", None, None, 1, 33)),  # wider than a warp's units
+    (400, 300, 2, ("stream", 32, 12, 1, 2)),    # 12 units a lane
+    (1024, 512, 1, ("stream", 32, 16, 1, 1)),   # the widest stream frame
+    (8192, 40, 1, ("stream", 8, 5, 1, 1)),      # 64 key chunks
 ])
 def test_pair_attention_plan(N, H, B, plan):
     """Regime, lanes per row, units per lane, frames per block and
@@ -287,22 +290,27 @@ def test_pair_attention_plan(N, H, B, plan):
     blocks fit an SM or a block holds 32 lane groups, the grid otherwise;
     the notebook shape fits several blocks of
     34 KB on an SM; a frame too large for both takes the stream regime
-    (no pair grid in shared memory) where H <= 256 and is refused above."""
+    (no pair grid in shared memory, keys in chunks of 128, up to 16 units
+    a lane) where H <= 512 and is refused above."""
     got = tpa.kernel_plan(B, N, H, 20)
     assert (got["regime"], got["lanes"], got["units"], got["frames"],
             got["blocks"]) == plan
     assert not got["refused"] and got["smem"] <= tpa._MAX_SMEM
-    if got["regime"] == "rows":
+    if got["regime"] in ("rows", "stream"):
         assert got["lanes"] * got["units"] >= H
     if (N, H) == (10, 40):
         assert got["smem"] < 48 * 1024
     big = tpa.kernel_plan(1, 400, 64, 20)
     assert big["regime"] == "stream" and not big["refused"]
     assert (big["lanes"], big["units"], big["frames"]) == (16, 4, 1)
-    assert tpa.kernel_plan(1, 400, 300, 20)["refused"]
+    wide = tpa.kernel_plan(1, 400, 300, 20)
+    assert wide["regime"] == "stream" and not wide["refused"]
+    assert tpa.kernel_plan(1, 400, 520, 20)["refused"]
+    assert tpa.kernel_plan(1, 8192, 40, 20)["smem"] == tpa.kernel_plan(
+        1, 1553, 40, 20)["smem"]
     forced = tpa.kernel_plan(B, N, H, 20, regime="grid")
     assert forced["regime"] == "grid"
-    if H <= 256:
+    if H <= 256 and N <= 64:
         assert tpa.kernel_plan(B, N, H, 20, regime="rows")["regime"] == "rows"
 
 

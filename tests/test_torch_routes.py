@@ -195,18 +195,20 @@ def test_dense_stack_split_equals_the_whole_stack(dims, dc):
 
 
 @pytest.mark.parametrize("n,takes", [(80, True), (100, True),
-                                     (1552, True), (1553, False)])
+                                     (1552, True), (1553, True),
+                                     (4096, True), (8192, True)])
 def test_pair_attention_route_by_plan(n, takes):
     """B = 2000 frames, H = 40, Fo = 20: the plan takes N = 80 in the
-    rows regime, N = 100 (beyond the rows and grid regimes' shared
-    memory) up to 1552 in the stream regime, and refuses N = 1553, which
-    then runs the plain layer.  On the CPU both routes give the kernel
-    route's plain version (compared at N <= 100)."""
+    rows regime, and N = 100 (beyond the rows and grid regimes' shared
+    memory) and every larger frame in the stream regime, whose shared
+    memory does not grow with N (keys in chunks of 128).  On the CPU the
+    layer gives the kernel route's plain version (compared at N <=
+    100)."""
     g = torch.Generator().manual_seed(0)
     layer = VectorAttention.create(g, 20, 20, hidden_dim=40, device="cpu")
     assert layer.kernel_wiring
-    assert layer.kernel_takes(2000, n) is takes
     plan = tpa.kernel_plan(2000, n, 40, 20)
+    assert (not plan["refused"]) is takes
     assert plan["regime"] == ("rows" if n == 80 else "stream")
     n = min(n, 100)
     coords = torch.randn(2, n, 3, generator=g)

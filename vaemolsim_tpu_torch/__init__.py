@@ -25,12 +25,17 @@ autoregressive and von Mises heads, CG maps, ensembles and checkpoints;
 joint backmapping (``dists.JointBackmapping``) with SchNet or two-stage
 attention embeddings, SchNet potentials, BAT/NeRF internal coordinates
 (``coords``), trajectory I/O (``data``: DCD, PDB, XYZ) and checkpointed
-MC (see ROADMAP.md for what is still to come).
+MC; and the rest of the molecular stack: the Ewald sum, dense Coulomb,
+the bonded terms and the other pair terms (``potentials``), constrained
+and thermostatted MD (``md``: SHAKE / RATTLE, Nose-Hoover chains, CSVR,
+r-RESPA, steered Langevin, the NPT barostat), ``observables``, and NPT,
+grand-canonical and Gibbs-ensemble Monte Carlo (``mcmc``) (see ROADMAP.md
+for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
 from vaemolsim_tpu_torch import losses  # noqa: F401
-from vaemolsim_tpu_torch import md, potentials  # noqa: F401
+from vaemolsim_tpu_torch import md, observables, potentials  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
 from vaemolsim_tpu_torch import parallel  # noqa: F401
 from vaemolsim_tpu_torch import train  # noqa: F401

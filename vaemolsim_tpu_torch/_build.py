@@ -10,10 +10,8 @@ beside this file, which git ignores.
 A kernel is reached through a :class:`Kernel`: it checks the C return
 code (``cudaGetLastError()`` right after the launch, so a refused launch
 raises instead of silently never running) and counts its launches.  A
-call on CUDA tensors that a route sends to the plain version because
-the kernel's launch plan cannot take its shapes counts in the kernel's
-``plain_routes`` instead (:meth:`Kernel.route_plain`).  Nothing here
-synchronises with the device.
+CUDA tensor never goes to a plain version: a wrapper launches its kernel
+or raises.  Nothing here synchronises with the device.
 """
 
 from __future__ import annotations
@@ -30,7 +28,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["Kernel", "KERNELS", "NVCC_FLAGS", "BUILD_LOGS", "build_all",
-           "reset_launches", "launch_counts", "plain_route_counts",
+           "reset_launches", "launch_counts",
            "call_with_plain_grad"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -114,8 +112,7 @@ class Kernel:
     (``ctypes.c_void_p`` for every pointer).  ``launches`` counts the
     launches made through :meth:`launch` and nowhere else, and
     ``mode_launches`` those of them made in a named mode (the MAF block's
-    ``"bf16"``); ``plain_routes`` the calls on CUDA tensors that a route
-    decided, from their shapes alone, to give the plain version."""
+    ``"bf16"``)."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -126,7 +123,6 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self.mode_launches: Dict[str, int] = {}
-        self.plain_routes = 0
         self._fn = None
         KERNELS[name] = self
 
@@ -161,29 +157,19 @@ class Kernel:
         fn.restype = ctypes.c_int
         return int(fn(*args))
 
-    def route_plain(self, t: torch.Tensor) -> None:
-        """Count a shape-decided plain call, if ``t`` is on the card."""
-        if t.is_cuda:
-            self.plain_routes += 1
-
 
 KERNELS: Dict[str, Kernel] = {}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch and plain-route counts to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS.values():
         k.launches = 0
         k.mode_launches = {}
-        k.plain_routes = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
-
-
-def plain_route_counts() -> Dict[str, int]:
-    return {name: k.plain_routes for name, k in KERNELS.items()}
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

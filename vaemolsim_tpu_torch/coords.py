@@ -39,8 +39,10 @@ def _unit(v: Tensor) -> Tensor:
 
 
 def _index(coords: Tensor, idx) -> Tensor:
-    return coords[..., torch.as_tensor(np.asarray(idx), dtype=torch.long,
-                                       device=coords.device), :]
+    if not isinstance(idx, Tensor):
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                              device=coords.device)
+    return coords[..., idx, :]
 
 
 def bond_lengths(coords: Tensor, pairs) -> Tensor:
@@ -64,8 +66,9 @@ def bond_angles(coords: Tensor, triples) -> Tensor:
 
 def dihedrals(coords: Tensor, quads) -> Tensor:
     """Signed dihedral of (p0, p1, p2, p3) about the p1-p2 axis, in
-    [-pi, pi] (praxeolitic formulation)."""
-    q = np.asarray(quads)
+    [-pi, pi] (praxeolitic formulation).  ``quads``: (M, 4) indices, a
+    long tensor on the coordinates' device or anything numpy reads."""
+    q = quads if isinstance(quads, Tensor) else np.asarray(quads)
     p0, p1, p2, p3 = (_index(coords, q[:, i]) for i in range(4))
     b0 = p0 - p1
     b1 = _unit(p2 - p1)

@@ -76,20 +76,24 @@
 // only one rows block and that block only 16 or 8 lane groups, as at N =
 // 50, H = 64 (0.90 against 1.21 ms).
 //
-// Stream (H <= 256, frames whose pair grid fits neither regime: N = 100
-// at H = 40 needs 282 KB in the rows regime): a block owns one frame and
-// holds no (N, N) array.  Its lane groups own rows as in the rows regime,
-// with the same per-pair arithmetic, but read the node projections from
-// global memory (L1) and compute the invariants per pair from the frame's
-// coordinates; a group keeps one row's scores (N floats) and one row's
-// accumulators (H floats) in shared memory: 23 KB at N = 100, H = 40 (32
-// groups of 8 lanes).  Without reduce a row is the rows regime's: scores, the row's
-// softmax, values, and the head at once.  With reduce the grid's softmax
-// takes two passes: the first computes each row's scores, its maximum and
-// its sum of exponentials, merged per group and then over the block (in
-// group order); the second computes each row's scores again (the same
-// bits) and accumulates alpha act(LN(h_v)) over the group's rows, and the
-// block adds the groups' accumulators in group order before the head.
+// Stream (H <= 512, frames whose pair grid fits neither regime: N = 100
+// at H = 40 needs 282 KB in the rows regime, H = 300 at N = 400 is beyond
+// the grid regime): a block owns one frame and holds nothing of size N.
+// Its lane groups own rows as in the rows regime (up to 16 units a lane),
+// with the same per-pair arithmetic, but read the coordinates, mask and
+// node projections from global memory (L1) and compute the invariants per
+// pair; a group walks its row's keys in chunks of kChunk and keeps one
+// chunk's scores and one row's accumulators (H floats) in shared memory:
+// 22 KB at H = 40 (32 groups of 8 lanes), whatever N.  Without reduce a
+// row's softmax is online: per chunk its scores, the chunk's maximum, the
+// running sum and accumulators rescaled by exp(old max - new max), then
+// the chunk's values; the row's head once at the end.  With reduce the
+// grid's softmax takes two passes: the first computes each chunk's
+// scores, its maximum and its sum of exponentials, merged per group chunk
+// by chunk and then over the block (in group order); the second computes
+// the scores again (the same bits) and accumulates alpha act(LN(h_v))
+// over the group's rows, and the block adds the groups' accumulators in
+// group order before the head.
 //
 // No atomics in any regime: every sum has one order.  Neither wgmma,
 // TMA nor TF32 is used.
@@ -107,6 +111,7 @@ constexpr int kMaxFrames = 8;
 static_assert(kMaxFrames <= kWarps, "the reduce softmax takes a warp a frame");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e9f;
+constexpr int kChunk = 128;  // keys a stream-regime chunk holds
 
 enum Act { kLinear = 0, kRelu = 1, kTanh = 2 };
 
@@ -166,13 +171,11 @@ __host__ __device__ inline int grid_frame_floats(int N, int H, int ld) {
   return 4 * N + 4 * N * ld + 7 * N * N + N * H + N;
 }
 
-// Stream regime: the value head's weights and biases, the frame's
-// coordinates and mask; per lane group, a row's scores and a row's
-// accumulators; three partials per group (the reduce softmax's maximum
-// and sum, the sum of alpha).
-__host__ __device__ inline int stream_floats(int N, int H, int Fo, int G) {
-  return round4(H * Fo + Fo) + round4(4 * N) +
-         G * (round4(N) + round4(H)) + 3 * G;
+// Stream regime: the value head's weights and biases; per lane group, a
+// chunk's scores and a row's accumulators; three partials per group (the
+// reduce softmax's maximum and sum, the sum of alpha).  Independent of N.
+__host__ __device__ inline int stream_floats(int H, int Fo, int G) {
+  return round4(H * Fo + Fo) + G * (kChunk + round4(H)) + 3 * G;
 }
 
 // Sums and maxima over a group of L lanes (unrolled, the steps past the
@@ -713,24 +716,20 @@ __global__ void __launch_bounds__(kThreads, 1) pair_attention_kernel_grid(
 }
 
 template <int A, bool kReduce, int U>
-__global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
-    Args p) {
+__global__ void __launch_bounds__(kThreads, U > 8 ? 1 : 2)
+    pair_attention_kernel_stream(Args p) {
   extern __shared__ __align__(16) float smem[];
   const int N = p.N, H = p.H, Fo = p.Fo, L = p.L;
   const int G = kThreads / L;
   float* w2v = smem;
   float* b2v = w2v + H * Fo;
-  float* xyz = smem + round4(H * Fo + Fo);
-  float* msk = xyz + 3 * N;
-  float* rows = smem + round4(H * Fo + Fo) + round4(4 * N);
-  float* accs = rows + G * round4(N);
+  float* chunks = smem + round4(H * Fo + Fo);
+  float* accs = chunks + G * kChunk;
   float* part = accs + G * round4(H);  // max (G), sum (G), sum alpha (G)
   const long long fb = blockIdx.x;
   const int tid = threadIdx.x;
   for (int t = tid; t < H * Fo; t += kThreads) w2v[t] = p.w2_v[t];
   for (int t = tid; t < Fo; t += kThreads) b2v[t] = p.b2_v[t];
-  for (int t = tid; t < 3 * N; t += kThreads) xyz[t] = p.coords[fb * 3 * N + t];
-  for (int t = tid; t < N; t += kThreads) msk[t] = p.mask[fb * N + t];
   __syncthreads();
 
   const int grp = tid / L, b = tid - grp * L, lane = tid & 31;
@@ -738,11 +737,13 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
       L == 32 ? kFull : (((1u << L) - 1u) << (lane & ~(L - 1)));
   const float inv_h = 1.f / H;
   const long long off = fb * static_cast<long long>(N) * H;
+  const float* __restrict__ xyz = p.coords + fb * 3 * N;
+  const float* __restrict__ msk = p.mask + fb * N;
   const float* __restrict__ nis = p.ni_s + off;
   const float* __restrict__ njs = p.nj_s + off;
   const float* __restrict__ niv = p.ni_v + off;
   const float* __restrict__ njv = p.nj_v + off;
-  float* s_row = rows + grp * round4(N);
+  float* s_chunk = chunks + grp * kChunk;
   float* a_out = accs + grp * round4(H);
 
   // The invariants of pair (i, j), as the rows regime stages them.
@@ -757,8 +758,10 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
                        xj * xj + yj * yj + zj * zj);
   };
 
-  // Scores of row i into s_row (the rows regime's arithmetic).
-  auto scores = [&](int i) {
+  // Scores of keys j0 .. j0 + n - 1 of row i into s_chunk (the rows
+  // regime's arithmetic; both reduce passes call it, so they see the same
+  // bits).
+  auto scores = [&](int i, int j0, int n) {
     float wq[4][U], w2[U], a[U];
 #pragma unroll
     for (int m = 0; m < U; ++m) {
@@ -770,7 +773,8 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
     }
     const float b2 = p.b2_s[0];
     const float mi = msk[i];
-    for (int j = 0; j < N; ++j) {
+    for (int t = 0; t < n; ++t) {
+      const int j = j0 + t;
       float s = kNegInf;
       if (mi * msk[j] > 0.5f) {
         const float4 qq = invariants(i, j);
@@ -787,13 +791,21 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
         }
         s = group_sum(part_s, gmask, L) + b2;
       }
-      if (b == 0) s_row[j] = s;
+      if (b == 0) s_chunk[t] = s;
     }
     __syncwarp(gmask);
   };
 
-  // acc += sum_j alpha_ij act(LN(h_v,ij)) over row i, alpha_ij = wt(j, s).
-  auto values = [&](int i, float (&acc)[U], auto wt) {
+  // The chunk's largest score, over the group.
+  auto chunk_max = [&](int n) {
+    float mx = -FLT_MAX;
+    for (int t = b; t < n; t += L) mx = fmaxf(mx, s_chunk[t]);
+    return group_max(mx, gmask, L);
+  };
+
+  // acc += sum_j w_ij act(LN(h_v,ij)) over the chunk's keys, w_ij =
+  // wt(j, s_ij); returns sum_j w_ij.
+  auto values = [&](int i, int j0, int n, float (&acc)[U], auto wt) {
     float wq[4][U], g[U], beta[U], a[U];
 #pragma unroll
     for (int m = 0; m < U; ++m) {
@@ -804,10 +816,11 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
       beta[m] = k < H ? p.ln_b[k] : 0.f;
       a[m] = k < H ? niv[i * H + k] + p.b1_v[k] : 0.f;
     }
-    float asum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float alpha = wt(j, s_row[j]);
-      asum += alpha;
+    float wsum = 0.f;
+    for (int t = 0; t < n; ++t) {
+      const int j = j0 + t;
+      const float alpha = wt(j, s_chunk[t]);
+      wsum += alpha;
       if (alpha == 0.f) continue;
       const float4 qq = invariants(i, j);
       float h[U];
@@ -835,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
         acc[m] = fmaf(alpha, activate<A>(fmaf(h[m] * rs, g[m], beta[m])),
                       acc[m]);
     }
-    return asum;
+    return wsum;
   };
 
   auto store = [&](float* dst, const float (&acc)[U]) {
@@ -846,52 +859,61 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
 
   if (!kReduce) {
     for (int i = grp; i < N; i += G) {
-      scores(i);
-      // The row's softmax, in place, by the group (the rows regime's).
+      // The row's softmax online over key chunks: a running maximum, and
+      // a running sum and accumulators rescaled whenever it rises.
       const float mi = msk[i];
-      float mx = -FLT_MAX;
-      for (int t = b; t < N; t += L) mx = fmaxf(mx, s_row[t]);
-      mx = group_max(mx, gmask, L);
-      float sum = 0.f;
-      for (int t = b; t < N; t += L) {
-        const float e = expf(s_row[t] - mx) * (mi * msk[t]);
-        s_row[t] = e;
-        sum += e;
-      }
-      const float inv = 1.f / fmaxf(group_sum(sum, gmask, L), 1e-30f);
-      __syncwarp(gmask);
       float acc[U];
 #pragma unroll
       for (int m = 0; m < U; ++m) acc[m] = 0.f;
-      const float asum =
-          values(i, acc, [&](int, float e) { return e * inv; });
+      float run_max = -FLT_MAX, run_sum = 0.f;
+      for (int j0 = 0; j0 < N; j0 += kChunk) {
+        const int n = min(kChunk, N - j0);
+        scores(i, j0, n);
+        const float top = fmaxf(run_max, chunk_max(n));
+        const float scale = expf(run_max - top);  // 0 on the first chunk
+        run_sum *= scale;
+#pragma unroll
+        for (int m = 0; m < U; ++m) acc[m] *= scale;
+        run_max = top;
+        run_sum += values(i, j0, n, acc, [&](int j, float s) {
+          return expf(s - top) * (mi * msk[j]);
+        });
+        __syncwarp(gmask);  // s_chunk is the next chunk's
+      }
+      const float inv = 1.f / fmaxf(run_sum, 1e-30f);
+#pragma unroll
+      for (int m = 0; m < U; ++m) acc[m] *= inv;
       store(a_out, acc);
       __syncwarp(gmask);
+      const float asum = run_sum * inv;
       for (int o = b; o < Fo; o += L) {
         float v = 0.f;
         for (int k = 0; k < H; ++k) v = fmaf(a_out[k], w2v[k * Fo + o], v);
         p.out[(fb * N + i) * Fo + o] = fmaf(b2v[o], asum, v);
       }
-      __syncwarp(gmask);  // s_row and a_out are the next row's
+      __syncwarp(gmask);  // a_out is the next row's
     }
     return;
   }
 
-  // Pass 1: each group's running maximum and sum of exp(s - max) m_i m_j.
+  // Pass 1: each group's running maximum and sum of exp(s - max) m_i m_j,
+  // merged chunk by chunk.
   float gmax = -FLT_MAX, gsum = 0.f;
   for (int i = grp; i < N; i += G) {
-    scores(i);
     const float mi = msk[i];
-    float mx = -FLT_MAX;
-    for (int t = b; t < N; t += L) mx = fmaxf(mx, s_row[t]);
-    mx = group_max(mx, gmask, L);
-    float sum = 0.f;
-    for (int t = b; t < N; t += L) sum += expf(s_row[t] - mx) * (mi * msk[t]);
-    sum = group_sum(sum, gmask, L);
-    const float top = fmaxf(gmax, mx);
-    gsum = gsum * expf(gmax - top) + sum * expf(mx - top);
-    gmax = top;
-    __syncwarp(gmask);  // s_row is the next row's
+    for (int j0 = 0; j0 < N; j0 += kChunk) {
+      const int n = min(kChunk, N - j0);
+      scores(i, j0, n);
+      const float mx = chunk_max(n);
+      float sum = 0.f;
+      for (int t = b; t < n; t += L)
+        sum += expf(s_chunk[t] - mx) * (mi * msk[j0 + t]);
+      sum = group_sum(sum, gmask, L);
+      const float top = fmaxf(gmax, mx);
+      gsum = gsum * expf(gmax - top) + sum * expf(mx - top);
+      gmax = top;
+      __syncwarp(gmask);  // s_chunk is the next chunk's
+    }
   }
   if (b == 0) {
     part[grp] = gmax;
@@ -904,18 +926,31 @@ __global__ void __launch_bounds__(kThreads, 2) pair_attention_kernel_stream(
   for (int u = 0; u < G; ++u) tot += part[G + u] * expf(part[u] - top);
   const float inv = 1.f / fmaxf(tot, 1e-30f);
 
-  // Pass 2: the scores again, alpha = exp(s - max) m_i m_j / sum.
+  // Pass 2: the scores again, alpha = exp(s - max) m_i m_j / sum.  Each
+  // row sums into its own accumulators, added to the group's once the row
+  // is done: a group's sequential sums stay a row long (N terms), not N^2
+  // / G (float32 rounding at N = 4096 otherwise reaches 1e-4).
   float acc[U];
 #pragma unroll
   for (int m = 0; m < U; ++m) acc[m] = 0.f;
   float asum = 0.f;
   for (int i = grp; i < N; i += G) {
-    scores(i);
     const float mi = msk[i];
-    asum += values(i, acc, [&](int j, float s) {
-      return (expf(s - top) * (mi * msk[j])) * inv;
-    });
-    __syncwarp(gmask);
+    float racc[U];
+#pragma unroll
+    for (int m = 0; m < U; ++m) racc[m] = 0.f;
+    float rsum = 0.f;
+    for (int j0 = 0; j0 < N; j0 += kChunk) {
+      const int n = min(kChunk, N - j0);
+      scores(i, j0, n);
+      rsum += values(i, j0, n, racc, [&](int j, float s) {
+        return (expf(s - top) * (mi * msk[j])) * inv;
+      });
+      __syncwarp(gmask);
+    }
+#pragma unroll
+    for (int m = 0; m < U; ++m) acc[m] += racc[m];
+    asum += rsum;
   }
   store(a_out, acc);
   if (b == 0) part[2 * G + grp] = asum;
@@ -956,6 +991,8 @@ cudaError_t launch_units(int regime, const Args& p, unsigned blocks,
                 stream);
 }
 
+// Units a lane: 2, 4, 5 or 8 in the rows and stream regimes, 12 or 16 in
+// the stream regime alone.
 template <int A, bool kReduce>
 cudaError_t launch_regime(int regime, int units, const Args& p,
                           unsigned blocks, size_t smem, cudaStream_t stream) {
@@ -968,7 +1005,13 @@ cudaError_t launch_regime(int regime, int units, const Args& p,
     return launch_units<A, kReduce, 4>(regime, p, blocks, smem, stream);
   if (units == 5)
     return launch_units<A, kReduce, 5>(regime, p, blocks, smem, stream);
-  return launch_units<A, kReduce, 8>(regime, p, blocks, smem, stream);
+  if (units == 8)
+    return launch_units<A, kReduce, 8>(regime, p, blocks, smem, stream);
+  if (units == 12)
+    return launch(pair_attention_kernel_stream<A, kReduce, 12>, p, blocks,
+                  smem, stream);
+  return launch(pair_attention_kernel_stream<A, kReduce, 16>, p, blocks,
+                smem, stream);
 }
 
 template <bool kReduce>
@@ -994,7 +1037,8 @@ cudaError_t launch_act(int act, int regime, int units, const Args& p,
 // stream), frames per block (1 in the stream regime) and the dynamic
 // shared memory in bytes.  Returns cudaErrorInvalidValue for bad sizes
 // and for a plan that the kernel cannot run: lanes not a power of two up
-// to 32, units not compiled or lanes x units < H, frames outside [1, 8]
+// to 32, units not compiled for the regime (2, 4, 5, 8; 12 and 16 in the
+// stream regime) or lanes x units < H, frames outside [1, 8]
 // (or not 1 in the stream regime), or shared memory short of the plan's
 // need or above the card's limit.
 extern "C" int pair_attention_launch(
@@ -1014,14 +1058,16 @@ extern "C" int pair_attention_launch(
   const bool grid = regime == kGrid;
   const int ld = H | 1;
   const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
-  const bool units_ok = units == 2 || units == 4 || units == 5 || units == 8;
+  const bool units_ok = units == 2 || units == 4 || units == 5 ||
+                        units == 8 ||
+                        (regime == kStream && (units == 12 || units == 16));
   if (!grid && (!lanes_ok || !units_ok || lanes * units < H))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long need =
       grid ? 4LL * (grid_weight_floats(H, Fo) +
                     static_cast<long long>(frames) * grid_frame_floats(N, H, ld))
       : regime == kStream
-          ? 4LL * stream_floats(N, H, Fo, kThreads / lanes)
+          ? 4LL * stream_floats(H, Fo, kThreads / lanes)
           : 4LL * (weight_floats(H, Fo) +
                    static_cast<long long>(frames) * frame_floats(N, H));
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);

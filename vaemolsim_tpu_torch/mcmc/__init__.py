@@ -1,6 +1,7 @@
 """Monte Carlo: the VAE-proposal engine and its fused step, local moves
 and their tuner, chain diagnostics, simulated tempering and free-energy
-estimators (FFS, TPS, NPT, GCMC and Gibbs-ensemble MC are not ported)."""
+estimators, and NPT, grand-canonical and Gibbs-ensemble MC (FFS and TPS
+are not ported)."""
 
 from vaemolsim_tpu_torch.mcmc.diagnostics import (  # noqa: F401
     autocorrelation,
@@ -42,6 +43,20 @@ from vaemolsim_tpu_torch.mcmc.fused import (  # noqa: F401
     fused_vae_proposal,
     make_fused_vae_step,
 )
+from vaemolsim_tpu_torch.mcmc.gcmc import (  # noqa: F401
+    GCMCState,
+    gcmc_init,
+    lj_pair_u,
+    make_gcmc_step,
+    run_gcmc,
+    total_energy,
+)
+from vaemolsim_tpu_torch.mcmc.gibbs import (  # noqa: F401
+    GibbsState,
+    gibbs_init,
+    make_gibbs_step,
+    run_gibbs,
+)
 from vaemolsim_tpu_torch.mcmc.moves import (  # noqa: F401
     cycle_moves,
     make_hmc_step,
@@ -49,6 +64,12 @@ from vaemolsim_tpu_torch.mcmc.moves import (  # noqa: F401
     make_random_walk_step,
     mix_moves,
     tune_scale,
+)
+from vaemolsim_tpu_torch.mcmc.npt import (  # noqa: F401
+    NPTState,
+    make_npt_step,
+    npt_init,
+    run_npt,
 )
 from vaemolsim_tpu_torch.mcmc.tempering import (  # noqa: F401
     STState,

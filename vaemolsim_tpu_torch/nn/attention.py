@@ -14,14 +14,14 @@ A CUDA :class:`VectorAttention` whose wiring the pair-attention kernel
 supports runs through it (``ops/attention.py``, ``csrc/pair_attention.cu``):
 one activation, relu, tanh or linear, shared by the score trunk and the
 value net, no activation on ``value_net.d1`` or on either head, and the
-float32 compute dtype.  Every other wiring takes the plain path, and so
-does a call whose shapes the kernel's launch plan refuses
-(``ops.attention.kernel_plan``: a hidden width above 256 with a frame
-beyond the grid regime, or a frame of more than about 1500 particles),
-decided from the shapes before any launch and counted in the kernel's
-``plain_routes`` on the card.  There
-is no switch: the JAX package's ``set_attention_pallas`` /
-``use_attention_pallas`` chose a TPU backend that its own study measured
+float32 compute dtype.  Every other wiring takes the plain path.  A CUDA
+call of that wiring always launches the kernel: its stream regime takes
+any frame size up to a hidden width of 512, and a call that no regime
+takes (``ops.attention.kernel_plan``: a hidden width above 512 with a
+frame beyond the grid regime) raises ``ValueError`` naming the limit; it
+never falls back to the plain layer on the card.  There is no switch:
+the JAX package's ``set_attention_pallas`` / ``use_attention_pallas``
+chose a TPU backend that its own study measured
 slower than XLA; here the kernel is the route whenever it applies.  On
 the CPU the kernel route runs the kernel's plain version.
 
@@ -44,7 +44,6 @@ from vaemolsim_tpu_torch.nn.core import (Dense, LayerNorm, compute_dtype,
                                          resolve_activation)
 from vaemolsim_tpu_torch.nn.mappings import DistanceSelection
 from vaemolsim_tpu_torch.ops.attention import (_NEG_INF, ACT_CODES,
-                                               KERNEL, kernel_plan,
                                                pair_attention,
                                                pair_invariants)
 
@@ -157,19 +156,9 @@ class VectorAttention(nn.Module):
                 and ACT_CODES.get(v.d2.activation) == 0
                 and compute_dtype() in (None, torch.float32))
 
-    def kernel_takes(self, frames: int, n: int) -> bool:
-        """Whether the kernel's launch plan takes ``frames`` clouds of
-        ``n`` particles at this layer's widths (decided from the shapes
-        alone, before any launch)."""
-        return not kernel_plan(frames, n, self.score_net.d1.out_dim,
-                               self.value_net.d2.out_dim)["refused"]
-
     def forward(self, coords: Tensor, values: Tensor,
                 mask: Optional[Tensor] = None) -> Tensor:
-        if self.kernel_wiring and not self.kernel_takes(
-                coords[..., 0, 0].numel(), coords.shape[-2]):
-            KERNEL.route_plain(coords)
-        elif self.kernel_wiring:
+        if self.kernel_wiring:
             maskf = (torch.ones(coords.shape[:-1], dtype=coords.dtype,
                                 device=coords.device) if mask is None
                      else mask.to(coords.dtype))

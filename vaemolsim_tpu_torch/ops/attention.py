@@ -54,10 +54,13 @@ _NEG_INF = -1e9
 # least 264 blocks (two an SM of the H100's 132) where B allows, the card's
 # dynamic shared memory per block, and per SM (228 KB, 1 KB of it reserved
 # per block).  The rows regime: lanes hold 2, 4, 5 or 8 hidden units each,
-# at most a warp a row (H <= 256); the grid regime about 512 pairs a block.
+# at most a warp a row (H <= 256); the stream regime up to 16 (H <= 512),
+# over keys in chunks of 128; the grid regime about 512 pairs a block.
 _THREADS, _MAX_FRAMES, _MIN_BLOCKS, _MAX_SMEM = 256, 8, 264, 232448
 _SM_SMEM, _BLOCK_RESERVE = 233472, 1024
 _UNITS = (2, 4, 5, 8)
+_STREAM_UNITS = (2, 4, 5, 8, 12, 16)
+_CHUNK = 128
 _GRID_PAIRS = 512
 _REGIMES = {"rows": 0, "grid": 1, "stream": 2}
 
@@ -88,12 +91,14 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
     regime or one within 4% of it (chip_turns.py's sweep); the grid wins
     where an SM holds one rows block of 16 or 8 lane groups (N = 50 and 64
     at H = 64, N = 50 at H = 100, N = 37 and 50 at H = 128, N = 37 at H =
-    200).  "stream" where H <= 256 and one frame fits neither (N = 100
-    at H = 40): a block a frame, the rows regime's lane groups, no (N, N)
-    array in shared memory, only a row's scores and accumulators per
-    group.  ``smem`` bytes per block, ``blocks``; ``refused`` where no
-    regime fits a block's shared memory (H > 256 with a frame beyond the
-    grid regime, or N above 1552 at H = 40).  A given ``regime``
+    200).  "stream" where H <= 512 and one frame fits neither (N = 100
+    at H = 40, N = 400 at H = 300): a block a frame, the rows regime's lane
+    groups with up to 16 units a lane (2, 4, 5, 8, 12 or 16), the keys
+    walked in chunks of 128 by an online softmax, so that shared memory
+    holds a chunk's scores and a row's accumulators per group and nothing
+    of size N.  ``smem`` bytes per block, ``blocks``; ``refused`` where no
+    regime fits a block's shared memory (H > 512 with a frame beyond the
+    grid regime, or a value head too large for it).  A given ``regime``
     is taken where the shapes allow it (to measure or test one regime at
     a shape the rule gives another)."""
     def r4(v):
@@ -104,6 +109,7 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
         lanes *= 2
     need = -(-H // lanes)
     units = next((u for u in _UNITS if u >= need), None)
+    s_units = next((u for u in _STREAM_UNITS if u >= need), None)
     ld = H | 1
 
     def rows_smem(T):
@@ -115,8 +121,7 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
                     + T * (4 * N + 4 * N * ld + 7 * N * N + N * H + N))
 
     def stream_smem(G):
-        return 4 * (r4(H * Fo + Fo) + r4(4 * N) + G * (r4(N) + r4(H))
-                    + 3 * G)
+        return 4 * (r4(H * Fo + Fo) + G * (_CHUNK + r4(H)) + 3 * G)
 
     rows_ok = units is not None and rows_smem(1) <= _MAX_SMEM
     asked = regime
@@ -133,9 +138,9 @@ def kernel_plan(B: int, N: int, H: int, Fo: int,
         T = _frames(B, -(-_GRID_PAIRS // (N * N)), grid_smem)
         plan = dict(regime="grid", lanes=None, units=None, frames=T,
                     smem=grid_smem(T))
-    if units is not None and (asked == "stream" or (
+    if s_units is not None and (asked == "stream" or (
             asked is None and plan["smem"] > _MAX_SMEM)):
-        plan = dict(regime="stream", lanes=lanes, units=units, frames=1,
+        plan = dict(regime="stream", lanes=lanes, units=s_units, frames=1,
                     smem=stream_smem(_THREADS // lanes))
     plan.update(blocks=-(-B // plan["frames"]),
                 refused=plan["smem"] > _MAX_SMEM)
@@ -236,9 +241,11 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
         (b2_v, "b2_v", (Fo,)))]
     plan = kernel_plan(B, N, H, Fo)
     if plan["refused"]:
-        raise ValueError(f"pair_attention: a frame of N={N}, H={H}, Fo={Fo} "
-                         f"needs {plan['smem']} bytes of shared memory, "
-                         f"more than the card's {_MAX_SMEM}")
+        raise ValueError(f"pair_attention: no regime of the kernel takes a "
+                         f"frame of N={N}, H={H}, Fo={Fo} (it needs "
+                         f"{plan['smem']} bytes of shared memory, the card "
+                         f"has {_MAX_SMEM}; the stream regime takes any N "
+                         f"up to H={32 * _STREAM_UNITS[-1]})")
     out = torch.empty((B, Fo) if reduce else (B, N, Fo), dtype=coords.dtype,
                       device=coords.device)
     KERNEL.launch(coords.device, *[t.data_ptr() for t in args],

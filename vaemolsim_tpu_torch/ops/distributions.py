@@ -9,9 +9,9 @@ passed in, on the device of the distribution's parameters.
 
 Normal, Uniform, Deterministic, VonMises, Beta, Gamma, Independent,
 Categorical, MixtureSameFamily, Blockwise and TransformedDistribution.
-Gamma samples through ``torch._standard_gamma`` (reparameterised: its
-gradient with respect to the concentration is the implicit one), and
-Beta from two of them.
+Gamma samples through ``standard_gamma``, which is
+``torch._standard_gamma`` (reparameterised: its gradient with respect to
+the concentration is the implicit one), and Beta from two of them.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ import torch
 Tensor = torch.Tensor
 
 __all__ = ["Distribution", "Normal", "Uniform", "Deterministic", "VonMises",
-           "Beta", "Gamma", "Independent", "Categorical", "MixtureSameFamily", "Blockwise",
-           "TransformedDistribution"]
+           "Beta", "Gamma", "standard_gamma", "Independent", "Categorical",
+           "MixtureSameFamily", "Blockwise", "TransformedDistribution"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _TWO_PI = 2.0 * math.pi
@@ -271,8 +271,10 @@ class VonMises(Distribution):
         return self.loc.expand(self.batch_shape)
 
 
-def _standard_gamma(generator: torch.Generator, alpha: Tensor,
-                    shape: Tuple[int, ...]) -> Tensor:
+def standard_gamma(generator: torch.Generator, alpha: Tensor,
+                   shape: Tuple[int, ...]) -> Tensor:
+    """Gamma(alpha, 1) draws of ``shape`` from the generator
+    (reparameterised: gradients reach ``alpha``)."""
     return torch._standard_gamma(alpha.expand(shape).contiguous(),
                                  generator=generator)
 
@@ -299,8 +301,8 @@ class Beta(Distribution):
 
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
-        g1 = _standard_gamma(generator, self.concentration1, shape)
-        g0 = _standard_gamma(generator, self.concentration0, shape)
+        g1 = standard_gamma(generator, self.concentration1, shape)
+        g0 = standard_gamma(generator, self.concentration0, shape)
         return g1 / (g1 + g0)
 
     def mean(self):
@@ -330,7 +332,7 @@ class Gamma(Distribution):
 
     def sample(self, generator, sample_shape=()):
         shape = tuple(sample_shape) + self.batch_shape
-        return (_standard_gamma(generator, self.concentration, shape)
+        return (standard_gamma(generator, self.concentration, shape)
                 / self.rate)
 
     def mean(self):
