@@ -1611,3 +1611,93 @@ def test_bond_constraint_projections_replay_their_graphs(dev, replicas):
     xg = x.clone().requires_grad_(True)
     out = con.rattle(xg, v)
     assert out.requires_grad and len(con.graphs) == 2
+
+
+def _velocity_field(dev, seed=0):
+    """Example 24's velocity field: 2-D events, 4 Fourier time features
+    (input 11 wide), hidden (128, 128), gelu."""
+    from vaemolsim_tpu_torch.flows import FlowMatching
+    return FlowMatching.create(torch.Generator(device=dev).manual_seed(seed),
+                               2, hidden_dim=(128, 128), device=dev)
+
+
+@pytest.mark.parametrize("n", [1024, 2 * 1024, 7])
+def test_dense_stack_gelu_at_the_velocity_field_shape_matches_plain(dev, n):
+    """Kernel 2 with gelu (tanh form) at 11 -> 128 -> 128 -> 2, at the CFM
+    batch, the divergence's two stacked copies and a few rows: 1e-4 +
+    1e-4|y| against the plain version, one launch a call."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    net = _velocity_field(dev).velocity.net
+    ks = [l.kernel for l in net.layers] + [net.head.kernel]
+    bs = [l.bias for l in net.layers] + [net.head.bias]
+    acts = ["gelu", "gelu", None]
+    x = torch.randn(n, 11, generator=torch.Generator(device=dev).manual_seed(
+        n), device=dev)
+    with torch.no_grad():
+        before = fused_mlp.KERNEL.launches
+        got = fused_mlp.dense_stack_cuda(x, ks, bs, acts)
+        assert fused_mlp.KERNEL.launches == before + 1
+        want = dense_stack_plain(x, ks, bs, acts)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flow_matching_divergence_on_the_card_matches_a_cpu_copy(dev):
+    """The exact divergence (two stacked copies through kernel 2, one
+    gradient through the plain recompute), the velocity, the CFM loss and
+    its gradients, and an 8-step ``sample_and_log_prob`` on the card
+    against a CPU copy: 1e-4."""
+    from vaemolsim_tpu_torch.flows.flow_matching import _divergence
+    fm = _velocity_field(dev, 1)
+    cpu = copy.deepcopy(fm).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(512, 2, generator=gen, device=dev)
+    tt = torch.rand(512, generator=gen, device=dev)
+    before = _build.KERNELS["dense_stack"].launches
+    v, div = _divergence(lambda xs: fm.velocity(xs, tt), x)
+    assert _build.KERNELS["dense_stack"].launches > before
+    vc, divc = _divergence(lambda xs: cpu.velocity(xs, tt.cpu()), x.cpu())
+    torch.testing.assert_close(v.cpu(), vc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(div.cpu(), divc, atol=1e-4, rtol=1e-4)
+    x0 = torch.randn(512, 2, generator=gen, device=dev)
+    loss = fm.loss(None, x, t=tt, x0=x0)
+    got = torch.autograd.grad(loss, list(fm.parameters()))
+    loss_c = cpu.loss(None, x.cpu(), t=tt.cpu(), x0=x0.cpu())
+    want = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    torch.testing.assert_close(loss.cpu(), loss_c, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
+    with torch.no_grad():
+        x1, lp = fm.sample_and_log_prob(None, (512,), n_steps=8, x0=x0)
+        x1c, lpc = cpu.sample_and_log_prob(None, (512,), n_steps=8,
+                                           x0=x0.cpu())
+    torch.testing.assert_close(x1.cpu(), x1c, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lp.cpu(), lpc, atol=1e-4, rtol=1e-4)
+
+
+def test_triclinic_pme_on_the_card_matches_the_cpu(dev):
+    """pme_coulomb(cell=...) on a sheared 512-ion rock-salt crystal with
+    TF32 off: energy to 1e-5 relative and forces to 1e-5 of the largest
+    against the same function on the CPU."""
+    import numpy as np
+    from vaemolsim_tpu_torch import potentials
+    n_lat, a = 8, 1.3
+    g = np.stack(np.meshgrid(*[np.arange(n_lat)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    q = np.where(g.sum(-1) % 2 == 0, 1.0, -1.0)
+    shear = np.array([[1.0, 0.0, 0.0], [0.15, 1.0, 0.0], [-0.1, 0.2, 1.0]])
+    cell = n_lat * a * shear
+    x = (g * a) @ shear
+    out = []
+    for d in (dev, "cpu"):
+        xt = torch.tensor(x, dtype=torch.float32, device=d)
+        xt = (xt + 0.05 * torch.randn(xt.shape, generator=torch.Generator()
+                                      .manual_seed(3)).to(d))
+        xt.requires_grad_(True)
+        e = potentials.pme_coulomb(q, cell=cell, r_cutoff=3.0,
+                                   tolerance=1e-5, device=d)(xt)
+        (f,) = torch.autograd.grad(e, xt)
+        out.append((e.detach().cpu(), f.cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], atol=0, rtol=1e-5)
+    scale = float(out[1][1].abs().max())
+    torch.testing.assert_close(out[0][1], out[1][1], atol=1e-5 * scale,
+                               rtol=0)

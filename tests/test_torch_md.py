@@ -97,8 +97,12 @@ def test_pme_grid_rule_matches_jax_at_the_molecular_stack():
 
 def test_pme_refuses_what_is_not_ported():
     q = np.array([1.0, -1.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.pme_coulomb(q, cell=np.eye(3) * 6.0, r_cutoff=2.0, device="cpu")
+    # Triclinic PME (cell=) is ported; box= and cell= together are refused.
+    assert callable(tp.pme_coulomb(q, cell=np.eye(3) * 6.0, r_cutoff=2.0,
+                                   device="cpu"))
+    with pytest.raises(ValueError, match="exactly one"):
+        tp.pme_coulomb(q, box=[6.0] * 3, cell=np.eye(3) * 6.0, r_cutoff=2.0,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tp.pme_coulomb(q, box=[6.0] * 3, r_cutoff=2.0, mesh=object(),
                        device="cpu")

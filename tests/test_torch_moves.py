@@ -260,7 +260,10 @@ def test_minimize_energy_matches_jax():
     energies within 1e-3 of JAX's.  The coordinates agree to 1e-6 over
     the first steps; later float32 roundoff through the r^-12 walls moves
     the two trajectories apart (a cluster may end rotated), but both
-    settle in the same minima.  polish_lbfgs raises."""
+    settle in the same minima.  Then the L-BFGS polish from JAX's Adam
+    output: the first step's coordinates equal optax's to 1e-4, and after
+    5 steps the energies to 1e-5 (at the basin floor a cluster's
+    rotations cost no energy, so float32 roundoff turns them freely)."""
     rng = np.random.default_rng(8)
     x0 = (0.7 * rng.normal(size=(16, 7, 3))).astype(np.float32)
     jp = jpot.composite(jpot.lennard_jones(), jpot.com_restraint(2.0))
@@ -275,5 +278,10 @@ def test_minimize_energy_matches_jax():
     assert tx.grad_fn is None
     torch.testing.assert_close(tp(tx), t(jp(jx)), atol=1e-3, rtol=0.0)
     assert float(tp(tx).max()) < float(tp(t(x0)).min())
-    with pytest.raises(NotImplementedError):
-        tpot.minimize_energy(tp, t(x0), polish_lbfgs=5)
+    for k, atol in ((1, 1e-4), (5, None)):
+        want = jpot.minimize_energy(jp, jx, steps=0, polish_lbfgs=k)
+        got = tpot.minimize_energy(tp, t(jx), steps=0, polish_lbfgs=k)
+        if atol:
+            torch.testing.assert_close(got, t(want), atol=atol, rtol=0.0)
+    torch.testing.assert_close(tp(got), t(jp(want)), atol=1e-5, rtol=0.0)
+    assert float(tp(got).min()) <= float(tp(tx).min())

@@ -316,9 +316,9 @@ def test_dense_stack_unsupported_activation_takes_plain_path():
     ks, bs, _ = make_stack(rng, [2, 8, 3], 0)
     x = t(rng.normal(size=(10, 2)))
     out = fused_dense_stack(x, [t(k) for k in ks], [t(b) for b in bs],
-                            ["gelu", None])
+                            ["softplus", None])
     want = dense_stack_plain(x, [t(k) for k in ks], [t(b) for b in bs],
-                             ["gelu", None])
+                             ["softplus", None])
     torch.testing.assert_close(out, want)
 
 

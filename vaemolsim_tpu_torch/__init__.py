@@ -29,13 +29,20 @@ MC; and the rest of the molecular stack: the Ewald sum, dense Coulomb,
 the bonded terms and the other pair terms (``potentials``), constrained
 and thermostatted MD (``md``: SHAKE / RATTLE, Nose-Hoover chains, CSVR,
 r-RESPA, steered Langevin, the NPT barostat), ``observables``, and NPT,
-grand-canonical and Gibbs-ensemble Monte Carlo (``mcmc``) (see ROADMAP.md
-for what is still to come).
+grand-canonical and Gibbs-ensemble Monte Carlo (``mcmc``); and triclinic
+cells with triclinic PME and the L-BFGS polish (``triclinic``,
+``potentials``), replica-exchange MD and Hamiltonian replica exchange
+(``parallel``), temperature extrapolation (``extrapolation``),
+path-integral, Brownian, generalized-Langevin and DPD dynamics
+(``pimd``, ``bd``, ``gle``, ``dpd``) and flow matching (``flows``) (see
+ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
 from vaemolsim_tpu_torch import losses  # noqa: F401
 from vaemolsim_tpu_torch import md, observables, potentials  # noqa: F401
+from vaemolsim_tpu_torch import bd, dpd, extrapolation, gle  # noqa: F401
+from vaemolsim_tpu_torch import pimd, triclinic  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
 from vaemolsim_tpu_torch import parallel  # noqa: F401
 from vaemolsim_tpu_torch import train  # noqa: F401

@@ -17,7 +17,8 @@ FlowModel, the VAE and VAEDualELBO, the seven loss classes, the CG maps,
 DistanceSelection, the attention nets, VectorAttention, AttentionBlock,
 ParticleEmbedding, LocalParticleDescriptors and BackmappingOnly,
 VectorAttentionTwoStage, SchNetInteraction, SchNetEmbedding,
-SchNetPotential and JointBackmapping; and
+SchNetPotential, JointBackmapping, VelocityField, FlowMatching and
+FlowMatchingLayer; and
 the molecular MD state: a ``CellNeighborList`` (either JAX build,
 evaluated by the port's cell-list energy) and an ``MDState``.  Batch-norm
 running moments become buffers.  Weights and arrays are copied
@@ -66,6 +67,23 @@ def _fcdeepnn(o, device):
                     tuple(o.target_shape), tuple(o.periodic_mask),
                     [_batch_norm(b, device) for b in o.bns]
                     if o.batch_norm else ())
+
+
+def _velocity_field(o, device):
+    from vaemolsim_tpu_torch.flows.flow_matching import VelocityField
+    return VelocityField(_fcdeepnn(o.net, device), o.event_dim, o.n_freqs,
+                         o.cond_dim)
+
+
+def _flow_matching(o, device):
+    from vaemolsim_tpu_torch.flows.flow_matching import FlowMatching
+    return FlowMatching(_velocity_field(o.velocity, device), o.sigma_min)
+
+
+def _flow_matching_layer(o, device):
+    from vaemolsim_tpu_torch.flows.flow_matching import FlowMatchingLayer
+    return FlowMatchingLayer(_flow_matching(o.model, device), o.cond_dim,
+                             o.n_steps)
 
 
 def _cg_map(o, device):
@@ -442,6 +460,9 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "FlowedDistribution": _flowed,
     "MappingToDistribution": _mapping_to_dist,
     "FlowModel": _flow_model,
+    "VelocityField": _velocity_field,
+    "FlowMatching": _flow_matching,
+    "FlowMatchingLayer": _flow_matching_layer,
     "VAE": _vae,
     "VAEDualELBO": _vae_dual,
     "DistanceSelection": _distance_selection,

@@ -1,5 +1,6 @@
 // Dense-stack kernel: a whole MLP, h = act(h @ W_i + b_i (+ c @ C_i)),
-// with every intermediate kept on chip.
+// with every intermediate kept on chip.  act is linear, tanh, relu or
+// gelu in its tanh form (jax.nn.gelu's default).
 //
 // Replaces vaemolsim_tpu/ops/fused_mlp.py `_stack_kernel` (reached from
 // fused_dense_stack).
@@ -65,7 +66,7 @@ constexpr int kStreamThreads = 128;
 constexpr int kTileRows = 32;
 constexpr int kTileStride = kTileRows + 4;
 
-enum Act { kLinear = 0, kTanh = 1, kRelu = 2 };
+enum Act { kLinear = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
 enum Regime { kRefused = 0, kSmall = 1, kStream = 2, kTiled = 3,
               kWide = 4 };
 constexpr int kWideTile = 64;   // wide regime: output rows and columns
@@ -86,6 +87,9 @@ struct Stack {
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kTanh) return tanhf(v);
   if (act == kRelu) return fmaxf(v, 0.f);
+  if (act == kGelu)  // 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3)))
+    return 0.5f * v *
+           (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
   return v;
 }
 
@@ -579,6 +583,8 @@ cudaError_t launch_stream(const float* x, const float* c, float* out,
     return launch_stream<kIn, kOut, kTanh>(x, c, out, n, p, smem, stream);
   if (p.act[0] == kRelu)
     return launch_stream<kIn, kOut, kRelu>(x, c, out, n, p, smem, stream);
+  if (p.act[0] == kGelu)
+    return launch_stream<kIn, kOut, kGelu>(x, c, out, n, p, smem, stream);
   return launch_stream<kIn, kOut, kLinear>(x, c, out, n, p, smem, stream);
 }
 

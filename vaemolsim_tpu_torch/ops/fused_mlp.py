@@ -3,11 +3,12 @@
 
 :func:`fused_dense_stack` computes ``h = act(h @ W_i + b_i (+ c @ C_i))``
 layer by layer.  Whether the kernel can take a stack is decided from the
-arguments alone, as the JAX dispatch does: activations linear, tanh or
-relu, and the float32 compute dtype.  Inside that set a CUDA tensor runs
-``csrc/dense_stack.cu``, whose gradient recomputes through
-:func:`dense_stack_plain`; outside it, or on the CPU, the plain version
-runs.  Weights keep the JAX ``(in, out)`` layout.
+arguments alone, as the JAX dispatch does: activations linear, tanh,
+relu or gelu (its tanh form, ``jax.nn.gelu``'s default; the JAX kernel
+takes the first three), and the float32 compute dtype.  Inside that set
+a CUDA tensor runs ``csrc/dense_stack.cu``, whose gradient recomputes
+through :func:`dense_stack_plain`; outside it, or on the CPU, the plain
+version runs.  Weights keep the JAX ``(in, out)`` layout.
 
 A stack the kernel cannot take in one launch is split, from its shapes
 alone, before any launch (:func:`stack_runs`): into runs of at most
@@ -38,7 +39,7 @@ KERNEL = _build.Kernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int],
     replaces="vaemolsim_tpu/ops/fused_mlp.py:106")
 
-_ACT_CODES = {None: 0, "linear": 0, "tanh": 1, "relu": 2}
+_ACT_CODES = {None: 0, "linear": 0, "tanh": 1, "relu": 2, "gelu": 3}
 # Mirrors of csrc/dense_stack.cu's limits (the kernel refuses the same
 # cases itself): layers, the small-N regime's rows and cluster, the
 # streaming regime's record widths, the tiled regime's shared-memory
@@ -143,8 +144,8 @@ def dense_stack_cuda(x: Tensor, kernels: Sequence[Tensor],
         raise ValueError(f"the dense-stack kernel takes 1..{_MAX_LAYERS} "
                          f"layers, got {n_layers}")
     if any(a not in _ACT_CODES for a in activations):
-        raise ValueError(f"the dense-stack kernel takes linear, tanh or "
-                         f"relu activations, got {list(activations)}")
+        raise ValueError(f"the dense-stack kernel takes linear, tanh, relu or "
+                         f"gelu activations, got {list(activations)}")
     dims = [x.shape[-1]] + [W.shape[-1] for W in kernels]
     lead = x.shape[:-1]
     x2 = _build.require(x.reshape(-1, dims[0]).contiguous(), "x")
