@@ -1701,3 +1701,151 @@ def test_triclinic_pme_on_the_card_matches_the_cpu(dev):
     scale = float(out[1][1].abs().max())
     torch.testing.assert_close(out[0][1], out[1][1], atol=1e-5 * scale,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# utils.scan_collect: captured chunks replayed on the card
+# ---------------------------------------------------------------------------
+
+
+def _dwell(x):
+    s = x[..., 0, 0]
+    return 8.0 * (s * s - 1.0) ** 2
+
+
+def _flat(tree):
+    from vaemolsim_tpu_torch.utils.scan import _leaves
+    return _leaves(tree)
+
+
+def _replay_and_eager(run):
+    """run() replayed and run() under ``scan.eager()``: both results."""
+    from vaemolsim_tpu_torch.utils import scan
+    got = run()
+    with scan.eager():
+        want = run()
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_same(got, want):
+    a, b = _flat(got), _flat(want)
+    assert len(a) == len(b) and a
+    for g, w in zip(a, b):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0, equal_nan=True)
+
+
+def test_scan_collect_replays_a_baoab_step_as_the_eager_loop(dev):
+    """Three chunks of ten BAOAB steps, the O-step's normals from a
+    generator registered with the graph: the replay equals the eager loop
+    on the same seed (to 1e-6; the same kernels draw the same stream)."""
+    from vaemolsim_tpu_torch import md
+    from vaemolsim_tpu_torch.utils import scan_collect
+    force = md._force_fn(_dwell)
+    x0 = torch.linspace(-1.2, 1.2, 64, device=dev)[:, None, None]
+    _, f0 = force(x0)
+    dt = torch.tensor(0.01, device=dev)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(31)
+
+        def step(s):
+            v = s.v + 0.5 * dt * s.force
+            x = s.x + 0.5 * dt * v
+            v = 0.98 * v + 0.2 * md._normal(gen, v)
+            x = x + 0.5 * dt * v
+            _, f = force(x)
+            return md.MDState(x, v + 0.5 * dt * f, f)
+
+        return scan_collect(step, md.MDState(x0, torch.zeros_like(x0), f0),
+                            30, collect_every=5, snapshot_fn=lambda s: s.x,
+                            chunk=10, generators=(gen,))
+
+    got, want = _replay_and_eager(run)
+    assert got[1].shape == (6, 64, 1, 1)
+    _assert_same(got, want)
+
+
+def test_metad_baoab_replays_deposits_as_the_eager_loop(dev):
+    """Metadynamics with a deposit every 20 steps, two intervals a
+    captured chunk, five chunks: state, grid and CV trajectory equal the
+    eager loop's."""
+    from vaemolsim_tpu_torch import metadynamics as mtd
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(32)
+        x0 = -torch.ones(16, 1, 1, device=dev)
+        return mtd.metad_baoab(
+            _dwell, lambda x: x[..., 0, 0], x0, torch.zeros_like(x0), gen,
+            dt=0.01, n_steps=200, deposit_every=20,
+            grid=mtd.bias_grid(-2.0, 2.0, 61, device=dev), hill_height=0.5,
+            hill_width=0.2, gamma=6.0, friction=2.0)
+
+    got, want = _replay_and_eager(run)
+    assert got[2].shape == (10, 16)
+    assert float(got[1].v.abs().max()) > 0
+    _assert_same(got, want)
+
+
+def test_tps_sweeps_and_committor_replay_as_the_eager_loop(dev):
+    """Four one-way shooting sweeps (each one captured graph) and a
+    committor run of 100 steps in two chunks: the replay equals the
+    eager loop's paths, counters and labels."""
+    from vaemolsim_tpu_torch import mcmc
+
+    def in_a(x):
+        return x[..., 0, 0] < -0.7
+
+    def in_b(x):
+        return x[..., 0, 0] > 0.7
+
+    line = torch.linspace(-1.0, 1.0, 41, device=dev)[None, :, None, None]
+    step = mcmc.make_tps_step(_dwell, in_a=in_a, in_b=in_b, dt=0.02,
+                              kt=1.0, friction=0.5)
+
+    def sweeps():
+        gen = torch.Generator(device=dev).manual_seed(33)
+        state = mcmc.tps_init(line.repeat(8, 1, 1, 1), generator=gen)
+        return mcmc.run_tps(step, state, gen, 4, collect_every=2)
+
+    def committor():
+        gen = torch.Generator(device=dev).manual_seed(34)
+        xs = torch.linspace(-0.5, 0.5, 5, device=dev)[:, None, None]
+        return mcmc.first_hitting_committor(
+            _dwell, xs, in_a=in_a, in_b=in_b, generator=gen, n_shots=64,
+            max_steps=100, dt=0.01, kt=1.0, friction=5.0)
+
+    for run in (sweeps, committor):
+        got, want = _replay_and_eager(run)
+        _assert_same(got, want)
+
+
+def test_scan_collect_refuses_a_step_it_cannot_capture(dev):
+    """A host read inside the step raises on the card, and the step ran
+    only for the warm-up and the capture, never as the eager loop."""
+    from vaemolsim_tpu_torch.utils import scan_collect
+    calls = []
+
+    def step(x):
+        calls.append(1)
+        return x * 0.5 if float(x.sum()) > 0 else x
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        scan_collect(step, torch.ones(4, device=dev), 100, chunk=10)
+    assert len(calls) <= 20
+    y, _ = scan_collect(lambda x: x * 0.5, torch.ones(4, device=dev), 4)
+    assert torch.equal(y, torch.full((4,), 0.0625, device=dev))
+
+
+def test_scan_collect_refuses_a_step_that_launches_a_port_kernel(dev):
+    """Kernel launches are counted on the host, so a captured kernel would
+    go uncounted in the replays: the capture raises."""
+    from vaemolsim_tpu_torch.utils import scan_collect
+    gen = torch.Generator(device=dev).manual_seed(35)
+    params = _spline(gen, dev, 1, 16)
+
+    def step(x):
+        return rqs.rqs_forward(x, *params, -5.0)[0]
+
+    with pytest.raises(RuntimeError, match="port kernel"):
+        scan_collect(step, torch.rand(256, device=dev), 20, chunk=10)

@@ -34,8 +34,12 @@ cells with triclinic PME and the L-BFGS polish (``triclinic``,
 ``potentials``), replica-exchange MD and Hamiltonian replica exchange
 (``parallel``), temperature extrapolation (``extrapolation``),
 path-integral, Brownian, generalized-Langevin and DPD dynamics
-(``pimd``, ``bd``, ``gle``, ``dpd``) and flow matching (``flows``) (see
-ROADMAP.md for what is still to come).
+(``pimd``, ``bd``, ``gle``, ``dpd``) and flow matching (``flows``); and
+collective variables (``colvars``), metadynamics, OPES and eABF
+(``metadynamics``, ``opes``, ``abf``), minimum-energy paths (``paths``)
+and transition path sampling (``mcmc``), whose loops run through
+``utils.scan_collect``: captured CUDA graphs replayed on the card, the
+plain loop on the CPU (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
@@ -45,6 +49,8 @@ from vaemolsim_tpu_torch import bd, dpd, extrapolation, gle  # noqa: F401
 from vaemolsim_tpu_torch import pimd, triclinic  # noqa: F401
 from vaemolsim_tpu_torch import dists, flows, mcmc, models, nn, ops  # noqa: F401
 from vaemolsim_tpu_torch import parallel  # noqa: F401
-from vaemolsim_tpu_torch import train  # noqa: F401
+from vaemolsim_tpu_torch import train, utils  # noqa: F401
+from vaemolsim_tpu_torch import abf, colvars, metadynamics  # noqa: F401
+from vaemolsim_tpu_torch import opes, paths  # noqa: F401
 
 __version__ = "0.1.0"

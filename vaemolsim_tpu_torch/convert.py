@@ -20,7 +20,10 @@ VectorAttentionTwoStage, SchNetInteraction, SchNetEmbedding,
 SchNetPotential, JointBackmapping, VelocityField, FlowMatching and
 FlowMatchingLayer; and
 the molecular MD state: a ``CellNeighborList`` (either JAX build,
-evaluated by the port's cell-list energy) and an ``MDState``.  Batch-norm
+evaluated by the port's cell-list energy) and an ``MDState``; an ``MLP``;
+and the biasing and path-sampling states ``BiasGrid``, ``OPESBias``,
+``ABFState`` and ``TPSState``, so that a half-filled bias or a path
+ensemble continues in the port.  Batch-norm
 running moments become buffers.  Weights and arrays are copied
 exactly, with their dtypes (the Dense layout is the same ``(in, out)``
 in both packages).  Objects land on the CUDA card unless a device is
@@ -370,6 +373,39 @@ def _md_state(o, device):
     return MDState(*(_t(a, device) for a in o))
 
 
+def _mlp(o, device):
+    from vaemolsim_tpu_torch.nn.core import MLP
+    return MLP([_dense(layer, device) for layer in o.layers])
+
+
+def _bias_grid(o, device):
+    from vaemolsim_tpu_torch.metadynamics import BiasGrid
+    return BiasGrid(_t(o.v, device), _t(o.dv, device), o.lo, o.hi,
+                    o.periodic)
+
+
+def _opes_bias(o, device):
+    from vaemolsim_tpu_torch.opes import OPESBias
+    return OPESBias(_t(o.prob, device), _t(o.dprob, device),
+                    _t(o.sum_w, device), o.lo, o.hi, o.periodic, o.barrier,
+                    o.gamma, o.kT)
+
+
+def _abf_state(o, device):
+    from vaemolsim_tpu_torch.abf import ABFState
+    return ABFState(*(_t(getattr(o, f), device) for f in
+                      ("f_sum", "count", "s_count", "delta_sum")),
+                    o.lo, o.hi, o.periodic)
+
+
+def _tps_state(o, device):
+    from vaemolsim_tpu_torch.mcmc.tps import TPSState
+    return TPSState(_t(o.path, device), _t(o.vel, device),
+                    *(torch.as_tensor(np.array(a, dtype=np.int32),
+                                      device=device)
+                      for a in (o.n_acc, o.n_trials)))
+
+
 def _backmapping(o, device):
     from vaemolsim_tpu_torch.models import BackmappingOnly
     return BackmappingOnly(_local_descriptors(o.mask_and_embed, device),
@@ -480,6 +516,11 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "JointBackmapping": _joint_backmapping,
     "CellNeighborList": _cell_neighbor_list,
     "MDState": _md_state,
+    "MLP": _mlp,
+    "BiasGrid": _bias_grid,
+    "OPESBias": _opes_bias,
+    "ABFState": _abf_state,
+    "TPSState": _tps_state,
     "LogProbLoss": _log_prob_loss,
     "PotentialEnergyLogProbLoss": _potential_loss,
     "NonRegularizer": _regularizer,

@@ -53,8 +53,10 @@ def bond_lengths(coords: Tensor, pairs) -> Tensor:
 
 
 def bond_angles(coords: Tensor, triples) -> Tensor:
-    """angle(a, b, c) at vertex b, in (0, pi): (..., A, 3) -> (..., M)."""
-    t = np.asarray(triples)
+    """angle(a, b, c) at vertex b, in (0, pi): (..., A, 3) -> (..., M).
+    ``triples``: (M, 3) indices, a long tensor on the coordinates' device
+    or anything numpy reads."""
+    t = triples if isinstance(triples, Tensor) else np.asarray(triples)
     b = _index(coords, t[:, 1])
     u = _unit(_index(coords, t[:, 0]) - b)
     v = _unit(_index(coords, t[:, 2]) - b)

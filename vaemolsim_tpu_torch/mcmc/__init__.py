@@ -1,7 +1,7 @@
 """Monte Carlo: the VAE-proposal engine and its fused step, local moves
 and their tuner, chain diagnostics, simulated tempering and free-energy
-estimators, and NPT, grand-canonical and Gibbs-ensemble MC (FFS and TPS
-are not ported)."""
+estimators, NPT, grand-canonical and Gibbs-ensemble MC, and transition
+path sampling (FFS is not ported)."""
 
 from vaemolsim_tpu_torch.mcmc.diagnostics import (  # noqa: F401
     autocorrelation,
@@ -70,6 +70,14 @@ from vaemolsim_tpu_torch.mcmc.npt import (  # noqa: F401
     make_npt_step,
     npt_init,
     run_npt,
+)
+from vaemolsim_tpu_torch.mcmc.tps import (  # noqa: F401
+    TPSState,
+    first_hitting_committor,
+    make_tps_step,
+    reactive_windows,
+    run_tps,
+    tps_init,
 )
 from vaemolsim_tpu_torch.mcmc.tempering import (  # noqa: F401
     STState,
