@@ -76,7 +76,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    :521: ``minimize_energy``, ``tune_scale``, 200 HMC steps at 8192
    chains; plain PyTorch, no kernel), examples 10 and 40 at their --full
    sizes with their own validations (EXP, BAR, AIS, the flow-FEP, MBAR;
-   a 2-D RealNVP trained by ``tfep_loss`` for 500 steps at N = 20k,
+   a 2-D RealNVP trained by ``tfep_loss`` for 300 steps at N = 20k,
    then targeted EXP and BAR), replica exchange on the flagship (4
    replicas of 1000 chains, exact swap counters) and simulated tempering
    on a double well (every rung visited, the adapted weights against
@@ -96,7 +96,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    each step, ``predict`` of 10k, and a checkpoint saved mid-training
    and resumed into a fresh model, optimizer and generator with the
    uninterrupted run's losses); examples/09 at its --full widths (K = 8
-   members, 50k points, batch 1024) through ``fit_ensemble`` for
+   members, 25k points, batch 1024) through ``fit_ensemble`` for
    ENS_EPOCHS epochs with the example's validation; the backmapping
    model with BASELINE.json's autoregressive von Mises mixture decoder
    (training, ``predict`` and ``log_prob`` at 10k sites, rotation
@@ -163,8 +163,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    example 33 (768 TPS configurations labelled by 12 committor shots
    each, a tanh MLP trained on them, 256 shots from the saddle), each
    with its own asserts and a line of its rate, its ms a step replayed
-   against eager and its idle share.  A line before the
-   last gives every phase's seconds, longest first.
+   against eager and its idle share;
+14. runs slice 13b (``SLICE13B_PHASES``) at the examples' default
+   depths, its long Langevin loops replayed through ``md._BAOAB``,
+   ``we.run_we`` and FFS's scans (``scan_replay_path`` also holds
+   ``basin_flux``, ``ffs_stage`` and five WE iterations to the eager
+   loop): examples 25 and 29 on one Muller-Brown trajectory of 48
+   walkers x 80 000 steps (TICA, the Voronoi MSM, stationary populations
+   against quadrature, implied timescales, committor, MFPT; the VAMPnet
+   trained through ``fit``), example 27 (weighted ensemble against brute
+   force) and example 35 (brute force, FFS, WE and Kramers-corrected TST
+   on one escape rate), each with the example's own asserts and a line
+   of its rate, its ms a step replayed against eager and its idle share.
+   A line before the last gives every phase's seconds, longest first.
 
 Every path runs with the launch counters zeroed just before it and read
 just after; a path whose layers reach kernel 5 fails unless it launched
@@ -266,8 +277,8 @@ MOL_SHAPE = "molecular coulomb+exclusion"
 RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 10, 10_000
 STATS_CHAINS, STATS_STEPS = 10_000, 1000
 HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 200, 10
-FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 125, 96, 20
-TFEP_N, TFEP_STEPS = 20_000, 500
+FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 125, 96, 10
+TFEP_N, TFEP_STEPS = 20_000, 300
 REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
 ST_RUNGS, ST_CHAINS, ST_STEPS = 6, 2000, 2000
 # Slice 9 at full width: the dual ELBO and the HVAE (5 leapfrog steps)
@@ -277,7 +288,7 @@ ST_RUNGS, ST_CHAINS, ST_STEPS = 6, 2000, 2000
 DUAL_EPOCHS, HVAE_EPOCHS, HVAE_LEAPFROG, HVAE_CHECK_ROWS = 3, 1, 5, 1000
 HVAE_N = 20_000
 BN_STEPS, CKPT_STEPS = 20, 5
-ENS_K, ENS_TRAIN, ENS_VAL, ENS_BATCH, ENS_EPOCHS = 8, 50_000, 10_000, 1024, 2
+ENS_K, ENS_TRAIN, ENS_VAL, ENS_BATCH, ENS_EPOCHS = 8, 25_000, 10_000, 1024, 2
 ENS_NLL_GAP = 0.1
 # Slice 10: examples 06 and 16 at --full (WF_*, JB_*), the ML-potential MD
 # of bench.py:736 (MLP_*), the two-stage backmapping model's fit
@@ -366,13 +377,51 @@ def profiled(fn):
     return wall, prof
 
 
-def averages(prof):
-    """prof.key_averages(), aggregated once per profile: the aggregation
-    walks every recorded event in Python (tens of seconds for a profiled
-    HVAE step), and device_time and top_ops both read it."""
-    if not hasattr(prof, "_averages"):
-        prof._averages = prof.key_averages()
-    return prof._averages
+# kineto's bookkeeping events, left out as torch's own parse leaves them out.
+_NOT_OPS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+
+
+def events(prof):
+    """The profile's events as (name, on the card, µs), read once from
+    kineto's results: a kernel or copy on the card with its duration, a
+    host op with its self time (its duration less that of the host ops
+    nested in it on its thread, as ``key_averages`` counts it).  torch's
+    own parse of the events into a tree (``key_averages``) walks every
+    event in Python: ~90 s of a whole run's profiles on the H100, 41 s of
+    them for one profiled HVAE step (a host stack sampler's count)."""
+    if hasattr(prof, "_events"):
+        return prof._events
+    cuda = torch.autograd.DeviceType.CUDA
+    out, host = [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in _NOT_OPS:
+            continue
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            continue                     # key_averages counts them as 0
+        t0, t1 = e.start_ns(), e.end_ns()
+        if e.device_type() == cuda:
+            out.append((name, True, (t1 - t0) / 1e3))
+        else:
+            host.setdefault(e.start_thread_id(), []).append((t0, -t1, name))
+    for evs in host.values():
+        evs.sort()
+        stack = []                       # [end, name, self ns]
+        for t0, neg_t1, name in evs:
+            t1 = -neg_t1
+            while stack and (t0 >= stack[-1][0] or t1 > stack[-1][0]):
+                _, done, own = stack.pop()
+                out.append((done, False, own / 1e3))
+            if stack:
+                stack[-1][2] -= t1 - t0
+            stack.append([t1, name, t1 - t0])
+        out.extend((done, False, own / 1e3) for _, done, own in stack)
+    prof._events = out
+    return out
 
 
 def device_time(prof, match=""):
@@ -380,13 +429,11 @@ def device_time(prof, match=""):
     name contains ``match``); (None, None) where it holds no device
     time."""
     total = named = 0.0
-    for e in averages(prof):
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.self_device_time_total
-        total += us
-        if match in e.key:
-            named += us
+    for name, on_card, us in events(prof):
+        if on_card:
+            total += us
+            if match in name:
+                named += us
     if total == 0.0:
         return None, None
     return total, named
@@ -395,17 +442,16 @@ def device_time(prof, match=""):
 def top_ops(prof, per=1, n=6):
     """The profile's n largest device kernels and n largest host ops by
     self time, in µs per ``per`` (for example per step)."""
-    ev = averages(prof)
-    dev_ev = sorted((e for e in ev
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: -e.self_device_time_total)[:n]
-    host_ev = sorted((e for e in ev
-                      if e.device_type == torch.autograd.DeviceType.CPU),
-                     key=lambda e: -e.self_cpu_time_total)[:n]
-    return {"device": [(e.key[:60], e.self_device_time_total / per)
-                       for e in dev_ev],
-            "host": [(e.key[:60], e.self_cpu_time_total / per)
-                     for e in host_ev]}
+    sums = ({}, {})
+    for name, on_card, us in events(prof):
+        d = sums[on_card]
+        d[name] = d.get(name, 0.0) + us
+
+    def top(d):
+        return [(torch._C._demangle(k)[:60], us / per) for k, us in
+                sorted(d.items(), key=lambda kv: -kv[1])[:n]]
+
+    return {"device": top(sums[True]), "host": top(sums[False])}
 
 
 def device_us(fn, match, reps=10):
@@ -1294,12 +1340,10 @@ def launch_us(prof, match):
     where it recorded none.  Late in this script a profile has recorded
     only some, or none, of a window's ctypes launches on the H100, so
     kernel 6 is timed per recorded launch, with the count kept."""
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and match in e.key]
-    n = sum(e.count for e in evs)
-    return ((sum(e.self_device_time_total for e in evs) / n if n else None),
-            n)
+    evs = [us for name, on_card, us in events(prof)
+           if on_card and match in name]
+    n = len(evs)
+    return (sum(evs) / n if n else None), n
 
 
 def md_path(sys_, dev, seed):
@@ -2475,7 +2519,7 @@ def ensemble_member(seed, dev):
 
 def ensemble_path(dev):
     """examples/09_ensemble_training.py at --full widths (K = 8 members,
-    50k training and 10k validation points of the 4-mode mixture, batch
+    ENS_TRAIN training and 10k validation points of the 4-mode mixture, batch
     1024, Adam 3e-3) through fit_ensemble, ENS_EPOCHS epochs; then the
     example's own validation: each member's held-out NLL, the
     deep-ensemble NLL against the target's entropy, and the best
@@ -3519,11 +3563,11 @@ def repairs_path(dev):
 MS_LAT, MS_STEPS, MS_TOL = 12, 1000, 1e-5
 EX_MOL, EX_EQUIL, EX_PROD, EX_CHUNK = 512, 250, 500, 250
 RW_MOL, RW_STEPS, RW_REPLICAS, RW_TF32_STEPS = 24, 4000, 8, 200
-BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 7, 50
-BG_PROPOSALS, BG_TUNE_ROUNDS = 100, 10
-NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 400
+BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 5, 50
+BG_PROPOSALS, BG_TUNE_ROUNDS = 60, 10
+NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 300
 NPT_PRESSURES = (0.01, 0.02, 0.05, 0.1, 0.2)
-GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 1200, 96, 3000
+GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 800, 96, 2500
 AL_REPLICAS, AL_WINDOWS, AL_STEPS = 1024, 11, 1500
 # Kernel 5's key-chunked stream regime at the shapes the plans refused
 # before it: (B, N, H).
@@ -4425,7 +4469,7 @@ def chunked_stream_path(dev):
 # example's own count); the dynamics phase at the sizes its docstring gives.
 TN_CHAINS, TN_ATOMS, TN_EQUIL, TN_BLOCKS, TN_BLOCK = 256, 48, 1500, 10, 100
 CC_CHAINS, CC_EQUIL, CC_BLOCKS, CC_BLOCK = 128, 1000, 4, 150
-RF_WALK, RF_ROUNDS, RF_EPOCHS, RF_PROPOSALS = 128, 400, 600, 10
+RF_WALK, RF_ROUNDS, RF_EPOCHS, RF_PROPOSALS = 128, 400, 400, 10
 EXT_WALK, EXT_ROUNDS = 64, 999
 # Example 26's thresholds (the midpoint disagreement below 0.04 at --full,
 # 0.08 by default; the reweighting error below 0.02) are what one seed of
@@ -5312,8 +5356,7 @@ def metadynamics_path(dev):
     sync(dev)
     wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    from vaemolsim_tpu_torch.mcmc.tps import _BAOAB
-    traj = _BAOAB(pot, dt=0.004, kt=1.0, friction=2.0, masses=1.0).run(
+    traj = md._BAOAB(pot, dt=0.004, kt=1.0, friction=2.0, masses=1.0).run(
         x0, torch.zeros_like(x0), MT_CONTROL, gen, collect_v=False,
         collect_every=200)
     sync(dev)
@@ -5673,11 +5716,16 @@ def committor_path(geometry, dev):
 
 def scan_replay_path(dev):
     """Replay against the eager loop on the card, at the phases' widths,
-    over two captured chunks each: example 23's metadynamics (two chunks
-    of two deposit intervals), two of example 32's shooting sweeps (a
-    sweep a chunk) and 100 steps of example 33's committor shots (two
-    chunks of 50): the largest difference of any output, at most 1e-6."""
-    from vaemolsim_tpu_torch import mcmc
+    over two captured chunks each or more: example 23's metadynamics (two
+    chunks of two deposit intervals), two of example 32's shooting sweeps
+    (a sweep a chunk), 100 steps of example 33's committor shots (two
+    chunks of 50), and example 35's rare-event machinery: a 100-step
+    basin_flux of 256 replicas and a 100-step ffs_stage of RE_TRIALS
+    trials (two chunks of 50 each), five WE iterations of 10 bins x 24
+    walkers (a 20-step segment and the resampling a chunk, run_we's
+    default): the largest
+    difference of any output, at most 1e-6."""
+    from vaemolsim_tpu_torch import mcmc, we
     from vaemolsim_tpu_torch import metadynamics as mtd
     from vaemolsim_tpu_torch.utils import scan
     pot, cv, _ = butane(dev)
@@ -5722,9 +5770,37 @@ def scan_replay_path(dev):
             n_shots=CM_SHOTS, max_steps=100, dt=MB_DT, kt=MB_KT,
             friction=MB_FRICTION)
 
+    rare = dict(dt=0.01, kT=0.4, friction=1.0)
+    g0 = torch.Generator(device=dev).manual_seed(7)
+    x_re = -1.0 + 0.1 * torch.randn(256, 1, 1, generator=g0, device=dev)
+    v_re = math.sqrt(0.4) * torch.randn(256, 1, 1, generator=g0, device=dev)
+    dyn35 = md._BAOAB(_well(2.0), dt=0.01, kt=0.4, friction=1.0, masses=1.0)
+    step35, _ = we_parts(dyn35, torch.linspace(-1.4, 1.0, 9, device=dev),
+                         20, 10, 24, dev)
+
+    def flux():
+        gen = torch.Generator(device=dev).manual_seed(4)
+        return mcmc.basin_flux(_well(2.0), _first_coordinate, x_re, v_re,
+                               gen, lambda0=-0.6, n_steps=100, **rare)
+
+    def stage():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        return mcmc.ffs_stage(
+            _well(2.0), _first_coordinate, torch.full_like(x_re, -0.6),
+            v_re.abs(), torch.ones(256, dtype=torch.bool, device=dev), gen,
+            lambda_next=-0.2, lambda_fail=-0.6, max_steps=100,
+            n_trials=RE_TRIALS, **rare)
+
+    def we_iterations():
+        gen = torch.Generator(device=dev).manual_seed(6)
+        state = we.we_init((x_re[:64], v_re[:64]), 10, 24)
+        return we.run_we(step35, state, gen, 5)
+
     diffs = {}
     for name, run in (("metad_baoab", metad), ("tps_sweep", sweeps),
-                      ("first_hitting_committor", shots)):
+                      ("first_hitting_committor", shots),
+                      ("basin_flux", flux), ("ffs_stage", stage),
+                      ("run_we", we_iterations)):
         got = scan._leaves(run())
         with scan.eager():
             want = scan._leaves(run())
@@ -5739,6 +5815,346 @@ def scan_replay_path(dev):
                 f"replay differs from the eager loop: {diffs}")
     RESULTS["scan_replay_max_diff"] = diffs
     return diffs
+
+
+# ---------------------------------------------------------------------------
+# Slice 13b: forward flux sampling, weighted ensembles, MSM / TICA and
+# VAMPnets, every long Langevin loop replayed through md's shared runner,
+# run_we and FFS's scans
+# ---------------------------------------------------------------------------
+
+# Examples 25 and 29 (their default depth; --full runs 128 walkers and
+# 200 000 steps): walkers, steps, a frame every KN_COLLECT steps, the MSM
+# lag in frames, kT; example 29's epochs and batch.
+KN_WALKERS, KN_STEPS, KN_COLLECT, KN_LAG, KN_KT = 48, 80_000, 20, 10, 15.0
+VN_EPOCHS, VN_BATCH = 12, 65_536
+# Example 27 (default depth; --full 4000 iterations, 1024 x 200 000):
+# WE iterations, brute-force walkers and steps.
+WE_ITERS, WE_BF_WALKERS, WE_BF_STEPS = 1500, 384, 120_000
+# Example 35 (default depth; --full 1024 x 60 000, 6000 flux steps, 2048
+# trials, 3000 WE iterations): brute force, FFS, WE.
+RE_BF_WALKERS, RE_BF_STEPS = 512, 40_000
+RE_FLUX_STEPS, RE_MAX_STEPS, RE_TRIALS = 4000, 4000, 1024
+RE_WE_ITERS = 1500
+
+
+def kinetics_path(dev):
+    """Examples 25 and 29 at their default depth, on one trajectory (both
+    make the same one): KN_WALKERS Muller-Brown walkers, half from each end
+    minimum, KN_STEPS BAOAB steps (dt 0.004, friction 5, kT 15) replayed
+    through md's shared runner, a frame every KN_COLLECT steps.  Example
+    25: TICA, the Voronoi MSM on the 7 x 7 grid below E = 150, stationary
+    populations against Boltzmann quadrature, implied timescales at lags 10
+    and 20, the A -> C committor and MFPT; its asserts: total-variation
+    error under 0.12, timescale drift under 0.35, q(A) = 0 and q(C) = 1
+    with interior values on both sides of 1/2, MFPT above 0, TICA's slow
+    direction separating the basins.  Example 29: the VAMPnet (2 -> 64 ->
+    64 -> 3 gelu, softmax) trained VN_EPOCHS epochs at batch VN_BATCH, lr
+    3e-3, through train.fit; its asserts: its VAMP-2 score above TICA's
+    less 0.01, its slowest timescale within 35% of the MSM's, a linear
+    probe on its memberships above 0.9 accuracy."""
+    from vaemolsim_tpu_torch import msm, vamp
+    pot = muller_brown(dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    min_a = torch.tensor([-0.558, 1.442], device=dev)
+    min_c = torch.tensor([0.623, 0.028], device=dev)
+    half = KN_WALKERS // 2
+    x0 = torch.cat([min_a.expand(half, 1, 2),
+                    min_c.expand(KN_WALKERS - half, 1, 2)]).contiguous()
+    dyn = md._BAOAB(pot, dt=0.004, kt=KN_KT, friction=5.0, masses=1.0)
+    _build.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    traj = dyn.run(x0, torch.zeros_like(x0), KN_STEPS, gen,
+                   collect_v=False, collect_every=KN_COLLECT)
+    sync(dev)
+    traj_wall = time.perf_counter() - t0
+    frames = traj[..., 0, :].movedim(0, 1).contiguous()   # (W, T, 2)
+    flat = frames.reshape(-1, 2)
+
+    # Example 25.
+    t1 = time.perf_counter()
+    _, comps, _ = msm.tica(frames, lag=KN_LAG)
+    mean = flat.mean(0)
+    proj_a = float((min_a - mean) @ comps[:, 0])
+    proj_c = float((min_c - mean) @ comps[:, 0])
+    g = torch.linspace(-1.4, 1.0, 7, device=dev)
+    gy = torch.linspace(-0.3, 1.9, 7, device=dev)
+    grid = torch.stack(torch.meshgrid(g, gy, indexing="xy"), -1).reshape(
+        -1, 2)
+    centers = grid[pot(grid[:, None, :]) < 150.0]
+    n_states = centers.shape[0]
+    d = msm.assign_states(frames, centers)
+    T = msm.transition_matrix(msm.count_matrix(d, n_states, lag=KN_LAG))
+    pi = msm.stationary_distribution(T)
+    qx = torch.linspace(-1.8, 1.4, 400, device=dev)
+    qy = torch.linspace(-0.7, 2.3, 400, device=dev)
+    pts = torch.stack(torch.meshgrid(qx, qy, indexing="xy"), -1).reshape(
+        -1, 2)
+    e = pot(pts[:, None, :]).double().cpu().numpy()
+    w = np.exp(-(e - e.min()) / KN_KT)
+    lbl = msm.assign_states(pts, centers).cpu().numpy()
+    pi_quad = np.bincount(lbl, weights=w, minlength=n_states)
+    pi_quad /= pi_quad.sum()
+    state_a = int(msm.assign_states(min_a[None], centers)[0])
+    state_c = int(msm.assign_states(min_c[None], centers)[0])
+    tv = float(np.abs(pi.double().cpu().numpy() - pi_quad).sum()) / 2.0
+    t_lag1 = float(msm.implied_timescales(T, lag=KN_LAG)[0])
+    T2 = msm.transition_matrix(msm.count_matrix(d, n_states,
+                                                lag=2 * KN_LAG))
+    t_lag2 = float(msm.implied_timescales(T2, lag=2 * KN_LAG)[0])
+    drift = abs(t_lag1 - t_lag2) / t_lag1
+    q = msm.committor(T, [state_a], [state_c]).cpu().numpy()
+    mfpt = float(msm.mean_first_passage_time(
+        T, [state_c], lag=KN_LAG * KN_COLLECT)[state_a])
+    interior = q[(q > 0) & (q < 1)]
+    sync(dev)
+    msm_wall = time.perf_counter() - t1
+
+    # Example 29.
+    t2 = time.perf_counter()
+    mu, sd = flat.mean(0), flat.std(0, correction=0)
+    x0p, xtp = vamp.lagged_pairs((frames - mu) / sd, lag=KN_LAG)
+    net = vamp.VAMPNet.create(gen, 2, 3, hidden_dims=(64, 64), device=dev)
+    net, hist = fit(net, lambda m, b, g_: m.loss(*b), (x0p, xtp),
+                    generator=gen, num_epochs=VN_EPOCHS, batch_size=VN_BATCH,
+                    learning_rate=3e-3, scan_epochs=True)
+    score_net = -float(hist["loss"][-1])
+    with torch.no_grad():
+        tproj = ((flat - mean) @ comps).reshape(KN_WALKERS, -1, 2)
+        score_tica = float(vamp.vamp_score(*vamp.lagged_pairs(tproj,
+                                                               KN_LAG)))
+        sv = net.singular_values(x0p, xtp)
+        ts_net = float(vamp.vamp_timescales(sv, KN_LAG)[0])
+        label = (((flat - min_c) ** 2).sum(-1)
+                 < ((flat - min_a) ** 2).sum(-1)).long().cpu().numpy()
+        chi = net((flat - mu) / sd).double().cpu().numpy()
+    chi_aug = np.concatenate([chi, np.ones((len(chi), 1))], -1)
+    coef, *_ = np.linalg.lstsq(chi_aug, np.eye(2)[label], rcond=None)
+    acc = float(np.mean((chi_aug @ coef).argmax(-1) == label))
+    sync(dev)
+    vamp_wall = time.perf_counter() - t2
+    counts = path_counts("kinetics")
+    print(f"examples 25 / 29: {KN_WALKERS} walkers x {frames.shape[1]} "
+          f"frames in {traj_wall:.3f} s; TICA basins A {proj_a:+.3f} C "
+          f"{proj_c:+.3f}; {n_states} states, stationary TV error "
+          f"{tv:.4f}; t2 lag {KN_LAG} {t_lag1:.2f} lag {2 * KN_LAG} "
+          f"{t_lag2:.2f} (drift {drift:.4f}); q(A) {q[state_a]:.3f} q(C) "
+          f"{q[state_c]:.3f}, MFPT {mfpt:.1f} steps; VAMP-2 net "
+          f"{score_net:.4f} vs TICA {score_tica:.4f}; slowest timescale "
+          f"net {ts_net:.2f} vs MSM {t_lag1:.2f} frames; probe accuracy "
+          f"{acc:.4f} (MSM {msm_wall:.3f} s, VAMPnet {vamp_wall:.3f} s)",
+          flush=True)
+    fail_unless(proj_a * proj_c < 0, f"example 25: TICA {proj_a} {proj_c}")
+    fail_unless(tv < 0.12, f"example 25: stationary TV error {tv}")
+    fail_unless(drift < 0.35, f"example 25: timescales {t_lag1} {t_lag2}")
+    fail_unless(q[state_a] == 0.0 and q[state_c] == 1.0,
+                f"example 25: committor ends {q[state_a]} {q[state_c]}")
+    fail_unless(interior.size > 0 and (interior > 0.5).any()
+                and (interior < 0.5).any(),
+                f"example 25: committor interior {interior}")
+    fail_unless(mfpt > 0, f"example 25: MFPT {mfpt}")
+    fail_unless(score_net > score_tica - 0.01,
+                f"example 29: VAMP-2 {score_net} vs TICA {score_tica}")
+    fail_unless(abs(ts_net - t_lag1) / t_lag1 < 0.35,
+                f"example 29: timescale {ts_net} vs MSM {t_lag1}")
+    fail_unless(acc > 0.9, f"example 29: probe accuracy {acc}")
+    return replay_row(
+        "kinetics_ex25_ex29", traj_wall, KN_STEPS, KN_STEPS / traj_wall,
+        "steps/s", counts,
+        lambda: dyn.run(x0, torch.zeros_like(x0), 200, gen, False, 20), 200,
+        lambda: dyn.run(x0, torch.zeros_like(x0), 200, gen, False, 20), 200,
+        dev, walkers=KN_WALKERS, stationary_tv=tv, timescale_lag10=t_lag1,
+        timescale_lag20=t_lag2, mfpt=mfpt, tica_a=proj_a, tica_c=proj_c,
+        vamp2_net=score_net, vamp2_tica=score_tica, timescale_net=ts_net,
+        probe_accuracy=acc, msm_seconds=msm_wall, vamp_seconds=vamp_wall)
+
+
+def we_parts(dyn, edges, seg, n_bins, m, dev):
+    """A WE step whose segment is ``seg`` BAOAB steps through md's shared
+    runner (velocities kept in the walker), binned by ``searchsorted`` on
+    ``edges`` and recycled at the last bin to x = -1 at rest."""
+    from vaemolsim_tpu_torch import we
+
+    def propagate(walk, g):
+        s, _ = dyn.scan(dyn.start(*walk), seg, g)
+        return (s.x, s.v)
+
+    def bin_fn(walk):
+        return torch.searchsorted(edges, walk[0][..., 0, 0].contiguous())
+
+    def recycle(walk):
+        return (torch.full_like(walk[0], -1.0), torch.zeros_like(walk[1]))
+
+    return we.make_we_step(propagate, bin_fn, n_bins=n_bins, m_per_bin=m,
+                           target_bin=n_bins - 1, recycle_fn=recycle), bin_fn
+
+
+def first_passage(hit, censor):
+    """Per walker (the second axis of ``hit``, frames first): the first
+    frame where ``hit`` holds, or ``censor`` where none does; and whether
+    one does."""
+    arrived = hit.any(0)
+    first = torch.where(arrived, hit.int().argmax(0), censor)
+    return first.cpu().numpy(), arrived.cpu().numpy()
+
+
+def weighted_ensemble_path(dev):
+    """Example 27 at its default depth: the double well 5.5 (q^2 - 1)^2 at
+    kT 1, 20 bins x 8 walkers, 10-step BAOAB segments (dt 0.01, friction
+    2) through md's shared runner, WE_ITERS iterations by run_we (a third
+    burn-in), then brute force over WE_BF_WALKERS walkers x WE_BF_STEPS
+    steps (a frame every 50); the example's asserts: total weight within
+    1e-3 of 1, at least 12 bins above 1e-8 weight, the WE rate within 2.5x
+    of the brute-force 1/MFPT."""
+    from vaemolsim_tpu_torch import we
+    n_bins, m, seg, dt = 20, 8, 10, 0.01
+    dyn = md._BAOAB(_well(5.5), dt=dt, kt=1.0, friction=2.0,
+                    masses=1.0)
+    edges = torch.linspace(-1.3, 1.05, n_bins - 1, device=dev)
+    step, bin_fn = we_parts(dyn, edges, seg, n_bins, m, dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x0 = -torch.ones(m, 1, 1, device=dev)
+    v0 = torch.randn(m, 1, 1, generator=gen, device=dev)
+    state = we.we_init((x0, v0), n_bins, m)
+    burn = WE_ITERS // 3
+    _build.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    state, _ = we.run_we(step, state, gen, burn)
+    f0, n0 = float(state.flux), int(state.n_iters)
+    state, _ = we.run_we(step, state, gen, WE_ITERS - burn)
+    sync(dev)
+    we_wall = time.perf_counter() - t0
+    rate_we = (float(state.flux) - f0) / ((int(state.n_iters) - n0)
+                                          * seg * dt)
+    w_sum = float(state.w.sum())
+    b = bin_fn(state.x).cpu().numpy()
+    wv = state.w.cpu().numpy()
+    prof = np.array([wv[b == i].sum() for i in range(n_bins)])
+    populated = int((prof > 1e-8).sum())
+    t1 = time.perf_counter()
+    xb = -torch.ones(WE_BF_WALKERS, 1, 1, device=dev)
+    traj = dyn.run(xb, torch.zeros_like(xb), WE_BF_STEPS, gen,
+                   collect_v=False, collect_every=50)
+    sync(dev)
+    bf_wall = time.perf_counter() - t1
+    q = traj[..., 0, 0]
+    first, crossed = first_passage(q > 1.05, -1)
+    times = first[crossed] * 50 * dt
+    t_tot = WE_BF_STEPS * dt
+    mfpt = (times.sum() + (~crossed).sum() * t_tot) / max(crossed.sum(), 1)
+    rate_bf = 1.0 / mfpt
+    ratio = rate_we / rate_bf
+    counts = path_counts("weighted_ensemble")
+    print(f"example 27: WE weight sum {w_sum:.6f}, {populated}/{n_bins} bins"
+          f" populated, rate {rate_we:.4e} over {WE_ITERS} iterations "
+          f"({we_wall:.3f} s); brute force {crossed.mean():.3f} of "
+          f"{WE_BF_WALKERS} crossed, MFPT {mfpt:.2f}, rate {rate_bf:.4e} "
+          f"({bf_wall:.3f} s); ratio {ratio:.4f}", flush=True)
+    fail_unless(abs(w_sum - 1.0) < 1e-3, f"example 27: weight {w_sum}")
+    fail_unless(populated >= 12, f"example 27: {populated} bins populated")
+    fail_unless(1 / 2.5 < ratio < 2.5, f"example 27: rate ratio {ratio}")
+    return replay_row(
+        "weighted_ensemble_ex27", we_wall, WE_ITERS * seg,
+        WE_ITERS / we_wall, "iterations/s", counts,
+        lambda: we.run_we(step, state, gen, 20), 20 * seg,
+        lambda: we.run_we(step, state, gen, 20), 20 * seg, dev,
+        weight_sum=w_sum, bins_populated=populated, rate_we=rate_we,
+        rate_brute_force=rate_bf, ratio=ratio,
+        brute_force_seconds=bf_wall,
+        brute_force_steps_per_s=WE_BF_STEPS / bf_wall)
+
+
+def rare_event_path(dev):
+    """Example 35 at its default depth: one escape rate over a 5 kT barrier
+    (2 (q^2 - 1)^2 at kT 0.4, friction 1, dt 0.01) four ways: brute force
+    over RE_BF_WALKERS x RE_BF_STEPS (first arrivals at q >= 1, censored),
+    FFS over the interfaces (-0.6, -0.2, 0.2, 0.6, 1.0) from 256 replicas
+    (RE_FLUX_STEPS flux steps, RE_TRIALS trials of up to RE_MAX_STEPS
+    steps a stage), WE with 10 bins x 24 walkers and 20-step segments
+    (RE_WE_ITERS iterations after a third as many of relaxation), and
+    Kramers-corrected harmonic TST; the example's asserts: every estimate
+    within (0.35, 2.8) of brute force, TST at least 0.8 of it."""
+    from vaemolsim_tpu_torch import mcmc, paths, we
+    h, kt, friction, dt = 2.0, 0.4, 1.0, 0.01
+    pot = _well(h)
+    dyn = md._BAOAB(pot, dt=dt, kt=kt, friction=friction, masses=1.0)
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def left_well(r):
+        x = -1.0 + 0.1 * torch.randn(r, 1, 1, generator=gen, device=dev)
+        v = math.sqrt(kt) * torch.randn(r, 1, 1, generator=gen, device=dev)
+        s, _ = dyn.scan(dyn.start(x, v), 500, gen)
+        return s.x, s.v
+
+    _build.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    x0, v0 = left_well(RE_BF_WALKERS)
+    traj = dyn.run(x0, v0, RE_BF_STEPS, gen, collect_v=False,
+                   collect_every=10)
+    q = traj[..., 0, 0]
+    first, hit = first_passage(q >= 1.0, q.shape[0])
+    k_bf = int(hit.sum()) / (float(first.sum()) * 10 * dt)
+    sync(dev)
+    bf_wall = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    x0, v0 = left_well(256)
+    res = mcmc.run_ffs(pot, _first_coordinate, x0, v0, gen,
+                       interfaces=[-0.6, -0.2, 0.2, 0.6, 1.0], dt=dt, kT=kt,
+                       flux_steps=RE_FLUX_STEPS, max_steps=RE_MAX_STEPS,
+                       friction=friction, n_trials=RE_TRIALS)
+    k_ffs = float(res.rate)
+    sync(dev)
+    ffs_wall = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    n_bins, m, seg = 10, 24, 20
+    step, _ = we_parts(dyn, torch.linspace(-1.4, 1.0, n_bins - 1,
+                                           device=dev), seg, n_bins, m, dev)
+    state = we.we_init(left_well(64), n_bins, m)
+    state, _ = we.run_we(step, state, gen, RE_WE_ITERS // 3)
+    f0, n0 = float(state.flux), int(state.n_iters)
+    state, _ = we.run_we(step, state, gen, RE_WE_ITERS)
+    k_we = (float(state.flux) - f0) / (int(state.n_iters) - n0) / (seg * dt)
+    sync(dev)
+    we_wall = time.perf_counter() - t2
+
+    k_tst = float(paths.harmonic_tst_rate(
+        pot, torch.tensor([[-1.0]], device=dev),
+        torch.tensor([[0.0]], device=dev), kt=kt))
+    g = friction / (2.0 * math.sqrt(4.0 * h))
+    kappa = math.sqrt(1.0 + g * g) - g
+    k_kr = kappa * k_tst
+    counts = path_counts("rare_event")
+    ratios = {"FFS": k_ffs / k_bf, "WE": k_we / k_bf,
+              "Kramers-TST": k_kr / k_bf}
+    print(f"example 35: brute force {k_bf:.4e} ({int(hit.sum())} events, "
+          f"{bf_wall:.3f} s); FFS {k_ffs:.4e} (flux {float(res.flux):.4f}, "
+          f"p {np.round(res.p_stages.cpu().numpy(), 4).tolist()}, "
+          f"unresolved {res.n_unresolved.tolist()}, {ffs_wall:.3f} s); WE "
+          f"{k_we:.4e} ({we_wall:.3f} s); Kramers-TST {k_kr:.4e} (TST "
+          f"{k_tst:.4e} x {kappa:.4f}); ratios "
+          f"{json.dumps({k: round(v, 4) for k, v in ratios.items()})}",
+          flush=True)
+    for name, ratio in ratios.items():
+        fail_unless(0.35 < ratio < 2.8,
+                    f"example 35: {name} / brute force {ratio}")
+    fail_unless(k_tst >= 0.8 * k_bf, f"example 35: TST {k_tst} < 0.8 x "
+                f"brute force {k_bf}")
+    ffs_steps = RE_FLUX_STEPS + 4 * RE_MAX_STEPS
+    return replay_row(
+        "rare_event_ex35", bf_wall, RE_BF_STEPS, RE_BF_STEPS / bf_wall,
+        "steps/s", counts,
+        lambda: dyn.run(x0, v0, 200, gen, False, 10), 200,
+        lambda: dyn.run(x0, v0, 200, gen, False, 10), 200, dev,
+        rate_brute_force=k_bf, rate_ffs=k_ffs, rate_we=k_we,
+        rate_kramers_tst=k_kr, rate_tst=k_tst, ratios=ratios,
+        ffs_p_stages=res.p_stages.tolist(), ffs_seconds=ffs_wall,
+        ffs_steps_per_s=ffs_steps / ffs_wall, we_seconds=we_wall,
+        we_iterations_per_s=(RE_WE_ITERS * 4 // 3) / we_wall)
 
 
 # ---------------------------------------------------------------------------
@@ -5863,6 +6279,7 @@ SLICE12_PHASES = (triclinic_npt_path, charged_crystal_path,
                   pimd_path, dynamics_path)
 SLICE13A_PHASES = (scan_replay_path, metadynamics_path, opes_eabf_path,
                    tps_path, committor_path)
+SLICE13B_PHASES = (kinetics_path, weighted_ensemble_path, rare_event_path)
 
 
 def build_kernels(out):
@@ -5996,6 +6413,9 @@ def main():
     opes_abf = stamped(opes_eabf_path, dev)
     tps_row, geometry = stamped(tps_path, dev)
     committor = stamped(committor_path, geometry, dev)
+    kinetics = stamped(kinetics_path, dev)
+    ensemble27 = stamped(weighted_ensemble_path, dev)
+    rare = stamped(rare_event_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -6051,7 +6471,10 @@ def main():
                 "metadynamics": metad["launches"],
                 "opes_eabf": opes_abf["launches"],
                 "tps": tps_row["launches"],
-                "committor": committor["launches"]}
+                "committor": committor["launches"],
+                "kinetics": kinetics["launches"],
+                "weighted_ensemble": ensemble27["launches"],
+                "rare_event": rare["launches"]}
     print("kernel launches on the main paths: " + json.dumps(
         {k: sum(v.values()) for k, v in launches.items()}), flush=True)
     bound = bounds(vae, flow)
@@ -6103,9 +6526,10 @@ def main():
     seconds = RESULTS["phase_seconds"]
     slice12 = sum(seconds[p.__name__] for p in SLICE12_PHASES)
     slice13a = sum(seconds[p.__name__] for p in SLICE13A_PHASES)
+    slice13b = sum(seconds[p.__name__] for p in SLICE13B_PHASES)
     print(f"slice-12 phases {slice12:.1f} s; slice-13a phases "
-          f"{slice13a:.1f} s; the script {time.perf_counter() - _T0:.1f} s",
-          flush=True)
+          f"{slice13a:.1f} s; slice-13b phases {slice13b:.1f} s; the script "
+          f"{time.perf_counter() - _T0:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(dict(sorted(
         ((k, round(v, 1)) for k, v in seconds.items()),
         key=lambda kv: -kv[1]))), flush=True)

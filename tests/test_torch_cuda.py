@@ -1849,3 +1849,102 @@ def test_scan_collect_refuses_a_step_that_launches_a_port_kernel(dev):
 
     with pytest.raises(RuntimeError, match="port kernel"):
         scan_collect(step, torch.rand(256, device=dev), 20, chunk=10)
+
+
+def _we_step(dev):
+    """Example 35's weighted-ensemble step at a small width: 20-step BAOAB
+    segments through md's shared runner, recycling at the last bin."""
+    from vaemolsim_tpu_torch import we
+    from vaemolsim_tpu_torch.md import _BAOAB
+    dyn = _BAOAB(_dwell, dt=0.01, kt=2.0, friction=1.0, masses=1.0)
+    edges = torch.linspace(-1.4, 1.0, 9, device=dev)
+
+    def propagate(walk, generator):
+        s, _ = dyn.scan(dyn.start(*walk), 20, generator)
+        return (s.x, s.v)
+
+    def bin_fn(walk):
+        return torch.searchsorted(edges, walk[0][..., 0, 0].contiguous())
+
+    def recycle(walk):
+        return (torch.full_like(walk[0], -1.0), torch.zeros_like(walk[1]))
+
+    return we.make_we_step(propagate, bin_fn, n_bins=10, m_per_bin=8,
+                           target_bin=9, recycle_fn=recycle)
+
+
+def test_ffs_flux_and_stage_replay_as_the_eager_loop(dev):
+    """A basin_flux run of 200 steps (four chunks) and an ffs_stage of 150
+    steps from its slots: the replay equals the eager loop's count, slots,
+    statuses and phase points."""
+    from vaemolsim_tpu_torch import mcmc
+
+    def lam(x):
+        return x[..., 0, 0]
+
+    x0 = -torch.ones(64, 1, 1, device=dev)
+    kw = dict(dt=0.01, kT=2.0, friction=1.0)
+
+    def flux():
+        gen = torch.Generator(device=dev).manual_seed(36)
+        return mcmc.basin_flux(_dwell, lam, x0, torch.zeros_like(x0), gen,
+                               lambda0=-0.6, n_steps=200, n_store=32, **kw)
+
+    fr, want = _replay_and_eager(flux)
+    _assert_same(fr, want)
+    assert int(fr.n_crossings) > 0
+
+    def stage():
+        gen = torch.Generator(device=dev).manual_seed(37)
+        return mcmc.ffs_stage(_dwell, lam, fr.x, fr.v, fr.stored, gen,
+                              lambda_next=-0.2, lambda_fail=-0.6,
+                              max_steps=150, n_trials=128, **kw)
+
+    got, want = _replay_and_eager(stage)
+    _assert_same(got, want)
+
+
+def test_we_iterations_replay_as_the_eager_loop(dev):
+    """Five WE iterations, each one captured step (segment and
+    resampling): walkers, weights and flux equal the eager loop's."""
+    from vaemolsim_tpu_torch import we
+    step = _we_step(dev)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(38)
+        state = we.we_init((-torch.ones(16, 1, 1, device=dev),
+                            torch.zeros(16, 1, 1, device=dev)), 10, 8)
+        return we.run_we(step, state, gen, 5, collect_every=5)
+
+    got, want = _replay_and_eager(run)
+    _assert_same(got, want)
+    assert abs(float(got[0].w.sum()) - 1.0) < 1e-5
+
+
+def test_run_we_refuses_a_step_with_a_host_read(dev):
+    """A WE step that reads the host (.item()) raises under run_we on the
+    card instead of running eagerly."""
+    from vaemolsim_tpu_torch import we
+    step = _we_step(dev)
+
+    def reads_the_host(state, generator):
+        state = step(state, generator)
+        if state.w.sum().item() > 2.0:
+            raise AssertionError("weight grew")
+        return state
+
+    state = we.we_init((-torch.ones(16, 1, 1, device=dev),
+                        torch.zeros(16, 1, 1, device=dev)), 10, 8)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        we.run_we(reads_the_host, state,
+                  torch.Generator(device=dev).manual_seed(39), 10)
+
+
+def test_vampnet_create_without_a_device_builds_on_the_card(dev):
+    from vaemolsim_tpu_torch.vamp import VAMPNet
+    for g in (torch.Generator().manual_seed(0),
+              torch.Generator(device=dev).manual_seed(0)):
+        net = VAMPNet.create(g, 2, 3)
+        assert all(p.is_cuda for p in net.parameters())
+        y = net(torch.zeros(4, 2, device=dev))
+        assert y.is_cuda and y.shape == (4, 3)

@@ -39,7 +39,10 @@ collective variables (``colvars``), metadynamics, OPES and eABF
 (``metadynamics``, ``opes``, ``abf``), minimum-energy paths (``paths``)
 and transition path sampling (``mcmc``), whose loops run through
 ``utils.scan_collect``: captured CUDA graphs replayed on the card, the
-plain loop on the CPU (see ROADMAP.md for what is still to come).
+plain loop on the CPU; and forward flux sampling (``mcmc``), weighted
+ensembles (``we``), Markov state models with TICA (``msm``) and VAMPnets
+(``vamp``), whose long Langevin loops run through ``md``'s shared
+replayed BAOAB runner (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
@@ -52,5 +55,6 @@ from vaemolsim_tpu_torch import parallel  # noqa: F401
 from vaemolsim_tpu_torch import train, utils  # noqa: F401
 from vaemolsim_tpu_torch import abf, colvars, metadynamics  # noqa: F401
 from vaemolsim_tpu_torch import opes, paths  # noqa: F401
+from vaemolsim_tpu_torch import msm, vamp, we  # noqa: F401
 
 __version__ = "0.1.0"

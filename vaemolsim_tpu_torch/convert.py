@@ -23,7 +23,9 @@ the molecular MD state: a ``CellNeighborList`` (either JAX build,
 evaluated by the port's cell-list energy) and an ``MDState``; an ``MLP``;
 and the biasing and path-sampling states ``BiasGrid``, ``OPESBias``,
 ``ABFState`` and ``TPSState``, so that a half-filled bias or a path
-ensemble continues in the port.  Batch-norm
+ensemble continues in the port; a ``VAMPNet`` (its lobe's weights) and a
+``WEState`` (walkers, weights, flux and iteration count: the JAX key
+becomes the generator handed to ``we.run_we``).  Batch-norm
 running moments become buffers.  Weights and arrays are copied
 exactly, with their dtypes (the Dense layout is the same ``(in, out)``
 in both packages).  Objects land on the CUDA card unless a device is
@@ -406,6 +408,21 @@ def _tps_state(o, device):
                       for a in (o.n_acc, o.n_trials)))
 
 
+def _vampnet(o, device):
+    from vaemolsim_tpu_torch.vamp import VAMPNet
+    return VAMPNet(_mlp(o.lobe, device), softmax=o.softmax, eps=o.eps)
+
+
+def _we_state(o, device):
+    from vaemolsim_tpu_torch.we import WEState
+    x = (tuple(_t(a, device) for a in o.x) if isinstance(o.x, (tuple, list))
+         else _t(o.x, device))
+    return WEState(x=x, w=_t(o.w, device), flux=_t(o.flux, device),
+                   n_iters=torch.as_tensor(np.array(o.n_iters,
+                                                    dtype=np.int32),
+                                           device=device))
+
+
 def _backmapping(o, device):
     from vaemolsim_tpu_torch.models import BackmappingOnly
     return BackmappingOnly(_local_descriptors(o.mask_and_embed, device),
@@ -521,6 +538,8 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "OPESBias": _opes_bias,
     "ABFState": _abf_state,
     "TPSState": _tps_state,
+    "VAMPNet": _vampnet,
+    "WEState": _we_state,
     "LogProbLoss": _log_prob_loss,
     "PotentialEnergyLogProbLoss": _potential_loss,
     "NonRegularizer": _regularizer,

@@ -1,7 +1,7 @@
 """Monte Carlo: the VAE-proposal engine and its fused step, local moves
 and their tuner, chain diagnostics, simulated tempering and free-energy
-estimators, NPT, grand-canonical and Gibbs-ensemble MC, and transition
-path sampling (FFS is not ported)."""
+estimators, NPT, grand-canonical and Gibbs-ensemble MC, transition path
+sampling and forward flux sampling."""
 
 from vaemolsim_tpu_torch.mcmc.diagnostics import (  # noqa: F401
     autocorrelation,
@@ -20,6 +20,14 @@ from vaemolsim_tpu_torch.mcmc.engine import (  # noqa: F401
     run_mcmc,
     run_mcmc_checkpointed,
     vae_proposal_fns,
+)
+from vaemolsim_tpu_torch.mcmc.ffs import (  # noqa: F401
+    FFSResult,
+    FluxResult,
+    StageResult,
+    basin_flux,
+    ffs_stage,
+    run_ffs,
 )
 from vaemolsim_tpu_torch.mcmc.free_energy import (  # noqa: F401
     AISResult,

@@ -16,20 +16,21 @@ velocities, and every shooting move integrates exactly ``n_frames - 1``
 BAOAB steps whatever j and the direction (the splice is a gather with
 computed indices), so the walkers batch and a whole sweep has fixed
 shapes: :func:`run_tps` replays captured sweeps on the card.  The
-shooting runs go through :func:`scan_collect` with the operations of
-``md.baoab`` in its order.  A step draws its moves with ``step.draw(state,
-generator)`` and makes them with ``step.move(state, draws)``, which is
-what tests hand the JAX package's draws to.
+shooting runs go through ``md``'s shared runner (``md._BAOAB``), the
+operations of ``md.baoab`` in its order under :func:`scan_collect`.  A
+step draws its moves with ``step.draw(state, generator)`` and makes them
+with ``step.move(state, draws)``, which is what tests hand the JAX
+package's draws to.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-# md imports mcmc.engine, so this module reads md's names at call time.
 from vaemolsim_tpu_torch import md
+from vaemolsim_tpu_torch.md import _BAOAB
 from vaemolsim_tpu_torch.utils.scan import chunk_size, scan_collect
 
 Tensor = torch.Tensor
@@ -72,61 +73,6 @@ def tps_init(path: Tensor, *, vel: Optional[Tensor] = None,
     zeros = torch.zeros(path.shape[0], dtype=torch.int32,
                         device=path.device)
     return TPSState(path=path, vel=vel, n_acc=zeros, n_trials=zeros)
-
-
-class _BAOAB:
-    """``md.baoab``'s dynamics with its noise given as rows (or drawn from
-    a generator), run through :func:`scan_collect`.  Its constants are
-    made once per device and dtype, as ``md.baoab`` makes them, so that a
-    captured step copies nothing from the host."""
-
-    def __init__(self, potential, *, dt, kt, friction, masses):
-        self.force = md._force_fn(potential)
-        self.dt, self.kt, self.friction = dt, kt, friction
-        self.masses = masses
-        self._consts = {}
-
-    def consts(self, x: Tensor):
-        key = (x.device, x.dtype)
-        if key not in self._consts:
-            m = md._masses_arr(self.masses, x)
-            dt = torch.tensor(self.dt, dtype=x.dtype, device=x.device)
-            c1 = torch.exp(-self.friction * dt)
-            c2 = torch.sqrt(self.kt * (1.0 - c1 * c1) / m)
-            self._consts[key] = (m, dt, c1, c2)
-        return self._consts[key]
-
-    def run(self, x0: Tensor, v0: Tensor, n_steps: int,
-            noise: Union[Tensor, torch.Generator], collect_v: bool,
-            collect_every: int = 1):
-        """``n_steps`` steps from (x0, v0); the O-step normals are rows of
-        ``noise`` (n_steps, *x0.shape) or drawn from it as a generator.
-        Returns every ``collect_every``-th step's positions (and
-        velocities), (n_steps // collect_every, ...)."""
-        m, dt, c1, c2 = self.consts(x0)
-        given = isinstance(noise, Tensor)
-
-        def step(carry):
-            s, i = carry
-            v = s.v + 0.5 * dt * s.force / m                      # B
-            x = s.x + 0.5 * dt * v                                # A
-            z = (noise.index_select(0, i)[0] if given
-                 else md._normal(noise, v))
-            v = c1 * v + c2 * z                                   # O
-            x = x + 0.5 * dt * v                                  # A
-            _, f = self.force(x)
-            s = md.MDState(x=x, v=v + 0.5 * dt * f / m, force=f)  # B
-            return s, i + 1
-
-        _, f0 = self.force(x0)
-        start = (md.MDState(x=x0, v=v0, force=f0),
-                 torch.zeros(1, dtype=torch.long, device=x0.device))
-        _, traj = scan_collect(
-            step, start, n_steps, collect_every=collect_every,
-            snapshot_fn=(lambda c: (c[0].x, c[0].v)) if collect_v
-            else (lambda c: c[0].x),
-            generators=() if given else (noise,))
-        return traj
 
 
 def make_tps_step(potential: Callable[[Tensor], Tensor], *,

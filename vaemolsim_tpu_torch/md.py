@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from vaemolsim_tpu_torch.config import default_device
-from vaemolsim_tpu_torch.mcmc.engine import log_uniform
 from vaemolsim_tpu_torch.ops.distributions import standard_gamma
+from vaemolsim_tpu_torch.utils.scan import scan_collect
 
 Tensor = torch.Tensor
 
@@ -151,6 +151,87 @@ def baoab(potential: Callable[[Tensor], Tensor], x0: Tensor, v0: Tensor,
         return s, None
     return s, ((torch.stack(xs), torch.stack(vs)) if collect_v
                else torch.stack(xs))
+
+
+class _BAOAB:
+    """:func:`baoab`'s dynamics with its noise given as rows (or drawn from
+    a generator), run through :func:`scan_collect`: the long Langevin
+    loops of ``mcmc.tps``, ``mcmc.ffs`` and the weighted-ensemble
+    propagators.  Its constants are made once per device and dtype, as
+    :func:`baoab` makes them, so that a captured step copies nothing from
+    the host.  :func:`baoab` itself stays an eager loop: its callers
+    include potentials that launch port kernels, which a captured step
+    may not."""
+
+    def __init__(self, potential, *, dt, kt, friction, masses):
+        self.force = _force_fn(potential)
+        self.dt, self.kt, self.friction = dt, kt, friction
+        self.masses = masses
+        self._consts = {}
+
+    def consts(self, x: Tensor):
+        key = (x.device, x.dtype)
+        if key not in self._consts:
+            m = _masses_arr(self.masses, x)
+            dt = torch.tensor(self.dt, dtype=x.dtype, device=x.device)
+            c1 = torch.exp(-self.friction * dt)
+            c2 = torch.sqrt(self.kt * (1.0 - c1 * c1) / m)
+            self._consts[key] = (m, dt, c1, c2)
+        return self._consts[key]
+
+    def start(self, x0: Tensor, v0: Tensor) -> MDState:
+        """The state at (x0, v0), with the force there."""
+        _, f0 = self.force(x0)
+        return MDState(x=x0, v=v0, force=f0)
+
+    def step(self, s: MDState, z: Tensor) -> MDState:
+        """One BAOAB step on the O-step normals ``z``."""
+        m, dt, c1, c2 = self.consts(s.x)
+        v = s.v + 0.5 * dt * s.force / m                      # B
+        x = s.x + 0.5 * dt * v                                # A
+        v = c1 * v + c2 * z                                   # O
+        x = x + 0.5 * dt * v                                  # A
+        _, f = self.force(x)
+        return MDState(x=x, v=v + 0.5 * dt * f / m, force=f)  # B
+
+    @staticmethod
+    def normals(noise, i: Tensor, like: Tensor) -> Tensor:
+        """Step ``i``'s normals: row ``i`` (a (1,) long tensor) of the
+        tensor ``noise``, or a draw from the generator ``noise``."""
+        if isinstance(noise, Tensor):
+            return noise.index_select(0, i)[0]
+        return _normal(noise, like)
+
+    def scan(self, s: MDState, n_steps: int, noise, *,
+             collect_every: int = 0, snapshot_fn=None):
+        """``n_steps`` steps from the state ``s``; the O-step normals are
+        rows of ``noise`` (n_steps, *x.shape) or drawn from it as a
+        generator.  Returns ``(final MDState, snapshots)`` as
+        :func:`scan_collect` does."""
+        given = isinstance(noise, Tensor)
+
+        def step(carry):
+            s, i = carry
+            return self.step(s, self.normals(noise, i, s.v)), i + 1
+
+        start = (s, torch.zeros(1, dtype=torch.long, device=s.x.device))
+        snap = snapshot_fn or (lambda st: st)
+        (s, _), traj = scan_collect(
+            step, start, n_steps, collect_every=collect_every,
+            snapshot_fn=lambda c: snap(c[0]),
+            generators=() if given else (noise,))
+        return s, traj
+
+    def run(self, x0: Tensor, v0: Tensor, n_steps: int, noise,
+            collect_v: bool, collect_every: int = 1):
+        """``n_steps`` steps from (x0, v0) on ``noise`` (as in
+        :meth:`scan`).  Returns every ``collect_every``-th step's
+        positions (and velocities), (n_steps // collect_every, ...)."""
+        _, traj = self.scan(
+            self.start(x0, v0), n_steps, noise, collect_every=collect_every,
+            snapshot_fn=(lambda s: (s.x, s.v)) if collect_v
+            else (lambda s: s.x))
+        return traj
 
 
 def _check_rebuild(n_steps: int, rebuild_every: int) -> None:
@@ -547,6 +628,8 @@ def baoab_npt(potential_for_box: Callable[[Tensor], Callable], x0: Tensor,
             if min_box is not None:
                 log_acc = torch.where(box2.amin(-1) < float(min_box),
                                       -math.inf, log_acc)
+            # mcmc's package imports this module (tps, ffs): import late.
+            from vaemolsim_tpu_torch.mcmc.engine import log_uniform
             accept = log_acc >= log_uniform(generator, log_acc.shape,
                                             log_acc.dtype, log_acc.device)
             x = torch.where(accept[..., None, None], x2, md.x)

@@ -4,8 +4,8 @@
 JAX runs a sampler or integrator as one ``lax.scan``.  The port runs the
 same loop two ways, chosen by where the state lives:
 
-* on the CPU (and inside an enclosing CUDA-graph capture), the plain
-  Python loop over ``step_fn``;
+* on the CPU (and inside an enclosing CUDA-graph capture or its
+  warm-up), the plain Python loop over ``step_fn``;
 * on a CUDA state, in chunks: one chunk of steps is warmed up on a side
   stream, captured once as a CUDA graph that reads and writes static
   state buffers, and replayed for every later chunk.  Snapshots are
@@ -162,7 +162,9 @@ def _replayed(step_fn, state, n_steps: int, k: int, snap, c: int,
         saved = [g.get_state() for g in generators]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        # A loop nested in the step (a shooting run, a WE segment) runs
+        # plain in the warm-up, as it will inside the capture.
+        with torch.cuda.stream(side), eager():
             run_chunk()
         torch.cuda.current_stream().wait_stream(side)
         for t, t0 in zip(static, init):
