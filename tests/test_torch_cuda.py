@@ -1948,3 +1948,111 @@ def test_vampnet_create_without_a_device_builds_on_the_card(dev):
         assert all(p.is_cuda for p in net.parameters())
         y = net(torch.zeros(4, 2, device=dev))
         assert y.is_cuda and y.shape == (4, 3)
+
+
+def _lj16(dev, chains=8, seed=0):
+    """16 LJ particles at density 0.65 on a jittered grid, ``chains``
+    copies: coordinates and the box edge."""
+    L = (16 / 0.65) ** (1.0 / 3.0)
+    g = torch.Generator().manual_seed(seed)
+    ax = torch.arange(3, dtype=torch.float32) * (L / 3)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"),
+                       -1).reshape(-1, 3)[:16]
+    x = grid + 0.05 * torch.randn(chains, 16, 3, generator=g)
+    return x.to(dev), L
+
+
+def test_lennard_jones_takes_card_parameters_that_require_grad(dev):
+    """sigma and epsilon as CUDA tensors in an autograd graph, scalar and
+    per-atom: the energy and its parameter gradients on the card equal a
+    CPU copy's (float32, to 1e-5 relative)."""
+    from vaemolsim_tpu_torch import potentials
+    x, L = _lj16(dev)
+    g = torch.Generator().manual_seed(1)
+    for sig, eps in ((torch.tensor(1.02), torch.tensor(0.9)),
+                     (1.0 + 0.05 * torch.rand(16, generator=g),
+                      0.5 + torch.rand(16, generator=g))):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            s = sig.to(d).requires_grad_(True)
+            e = eps.to(d).requires_grad_(True)
+            pot = potentials.lennard_jones(
+                sigma=s, epsilon=e, box=torch.full((3,), L, device=d),
+                cutoff=2.2, device=d)
+            energy = pot(x.to(d)).sum()
+            out.append([energy, *torch.autograd.grad(energy, (s, e))])
+        assert out[0][0].is_cuda and out[0][1].is_cuda
+        for a, b in zip(*out):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_force_matching_loss_on_the_card_matches_a_cpu_copy(dev):
+    """The force-matching loss of a SchNet potential and its weight
+    gradients (a second derivative) on the card against a CPU copy, to
+    1e-4 relative."""
+    from vaemolsim_tpu_torch import cg
+    from vaemolsim_tpu_torch.nn import SchNetPotential
+    gen = torch.Generator().manual_seed(2)
+    model = SchNetPotential.create(gen, 1, features=16, num_blocks=2,
+                                   n_rbf=12, cutoff=2.5, device="cpu")
+    card = copy.deepcopy(model).to(dev)
+    R = 3.6 * torch.rand(12, 12, 3, generator=gen)
+    f = torch.randn(12, 12, 3, generator=gen)
+    sp, box = torch.ones(12, 1), torch.full((3,), 3.6)
+    mask = torch.arange(12) < 11
+    got = cg.force_matching_loss(card, R.to(dev), sp.to(dev), f.to(dev),
+                                 box=box.to(dev), mask=mask.to(dev))
+    want = cg.force_matching_loss(model, R, sp, f, box=box, mask=mask)
+    got.backward()
+    want.backward()
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=1e-4,
+                               atol=1e-6)
+    for (name, a), b in zip(card.named_parameters(), model.parameters()):
+        if b.grad is None:          # e_ref: no force depends on it
+            assert a.grad is None, name
+            continue
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+
+
+def test_difftre_round_replays_as_the_eager_loop(dev):
+    """One DiffTRe round of example 31's kind whose sample_fn runs md's
+    shared runner (replayed CUDA graphs): the frames, the fitted
+    parameters and the history equal the same round under scan.eager()."""
+    from vaemolsim_tpu_torch import difftre, md, potentials
+    x0, L = _lj16(dev)
+    box = torch.full((3,), L, device=dev)
+
+    def make_pot(p):
+        return potentials.lennard_jones(
+            sigma=torch.exp(p["log_sigma"]), epsilon=torch.exp(p["log_eps"]),
+            box=box, cutoff=2.2, device=dev)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(40)
+        seen = []
+
+        def sample_fn(p, g, state):
+            dyn = md._BAOAB(make_pot(p), dt=0.003, kt=0.85, friction=1.0,
+                            masses=1.0)
+            s, traj = dyn.scan(dyn.start(x0, torch.zeros_like(x0)), 200, g,
+                               collect_every=25,
+                               snapshot_fn=lambda st: st.x)
+            seen.append(traj)
+            return traj[2:].reshape(-1, 16, 3), s.x
+
+        params = {"log_eps": torch.full((), -0.4, device=dev),
+                  "log_sigma": torch.full((), 0.1, device=dev)}
+        res = difftre.difftre_fit(
+            lambda p, f: make_pot(p)(f), params, sample_fn=sample_fn,
+            observable_fns={"u": lambda p, f: make_pot(p)(f) / 16},
+            targets={"u": -2.0}, beta=1.0 / 0.85, generator=gen, n_outer=1,
+            inner_steps=5, learning_rate=0.05)
+        return (seen, res.params, res.history["loss"],
+                res.history["ess_end"], res.history["inner_steps"])
+
+    got, want = _replay_and_eager(run)
+    _assert_same(got[:2], want[:2])
+    assert got[2:] == want[2:]
+    assert got[4][0] >= 1

@@ -42,7 +42,9 @@ and transition path sampling (``mcmc``), whose loops run through
 plain loop on the CPU; and forward flux sampling (``mcmc``), weighted
 ensembles (``we``), Markov state models with TICA (``msm``) and VAMPnets
 (``vamp``), whose long Langevin loops run through ``md``'s shared
-replayed BAOAB runner (see ROADMAP.md for what is still to come).
+replayed BAOAB runner; and differentiable trajectory reweighting
+(``difftre``) and CG force matching and relative-entropy fitting
+(``cg``) (see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
@@ -56,5 +58,6 @@ from vaemolsim_tpu_torch import train, utils  # noqa: F401
 from vaemolsim_tpu_torch import abf, colvars, metadynamics  # noqa: F401
 from vaemolsim_tpu_torch import opes, paths  # noqa: F401
 from vaemolsim_tpu_torch import msm, vamp, we  # noqa: F401
+from vaemolsim_tpu_torch import cg, difftre  # noqa: F401
 
 __version__ = "0.1.0"

@@ -54,7 +54,18 @@ _MESH = "ROADMAP.md, Queue 1 item 4, slice 14"
 
 
 def _f32(a, device) -> Tensor:
+    """A host-side constant (a number, list or numpy array) as float32 on
+    ``device``; parameters go through :func:`_param_arg`."""
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def _param_arg(a, device) -> Tensor:
+    """A force-field parameter: a tensor becomes float32 on ``device``
+    with its autograd graph kept (parameters fitted through the energy,
+    as DiffTRe does), anything else goes through :func:`_f32`."""
+    if isinstance(a, Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return _f32(a, device)
 
 
 def _norm(d: Tensor) -> Tensor:
@@ -70,8 +81,8 @@ def harmonic_bonds(bonds, k, r0, device=None) -> Callable[[Tensor], Tensor]:
     dev = default_device(device)
     i = torch.as_tensor(bonds[:, 0], device=dev)
     j = torch.as_tensor(bonds[:, 1], device=dev)
-    k = _f32(k, dev)
-    r0 = _f32(r0, dev)
+    k = _param_arg(k, dev)
+    r0 = _param_arg(r0, dev)
 
     def energy(x: Tensor) -> Tensor:
         r = _norm(x[..., i, :] - x[..., j, :])
@@ -99,8 +110,8 @@ def harmonic_angles(angles, k, theta0, device=None
     Coordinates in 2-D or 3-D."""
     dev = default_device(device)
     i, j, c = _index_pairs(angles, 3, "angles", dev)
-    k = _f32(k, dev)
-    theta0 = _f32(theta0, dev)
+    k = _param_arg(k, dev)
+    theta0 = _param_arg(theta0, dev)
 
     def energy(x: Tensor) -> Tensor:
         u = x[..., i, :] - x[..., j, :]
@@ -123,9 +134,9 @@ def periodic_torsions(torsions, k, n, phase, device=None
     (T,)."""
     dev = default_device(device)
     quads = torch.stack(_index_pairs(torsions, 4, "torsions", dev), -1)
-    k = _f32(k, dev)
-    n = _f32(n, dev)
-    phase = _f32(phase, dev)
+    k = _param_arg(k, dev)
+    n = _param_arg(n, dev)
+    phase = _param_arg(phase, dev)
 
     def energy(x: Tensor) -> Tensor:
         phi = dihedrals(x, quads)
@@ -140,9 +151,9 @@ def morse_bonds(bonds, D, a, r0, device=None) -> Callable[[Tensor], Tensor]:
     ``bonds``: (B, 2); ``D`` / ``a`` / ``r0``: scalars or (B,)."""
     dev = default_device(device)
     i, j = _index_pairs(bonds, 2, "bonds", dev)
-    D = _f32(D, dev)
-    a = _f32(a, dev)
-    r0 = _f32(r0, dev)
+    D = _param_arg(D, dev)
+    a = _param_arg(a, dev)
+    r0 = _param_arg(r0, dev)
 
     def energy(x: Tensor) -> Tensor:
         e = 1.0 - torch.exp(-a * (_norm(x[..., i, :] - x[..., j, :]) - r0))
@@ -157,8 +168,8 @@ def harmonic_impropers(impropers, k, phi0=0.0, device=None
     the deviation wrapped to (-pi, pi] (no seam at phi0 = pi)."""
     dev = default_device(device)
     quads = torch.stack(_index_pairs(impropers, 4, "impropers", dev), -1)
-    k = _f32(k, dev)
-    phi0 = _f32(phi0, dev)
+    k = _param_arg(k, dev)
+    phi0 = _param_arg(phi0, dev)
 
     def energy(x: Tensor) -> Tensor:
         d = dihedrals(x, quads) - phi0
@@ -220,8 +231,8 @@ def lennard_jones(sigma=1.0, epsilon=1.0, *,
     ``cutoff``: truncation, shifted to 0 there with ``shift``;
     ``exclude``: pairs masked out (see :func:`_exclude_matrix`)."""
     dev = default_device(device)
-    sigma = _f32(sigma, dev)
-    epsilon = _f32(epsilon, dev)
+    sigma = _param_arg(sigma, dev)
+    epsilon = _param_arg(epsilon, dev)
     if sigma.ndim == 1:
         sigma = 0.5 * (sigma[:, None] + sigma[None, :])
     if epsilon.ndim == 1:
@@ -370,8 +381,8 @@ def lennard_jones_softcore(sigma=1.0, epsilon=1.0, *, alchemical,
     core.  Returns ``energy(x, lam)``; ``lam`` broadcasts against the
     energy's batch shape (a tensor lam gives dU/dlam by autograd)."""
     dev = default_device(device)
-    sigma = _f32(sigma, dev)
-    epsilon = _f32(epsilon, dev)
+    sigma = _param_arg(sigma, dev)
+    epsilon = _param_arg(epsilon, dev)
     if sigma.ndim == 1:
         sigma = 0.5 * (sigma[:, None] + sigma[None, :])
     if epsilon.ndim == 1:
@@ -421,7 +432,7 @@ def coulomb(charges, *, exclude: Optional[np.ndarray] = None, box=None,
     gas-phase and short-range form (:func:`ewald_coulomb` is the periodic
     sum)."""
     dev = default_device(device)
-    q = _f32(charges, dev)
+    q = _param_arg(charges, dev)
     if q.ndim != 1:
         raise ValueError(f"charges must be (n,); got {tuple(q.shape)}")
     qq = q[:, None] * q[None, :]
