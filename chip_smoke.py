@@ -2,8 +2,9 @@
 """Drive vaemolsim_tpu_torch's MC, training, backmapping, molecular MD,
 sampling-stack paths, the rest of the reference library's surface,
 joint backmapping with its tools, the rest of the molecular stack and
-biased sampling, path sampling, rare events and kinetics, and top-down
-and bottom-up potential fitting on one NVIDIA GPU.
+biased sampling, path sampling, rare events and kinetics, top-down and
+bottom-up potential fitting, and score diffusion, an equivariant potential
+and committee uncertainty on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -72,12 +73,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``RealNVPConfig``; ``fit`` at batch 4096 on 100k 4-mode points for 10
    epochs, then 10k samples; gradients against a CPU copy), the
    sampler-statistics block of bench.py:461 on the flagship (10k chains x
-   1000 cycled VAE / MALA / random-walk steps with scales tuned on the
+   600 cycled VAE / MALA / random-walk steps with scales tuned on the
    card, and its four asserted thresholds), molecular HMC on LJ7 (bench.py
-   :521: ``minimize_energy``, ``tune_scale``, 200 HMC steps at 8192
+   :521: ``minimize_energy``, ``tune_scale``, 100 HMC steps at 8192
    chains; plain PyTorch, no kernel), examples 10 and 40 at their --full
    sizes with their own validations (EXP, BAR, AIS, the flow-FEP, MBAR;
-   a 2-D RealNVP trained by ``tfep_loss`` for 300 steps at N = 20k,
+   a 2-D RealNVP trained by ``tfep_loss`` for 200 steps at N = 20k,
    then targeted EXP and BAR), replica exchange on the flagship (4
    replicas of 1000 chains, exact swap counters) and simulated tempering
    on a double well (every rung visited, the adapted weights against
@@ -157,7 +158,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    shots at the phases' widths (at most 1e-6 apart); then, at the
    examples' --full widths and default depths (PERF.md section 4),
    example 23 (well-tempered metadynamics of a butane-like torsion, 64
-   walkers, 24 000 steps, and its unbiased control), the OPES and eABF
+   walkers, 16 000 steps, and its unbiased control), the OPES and eABF
    convergence checks of tests/test_opes.py and tests/test_abf.py,
    example 32 (Muller-Brown minima, the climbing NEB and its saddle,
    harmonic TST, 48 TPS walkers of 401 frames over 400 sweeps) and
@@ -187,7 +188,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    tests/test_cg.py's ``rel_entropy_fit``), each with the example's own
    asserts, its ms a DiffTRe inner step or force-matching step, and its
    ms a step replayed against eager with the idle share of a window that
-   skips the first replay.
+   skips the first replay;
+16. runs slice 14a (``SLICE14A_PHASES``): example 28 at its default depths
+   (a VP score diffusion with a 128 x 128 gelu noise net on kernel 2,
+   trained by denoising score matching through ``fit`` with EMA weights;
+   ancestral SDE samples, probability-flow densities on a grid and an
+   importance-sampled normalization, the diffusion as an MH independence
+   proposal; the example's own asserts; then kernel 2 at the path's four
+   row counts), and a PaiNN potential at ``ml_potential_md_path``'s
+   configuration (BAOAB replayed through ``md._BAOAB`` and held to the
+   eager loop within 1e-6, ``energy_force_loss``'s gradients, the box
+   gradient against a CPU copy, rotated forces on a cluster) with a
+   committee of three PaiNNs (``ensemble_energy_forces`` and
+   ``max_force_uncertainty`` over 256 frames, masked and not, against a CPU
+   copy; identical members spread exactly 0).
    A line before the last gives every phase's seconds, longest first.
 
 Every path runs with the launch counters zeroed just before it and read
@@ -288,8 +302,8 @@ MOL_SHAPE = "molecular coulomb+exclusion"
 # (bench.py:461), molecular HMC (bench.py:521), examples 10 and 40 at
 # --full, REMC and simulated tempering.
 RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 10, 10_000
-STATS_CHAINS, STATS_STEPS = 10_000, 1000
-HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 200, 10
+STATS_CHAINS, STATS_STEPS = 10_000, 600
+HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 100, 10
 FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 125, 96, 6
 TFEP_N, TFEP_STEPS = 20_000, 200
 REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
@@ -306,8 +320,8 @@ ENS_NLL_GAP = 0.1
 # Slice 10: examples 06 and 16 at --full (WF_*, JB_*), the ML-potential MD
 # of bench.py:736 (MLP_*), the two-stage backmapping model's fit
 # (TS_FIT_STEPS), the checkpointed MC (CK_*) and the bf16 MAF (BF_STEPS).
-WF_FRAMES, WF_ATOMS, WF_EPOCHS, WF_BATCH, WF_GEN = 4000, 8, 25, 256, 500
-JB_SYSTEMS, JB_R, JB_D, JB_STEPS, JB_SAMPLES = 4000, 6, 2, 400, 512
+WF_FRAMES, WF_ATOMS, WF_EPOCHS, WF_BATCH, WF_GEN = 4000, 8, 18, 256, 500
+JB_SYSTEMS, JB_R, JB_D, JB_STEPS, JB_SAMPLES = 4000, 6, 2, 300, 512
 JB_COUPLE = 0.7
 MLP_REPLICAS, MLP_ATOMS, MLP_STEPS, MLP_RHO = 256, 32, 100, 0.6
 MLP_FEATURES, MLP_BLOCKS, MLP_RBF, MLP_CUTOFF, MLP_DT = 64, 3, 32, 2.5, 0.002
@@ -3102,13 +3116,7 @@ def ml_potential_md_path(dev):
     species = torch.ones(n, 1, device=dev)
     box = torch.full((3,), L, device=dev)
     pot = model.as_potential(species, box)
-    m = int(math.ceil(n ** (1.0 / 3.0)))
-    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
-                    -1).reshape(-1, 3)[:n] * (L / m)
-    x0 = (torch.tensor(grid, dtype=torch.float32, device=dev)[None]
-          + 0.05 * torch.randn(MLP_REPLICAS, n, 3, generator=gen,
-                               device=dev))
-    v0 = torch.randn(x0.shape, generator=gen, device=dev)
+    x0, v0 = mlp_start(gen, L, dev)
     for p in model.parameters():
         p.requires_grad_(False)
 
@@ -3578,9 +3586,9 @@ EX_MOL, EX_EQUIL, EX_PROD, EX_CHUNK = 512, 250, 500, 250
 RW_MOL, RW_STEPS, RW_REPLICAS, RW_TF32_STEPS = 24, 4000, 8, 200
 BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 5, 50
 BG_PROPOSALS, BG_TUNE_ROUNDS = 60, 10
-NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 300
+NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 200
 NPT_PRESSURES = (0.01, 0.02, 0.05, 0.1, 0.2)
-GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 800, 96, 2500
+GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 500, 96, 2240
 AL_REPLICAS, AL_WINDOWS, AL_STEPS = 1024, 11, 1500
 # Kernel 5's key-chunked stream regime at the shapes the plans refused
 # before it: (B, N, H).
@@ -4482,7 +4490,7 @@ def chunked_stream_path(dev):
 # example's own count); the dynamics phase at the sizes its docstring gives.
 TN_CHAINS, TN_ATOMS, TN_EQUIL, TN_BLOCKS, TN_BLOCK = 256, 48, 1500, 10, 100
 CC_CHAINS, CC_EQUIL, CC_BLOCKS, CC_BLOCK = 128, 1000, 4, 150
-RF_WALK, RF_ROUNDS, RF_EPOCHS, RF_PROPOSALS = 128, 400, 250, 6
+RF_WALK, RF_ROUNDS, RF_EPOCHS, RF_PROPOSALS = 128, 300, 150, 6
 EXT_WALK, EXT_ROUNDS = 64, 600
 # Example 26's thresholds (the midpoint disagreement below 0.04 at --full,
 # 0.08 by default; the reweighting error below 0.02) are what one seed of
@@ -4494,8 +4502,8 @@ EXT_WALK, EXT_ROUNDS = 64, 600
 # the phase holds the port to the reference's --full level with room for
 # that spread.
 EXT_MIDPOINT_TOL, EXT_REWEIGHT_TOL = 0.15, 0.04
-HX_CHAINS, HX_EQUIL, HX_PROD = 16, 2000, 4000
-PI_REPLICAS, PI_STEPS = 512, 4000
+HX_CHAINS, HX_EQUIL, HX_PROD = 16, 1500, 2400
+PI_REPLICAS, PI_STEPS = 512, 3000
 DYN_BD_N, DYN_RPY_N, DYN_DPD_L, DYN_STEPS, DYN_RPY_STEPS = (
     4096, 1000, 10, 400, 600)
 
@@ -5233,9 +5241,9 @@ def dynamics_path(dev):
 # ---------------------------------------------------------------------------
 
 # Example 23 (--full widths): walkers, metadynamics steps, the plain
-# control's (the example's default depth, 24 000 and 6000; --full runs
-# 60 000 and 15 000).
-MT_WALKERS, MT_STEPS, MT_CONTROL = 64, 24_000, 6_000
+# control's (the example's default depth is 24 000 and 6000, --full runs
+# 60 000 and 15 000; cut to pay for slice 14a, PERF.md section 4).
+MT_WALKERS, MT_STEPS, MT_CONTROL = 64, 16_000, 4_000
 # tests/test_opes.py and tests/test_abf.py: steps of each run.
 OP_STEPS, AB_STEPS = 12_000, 40_000
 # OPES's largest profile error: tests/test_opes.py asserts 1.2 kT at its
@@ -6589,6 +6597,367 @@ def cg_path(dev):
 
 
 # ---------------------------------------------------------------------------
+# Slice 14a: score diffusion (example 28) on kernel 2, the PaiNN potential
+# on md's shared replayed runner, and committee uncertainty
+# ---------------------------------------------------------------------------
+
+# Example 28 at its default depths (--full: 65 536 points, 1000 epochs at
+# batch 4096 with EMA 0.999, 20 000 evaluation points, 96 ODE and 40 MH
+# steps): training points, epochs, batch, EMA decay; evaluation points,
+# RK4 / SDE steps, MH steps.
+DF_TRAIN, DF_EPOCHS, DF_BATCH, DF_EMA = 16_384, 500, 2048, 0.998
+DF_EVAL, DF_ODE, DF_MH = 4000, 48, 12
+DF_CENTERS = ((-2.5, -1.0), (0.0, 2.0), (2.5, -1.0))
+# Kernel 2's rows on the path: the DSM batch, the SDE's chains, the
+# divergence's two stacked copies of the MH chains and of the 41 x 41 grid.
+DF_ROWS = (DF_BATCH, DF_EVAL, 2 * DF_EVAL, 2 * 41 * 41)
+# The committee: members, padding atoms of the masked pass, and the frames
+# held against a CPU copy (each frame's statistics are its own).
+UQ_K, UQ_PAD, UQ_CPU_FRAMES = 3, 4, 32
+# PaiNN's replay against eager and its profiled replays: steps, a chunk.
+PN_CHECK, PN_WINDOW, PN_CHUNK = 100, 100, 50
+
+
+def ex28_target(dev):
+    """Example 28's unequal 3-mode 2-D Gaussian mixture (0.5 / 0.3 /
+    0.2)."""
+    locs = torch.tensor(DF_CENTERS, device=dev)
+    scales = torch.tensor([[0.45, 0.7], [0.6, 0.35], [0.5, 0.5]],
+                          device=dev)
+    logits = torch.log(torch.tensor([0.5, 0.3, 0.2], device=dev))
+    return dist.MixtureSameFamily(
+        logits, dist.Independent(dist.Normal(locs, scales), 1))
+
+
+def mode_weights(x):
+    """Each mode's share of the samples, a sample to its nearest centre."""
+    centers = torch.tensor(DF_CENTERS, device=x.device)
+    idx = ((x[:, None, :] - centers) ** 2).sum(-1).argmin(-1)
+    return np.array([float((idx == k).float().mean()) for k in range(3)])
+
+
+def check_diffusion_kernel(model, gen, dev):
+    """Kernel 2 at example 28's noise net (11 -> 128 -> 128 -> 2, gelu in
+    its tanh form, the trained net's weights) at the path's four row
+    counts (``DF_ROWS``), against its plain version (1e-4 + 1e-4|y|); each
+    timed by CUDA events against the plain version, which is the library
+    chain (addmm, gelu, addmm, gelu, addmm), with its bound."""
+    net = model.eps_net.net
+    ks = [l.kernel.detach() for l in net.layers] + [net.head.kernel.detach()]
+    bs = [l.bias.detach() for l in net.layers] + [net.head.bias.detach()]
+    acts = [l.activation for l in net.layers] + [None]
+    dims = [ks[0].shape[0]] + [k.shape[1] for k in ks]
+    shape = "->".join(map(str, dims))
+    for n in DF_ROWS:
+        x = torch.randn(n, dims[0], generator=gen, device=dev)
+        got = dense_stack_cuda(x, ks, bs, acts)
+        want = dense_stack_plain(x, ks, bs, acts)
+        err = compare(f"diffusion noise net {shape} N={n}", got, want, 1e-4,
+                      1e-4)
+        ms = timed(lambda: dense_stack_cuda(x, ks, bs, acts))
+        plain_ms = timed(lambda: dense_stack_plain(x, ks, bs, acts))
+        bound_us, bound_by = stack_bound(n, ks, bs)
+        record("dense_stack", f"diffusion noise net {shape} gelu N={n}",
+               err, ms, plain_ms, regime=stack_regime(n, dims)[0],
+               library_ms=plain_ms, bound_us=bound_us, bound_by=bound_by)
+
+
+def score_diffusion_path(dev):
+    """Example 28 at its default depths: a VP diffusion (hidden (128, 128),
+    gelu: kernel 2) trained by denoising score matching through train.fit
+    (DF_EPOCHS epochs at batch DF_BATCH on DF_TRAIN points of the 3-mode
+    target, lr 2e-3, EMA DF_EMA); DF_EVAL ancestral (SDE) samples of
+    DF_ODE steps with each mode's weight within 0.06; probability-flow
+    densities (DF_ODE RK4 steps, the exact divergence) on a 41 x 41 grid,
+    mean |p_model - p_target| < 6e-3, and the importance-sampled
+    normalization within 0.08 of 1; the diffusion as an MH-corrected
+    independence proposal (DF_EVAL chains, DF_MH steps): acceptance > 0.5
+    and E|x|^2 within 3% of the target's.  Then kernel 2 at the path's row
+    counts."""
+    from vaemolsim_tpu_torch.flows import Diffusion
+    gen = torch.Generator(device=dev).manual_seed(28)
+    target = ex28_target(dev)
+    data = target.sample(gen, (DF_TRAIN,))
+    model = Diffusion.create(gen, 2, hidden_dim=(128, 128), device=dev)
+
+    def loss_fn(m, b, g):
+        return m.loss(g, b)
+
+    n_fit = DF_EPOCHS * (DF_TRAIN // DF_BATCH)
+    sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model, hist = fit(model, loss_fn, data, generator=gen,
+                      num_epochs=DF_EPOCHS, batch_size=DF_BATCH,
+                      learning_rate=2e-3, scan_epochs=True, ema_decay=DF_EMA)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    train_counts = path_counts("score_diffusion_train",
+                               expect=("dense_stack",))
+    # A 3-step profiled window of DSM steps, on a copy of the model.
+    probe = copy.deepcopy(model)
+    step = make_train_step(loss_fn, torch.optim.Adam(probe.parameters(),
+                                                     lr=2e-3))
+    step(probe, data[:DF_BATCH], gen)
+    busy = card_busy(lambda: [step(probe, data[:DF_BATCH], gen)
+                              for _ in range(3)], 3, dev)
+    del probe
+    _build.reset_launches()
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        x_sde = model.sample(gen, (DF_EVAL,), n_steps=DF_ODE, method="sde")
+        w = mode_weights(x_sde)
+        sde_s = time.perf_counter() - t1
+        g = torch.linspace(-5.0, 5.0, 41, device=dev)
+        grid = torch.stack(torch.meshgrid(g, g, indexing="ij"),
+                           -1).reshape(-1, 2)
+        sync(dev)
+        t2 = time.perf_counter()
+        lp_model = model.log_prob(grid, n_steps=DF_ODE)
+        derr = float((lp_model.exp() - target.log_prob(grid).exp())
+                     .abs().mean())
+        x_is = target.sample(gen, (DF_EVAL,))
+        lw = model.log_prob(x_is, n_steps=DF_ODE) - target.log_prob(x_is)
+        z = float(lw.exp().mean())
+        lp_s = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        x, lq = model.sample_and_log_prob(gen, (DF_EVAL,), n_steps=DF_ODE)
+        lpi = target.log_prob(x)
+        acc = torch.zeros((), device=dev)
+        for _ in range(DF_MH):
+            y, lq_y = model.sample_and_log_prob(gen, (DF_EVAL,),
+                                                n_steps=DF_ODE)
+            lpi_y = target.log_prob(y)
+            log_r = (lpi_y - lpi) + (lq - lq_y)
+            u = torch.log(torch.rand(DF_EVAL, generator=gen, device=dev)
+                          .clamp_min(1e-38))
+            take = u < log_r
+            x = torch.where(take[:, None], y, x)
+            lpi = torch.where(take, lpi_y, lpi)
+            lq = torch.where(take, lq_y, lq)
+            acc = acc + take.float().mean()
+        acc = float(acc) / DF_MH
+        mh_s = time.perf_counter() - t3
+        m2_mh = float((x ** 2).sum(-1).mean())
+        m2_true = float((target.sample(gen, (200_000,)) ** 2).sum(-1).mean())
+    counts = path_counts("score_diffusion_sample", expect=("dense_stack",))
+    wall = time.perf_counter() - t0
+    dsm_ms = 1e3 * fit_s / n_fit
+    n_lp = grid.shape[0] + DF_EVAL
+    print(f"example 28: DSM loss {hist['loss'][0]:.3f} -> "
+          f"{hist['loss'][-1]:.3f} ({dsm_ms:.3f} ms a DSM step); SDE mode "
+          f"weights {np.round(w, 3)} ({DF_EVAL / sde_s:.1f} samples/s); "
+          f"grid density error {derr:.5f}, normalization {z:.4f} "
+          f"({n_lp / lp_s:.1f} log-prob points/s); MH acceptance "
+          f"{acc:.3f}, E|x|^2 {m2_mh:.4f} against {m2_true:.4f} "
+          f"({1e3 * mh_s / (DF_MH + 1):.1f} ms a proposal of {DF_EVAL} "
+          f"chains)", flush=True)
+    fail_unless(bool(np.all(np.abs(w - np.array([0.5, 0.3, 0.2])) < 0.06)),
+                f"example 28: SDE mode weights {w}")
+    fail_unless(derr < 6e-3, f"example 28: grid density error {derr}")
+    fail_unless(abs(z - 1.0) < 0.08, f"example 28: normalization {z}")
+    fail_unless(acc > 0.5, f"example 28: MH acceptance {acc}")
+    fail_unless(abs(m2_mh - m2_true) / m2_true < 0.03,
+                f"example 28: E|x|^2 {m2_mh} against {m2_true}")
+    if dev.type == "cuda":
+        with torch.no_grad():
+            check_diffusion_kernel(model, gen, dev)
+    row = sampling_row(
+        "score_diffusion_ex28", wall, DF_EVAL / sde_s, "SDE samples/s",
+        counts, busy, ms_per_dsm_step=dsm_ms, fit_seconds=fit_s,
+        log_prob_points_per_s=n_lp / lp_s, mh_proposal_ms=1e3 * mh_s
+        / (DF_MH + 1), sde_seconds=sde_s, log_prob_seconds=lp_s,
+        mh_seconds=mh_s, mode_weights=w.tolist(), density_error=derr,
+        normalization=z, acceptance=acc, m2=[m2_mh, m2_true],
+        dsm_loss=[hist["loss"][0], hist["loss"][-1]])
+    row["train_launches"] = train_counts
+    return row
+
+
+def mlp_start(gen, L, dev):
+    """bench.py:736's start: MLP_REPLICAS copies of a cubic lattice of
+    MLP_ATOMS sites in a box of edge L, jittered by 0.05, and unit normal
+    velocities."""
+    n = MLP_ATOMS
+    m = int(math.ceil(n ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:n] * (L / m)
+    x0 = (torch.tensor(grid, dtype=torch.float32, device=dev)[None]
+          + 0.05 * torch.randn(MLP_REPLICAS, n, 3, generator=gen,
+                               device=dev))
+    return x0, torch.randn(x0.shape, generator=gen, device=dev)
+
+
+def painn_path(dev):
+    """A PaiNNPotential at bench.py:736's configuration (the SchNet MD of
+    ml_potential_md_path: features 64, 3 blocks, 32 RBFs, cutoff 2.5,
+    MLP_REPLICAS x MLP_ATOMS atoms at density MLP_RHO, periodic): MLP_STEPS
+    BAOAB steps of dt 0.002 after as many to equilibrate, replayed through
+    md._BAOAB (a step captured: PaiNN launches no port kernel), held to the
+    eager loop within 1e-6 over PN_CHECK steps; energies finite;
+    ``energy_force_loss`` and its gradients against a CPU copy on 32
+    replicas; the forces on a non-periodic cluster rotating with the frame;
+    the box gradient of ``as_potential_for_box`` against the CPU copy.
+    Then a committee of UQ_K PaiNNs from their own seeds, through
+    stack_models: ``ensemble_energy_forces`` and ``max_force_uncertainty``
+    over the MLP_REPLICAS frames, without and with a padding mask, against
+    a CPU copy on the first UQ_CPU_FRAMES frames; and three identical
+    members giving a spread of exactly 0."""
+    from vaemolsim_tpu_torch.nn import (PaiNNPotential,
+                                        ensemble_energy_forces,
+                                        max_force_uncertainty)
+    from vaemolsim_tpu_torch.utils import scan
+    n, L = MLP_ATOMS, float((MLP_ATOMS / MLP_RHO) ** (1.0 / 3.0))
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def painn(g):
+        return PaiNNPotential.create(g, 1, features=MLP_FEATURES,
+                                     num_blocks=MLP_BLOCKS, n_rbf=MLP_RBF,
+                                     cutoff=MLP_CUTOFF, device=dev)
+
+    model = painn(gen)
+    species = torch.ones(n, 1, device=dev)
+    box = torch.full((3,), L, device=dev)
+    pot = model.as_potential(species, box)
+    x0, v0 = mlp_start(gen, L, dev)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    dyn = md._BAOAB(pot, dt=MLP_DT, kt=1.0, friction=1.0, masses=1.0)
+    _build.reset_launches()
+    st, _ = dyn.scan(dyn.start(x0, v0), MLP_STEPS, gen)
+    sync(dev)
+    t0 = time.perf_counter()
+    out, _ = dyn.scan(st, MLP_STEPS, gen)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = path_counts("painn_md")
+    with torch.no_grad():
+        e = pot(out.x)
+    fail_unless(bool(torch.isfinite(e).all() and torch.isfinite(out.x).all()),
+                "PaiNN MD: non-finite energies or positions")
+    kt = float((out.v ** 2).mean())
+    rate = MLP_REPLICAS * n * MLP_STEPS / wall
+
+    def check_run():
+        return dyn.run(st.x, st.v, PN_CHECK, torch.Generator(
+            device=dev).manual_seed(15), True, PN_CHUNK)
+
+    got = scan._leaves(check_run())
+    with scan.eager():
+        want = scan._leaves(check_run())
+    diff = max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want))
+    print(f"PaiNN MD: replay against the eager loop over {PN_CHECK} steps, "
+          f"largest difference {diff:.3e}", flush=True)
+    fail_unless(diff <= 1e-6, f"PaiNN MD: replay differs from eager {diff}")
+    row = replay_row(
+        "painn_md", wall, MLP_STEPS, rate, "replica-atom-steps/s", counts,
+        lambda: dyn.run(st.x, st.v, 20, gen, False, 10), 20,
+        lambda: dyn.run(st.x, st.v, PN_WINDOW, gen, False, PN_CHUNK),
+        PN_WINDOW - PN_CHUNK, dev, skip=1, kT=kt, replay_max_diff=diff)
+
+    for p in model.parameters():
+        p.requires_grad_(True)
+    xs = out.x[:32].detach()
+    targets = (e[:32].detach() + 0.1, 0.1 * torch.randn(
+        xs.shape, generator=gen, device=dev))
+    check_grads("painn energy_force_loss", model, lambda mod, d: (
+        energy_force_loss(mod, xs.to(d), species.to(d), targets[0].to(d),
+                          targets[1].to(d), box=box.to(d), w_energy=0.1)),
+        dev)
+    cpu_model = copy.deepcopy(model).to(cpu)
+
+    def forces(mod, c, *args):
+        c = c.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(mod(c, *args).sum(), c)
+        return -g
+
+    rot = torch.tensor(np.linalg.qr(np.random.default_rng(14).normal(
+        size=(3, 3)))[0], dtype=torch.float32, device=dev)
+    cluster = out.x[:8].detach()
+    f = forces(model, cluster, species)
+    scale = float(f.abs().max())
+    rot_err = compare("painn forces rotate with the frame",
+                      forces(model, cluster @ rot, species), f @ rot,
+                      1e-4 * scale, 1e-4)
+    bx = box.clone().requires_grad_(True)
+    (g_box,) = torch.autograd.grad(
+        model.as_potential_for_box(species)(bx)(xs).sum(), bx)
+    bx_cpu = box.cpu().requires_grad_(True)
+    (g_cpu,) = torch.autograd.grad(
+        cpu_model.as_potential_for_box(species.cpu())(bx_cpu)(
+            xs.cpu()).sum(), bx_cpu)
+    box_err = compare("painn box gradient", g_box.cpu(), g_cpu,
+                      1e-4 * float(g_cpu.abs().max()), 1e-4)
+
+    members = [painn(torch.Generator(device=dev).manual_seed(100 + i))
+               for i in range(UQ_K)]
+    stack = stack_models(members)
+    frames = out.x.detach()
+    mask = torch.arange(n, device=dev) < n - UQ_PAD
+    sync(dev)
+    t1 = time.perf_counter()
+    masks = {"all": None, "masked": mask}
+
+    def committee(st, x, d, m):
+        """Both statistics of the committee st on frames x, on device d."""
+        args = (species.to(d), box.to(d), None if m is None else m.to(d))
+        with torch.no_grad():
+            return (*ensemble_energy_forces(st, x, *args),
+                    max_force_uncertainty(st, x, *args))
+
+    sync(dev)
+    t1 = time.perf_counter()
+    preds = {k: committee(stack, frames, dev, m) for k, m in masks.items()}
+    sync(dev)
+    uq_s = time.perf_counter() - t1
+    cpu_stack = copy.deepcopy(stack).to(cpu)
+    uq_err = 0.0
+    for k, m in masks.items():
+        fail_unless(all(bool(torch.isfinite(v).all()) for v in preds[k]),
+                    f"committee {k}: non-finite statistics")
+        want = committee(cpu_stack, frames[:UQ_CPU_FRAMES].cpu(), cpu, m)
+        for name, a, b in zip(("energy", "forces", "energy_std",
+                               "force_std", "max_force_uncertainty"),
+                              preds[k], want):
+            uq_err = max(uq_err, compare(
+                f"committee {name} {k}", a[:UQ_CPU_FRAMES].cpu(), b,
+                1e-4 * float(b.abs().max()), 1e-4))
+    fail_unless(float(preds["masked"][1][:, n - UQ_PAD:].abs().max()) == 0.0,
+                "committee: padding atoms carry a force")
+    same = stack_models([members[0]] * UQ_K)
+    with torch.no_grad():
+        zero = ensemble_energy_forces(same, frames, species, box)
+        zero_mu = max_force_uncertainty(same, frames, species, box, mask)
+    spread = max(float(zero.energy_std.abs().max()),
+                 float(zero.force_std.abs().max()),
+                 float(zero_mu.abs().max()))
+    fail_unless(spread == 0.0, f"committee: identical members spread "
+                f"{spread}")
+    unc = preds["all"]
+    print(f"PaiNN: {rate:.1f} replica-atom-steps/s; rotated forces max err "
+          f"{rot_err:.3e}, box gradient {box_err:.3e}; committee of {UQ_K} "
+          f"over {frames.shape[0]} frames in {uq_s:.3f} s (both masks), "
+          f"mean force std {float(unc[3].mean()):.4f}, mean max force "
+          f"uncertainty {float(unc[4].mean()):.4f}, against the CPU "
+          f"copy {uq_err:.3e}; identical members spread {spread}",
+          flush=True)
+    # The replayed loop's own pace: its busy time over its busy share (the
+    # run's wall above includes the capture and its eager warm-up).
+    if row["device_busy_ms"] is not None:
+        pace = row["device_busy_ms"] / (1.0 - row["device_idle_share"])
+        row["ms_per_step_replay_window"] = pace
+        print(f"PaiNN: {pace:.4f} ms a step in the replayed window "
+              f"({1e3 * MLP_REPLICAS * n / pace:.1f} replica-atom-steps/s)",
+              flush=True)
+    row.update(rotation_err=rot_err, box_grad_err=box_err,
+               committee_seconds=uq_s, committee_cpu_err=uq_err,
+               identical_spread=spread)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's main shape
 # ---------------------------------------------------------------------------
 
@@ -6712,6 +7081,7 @@ SLICE13A_PHASES = (scan_replay_path, metadynamics_path, opes_eabf_path,
                    tps_path, committor_path)
 SLICE13B_PHASES = (kinetics_path, weighted_ensemble_path, rare_event_path)
 SLICE13C_PHASES = (difftre_path, cg_path)
+SLICE14A_PHASES = (score_diffusion_path, painn_path)
 
 
 def build_kernels(out):
@@ -6850,6 +7220,8 @@ def main():
     rare = stamped(rare_event_path, dev)
     dtre = stamped(difftre_path, dev)
     fm = stamped(cg_path, dev)
+    ex28 = stamped(score_diffusion_path, dev)
+    pn = stamped(painn_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -6910,7 +7282,10 @@ def main():
                 "weighted_ensemble": ensemble27["launches"],
                 "rare_event": rare["launches"],
                 "difftre": dtre["launches"],
-                "cg_force_matching": fm["launches"]}
+                "cg_force_matching": fm["launches"],
+                "score_diffusion_train": ex28["train_launches"],
+                "score_diffusion_sample": ex28["launches"],
+                "painn_md": pn["launches"]}
     print("kernel launches on the main paths: " + json.dumps(
         {k: sum(v.values()) for k, v in launches.items()}), flush=True)
     bound = bounds(vae, flow)
@@ -6964,9 +7339,11 @@ def main():
     slice13a = sum(seconds[p.__name__] for p in SLICE13A_PHASES)
     slice13b = sum(seconds[p.__name__] for p in SLICE13B_PHASES)
     slice13c = sum(seconds[p.__name__] for p in SLICE13C_PHASES)
+    slice14a = sum(seconds[p.__name__] for p in SLICE14A_PHASES)
     print(f"slice-12 phases {slice12:.1f} s; slice-13a phases "
           f"{slice13a:.1f} s; slice-13b phases {slice13b:.1f} s; slice-13c "
-          f"phases {slice13c:.1f} s; the script "
+          f"phases {slice13c:.1f} s; slice-14a phases {slice14a:.1f} s; "
+          f"the script "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(dict(sorted(
         ((k, round(v, 1)) for k, v in seconds.items()),

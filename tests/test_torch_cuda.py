@@ -2056,3 +2056,132 @@ def test_difftre_round_replays_as_the_eager_loop(dev):
     _assert_same(got[:2], want[:2])
     assert got[2:] == want[2:]
     assert got[4][0] >= 1
+
+
+def _diffusion(dev, seed=0, cond_dim=0):
+    """Example 28's model (11 -> 128 -> 128 -> 2, gelu) with a small random
+    head in place of its zero one, so that the noise net is not constant."""
+    from vaemolsim_tpu_torch.flows import Diffusion
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Diffusion.create(gen, 2, hidden_dim=(128, 128),
+                             cond_dim=cond_dim, device=dev)
+    with torch.no_grad():
+        head = model.eps_net.net.head.kernel
+        head.copy_(0.05 * torch.randn(head.shape, generator=gen, device=dev))
+    return model
+
+
+@pytest.mark.parametrize("n", [2048, 4000, 2 * 4000, 2 * 41 * 41])
+def test_dense_stack_gelu_at_the_diffusion_rows_matches_plain(dev, n):
+    """Kernel 2 at example 28's noise net and the path's row counts (the
+    DSM batch, the SDE's chains, the divergence's two copies of the MH
+    chains and of the 41 x 41 grid): 1e-4 + 1e-4|y| against the plain
+    version, one launch a call."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    net = _diffusion(dev).eps_net.net
+    ks = [l.kernel for l in net.layers] + [net.head.kernel]
+    bs = [l.bias for l in net.layers] + [net.head.bias]
+    acts = ["gelu", "gelu", None]
+    x = torch.randn(n, 11, generator=torch.Generator(device=dev).manual_seed(
+        n), device=dev)
+    with torch.no_grad():
+        before = fused_mlp.KERNEL.launches
+        got = fused_mlp.dense_stack_cuda(x, ks, bs, acts)
+        assert fused_mlp.KERNEL.launches == before + 1
+        want = dense_stack_plain(x, ks, bs, acts)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_diffusion_on_the_card_matches_a_cpu_copy(dev):
+    """The DSM loss and its weight gradients at fixed draws, the SDE
+    sampler on handed-in noise and an 8-step ``sample_and_log_prob`` on
+    the card (kernel 2 launched) against a CPU copy: 1e-4, relative to the
+    largest |value| for the samples and densities."""
+    model = _diffusion(dev, 1)
+    cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x0 = torch.randn(512, 2, generator=gen, device=dev)
+    draws = dict(u=torch.rand(512, generator=gen, device=dev),
+                 strata=torch.randperm(512, generator=gen,
+                                       device=dev).float(),
+                 eps=torch.randn(512, 2, generator=gen, device=dev))
+    before = _build.KERNELS["dense_stack"].launches
+    loss = model.loss(None, x0, **draws)
+    assert _build.KERNELS["dense_stack"].launches > before
+    got = torch.autograd.grad(loss, list(model.parameters()))
+    loss_c = cpu.loss(None, x0.cpu(), **{k: v.cpu() for k, v in
+                                         draws.items()})
+    want = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    torch.testing.assert_close(loss.cpu(), loss_c, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
+    x1 = torch.randn(256, 2, generator=gen, device=dev)
+    noise = torch.randn(16, 256, 2, generator=gen, device=dev)
+    with torch.no_grad():
+        outs = (model.sample(None, n_steps=16, x1=x1, noise=noise),
+                *model.sample_and_log_prob(None, n_steps=8, x1=x1))
+        outs_c = (cpu.sample(None, n_steps=16, x1=x1.cpu(),
+                             noise=noise.cpu()),
+                  *cpu.sample_and_log_prob(None, n_steps=8, x1=x1.cpu()))
+    for a, b in zip(outs, outs_c):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def _painn(dev, seed=0, features=32):
+    from vaemolsim_tpu_torch.nn import PaiNNPotential
+    return PaiNNPotential.create(torch.Generator().manual_seed(seed), 1,
+                                 features=features, num_blocks=2, n_rbf=16,
+                                 cutoff=2.5, device=dev)
+
+
+def test_painn_baoab_replays_as_the_eager_loop(dev):
+    """100 BAOAB steps of 16 replicas of 16 LJ-dense atoms on a PaiNN
+    potential through md's shared runner (two captured chunks of 50): the
+    replay equals the eager loop on the same seed, to 1e-6."""
+    from vaemolsim_tpu_torch import md
+    model = _painn(dev)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    x0, L = _lj16(dev, chains=16)
+    pot = model.as_potential(torch.ones(16, 1, device=dev),
+                             box=torch.full((3,), L, device=dev))
+
+    def run():
+        dyn = md._BAOAB(pot, dt=0.002, kt=1.0, friction=1.0, masses=1.0)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        return dyn.run(x0, torch.zeros_like(x0), 100, gen, True, 50)
+
+    got, want = _replay_and_eager(run)
+    _assert_same(got, want)
+
+
+def test_committee_on_the_card_matches_a_cpu_copy(dev):
+    """A committee of three PaiNNs (stack_models) on 64 frames of 16 atoms
+    in a box, with and without a padding mask: every statistic of
+    ensemble_energy_forces and max_force_uncertainty on the card against a
+    CPU copy, to 1e-4 of the largest |value|; three identical members
+    spread exactly 0."""
+    from vaemolsim_tpu_torch.nn import (ensemble_energy_forces,
+                                        max_force_uncertainty)
+    from vaemolsim_tpu_torch.train import stack_models
+    stack = stack_models([_painn(dev, s, 16) for s in range(3)])
+    cpu = copy.deepcopy(stack).to("cpu")
+    x, L = _lj16(dev, chains=64)
+    sp, box = torch.ones(16, 1), torch.full((3,), L)
+    for mask in (None, torch.arange(16) < 13):
+        args = (sp, box, mask)
+        dargs = tuple(None if a is None else a.to(dev) for a in args)
+        with torch.no_grad():
+            got = (*ensemble_energy_forces(stack, x, *dargs),
+                   max_force_uncertainty(stack, x, *dargs))
+            want = (*ensemble_energy_forces(cpu, x.cpu(), *args),
+                    max_force_uncertainty(cpu, x.cpu(), *args))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+    same = stack_models([stack[0]] * 3)
+    with torch.no_grad():
+        pred = ensemble_energy_forces(same, x, sp.to(dev), box.to(dev))
+    assert float(pred.energy_std.abs().max()) == 0.0
+    assert float(pred.force_std.abs().max()) == 0.0

@@ -44,7 +44,9 @@ ensembles (``we``), Markov state models with TICA (``msm``) and VAMPnets
 (``vamp``), whose long Langevin loops run through ``md``'s shared
 replayed BAOAB runner; and differentiable trajectory reweighting
 (``difftre``) and CG force matching and relative-entropy fitting
-(``cg``) (see ROADMAP.md for what is still to come).
+(``cg``); and score diffusion (``flows.Diffusion``), the PaiNN potential
+and committee uncertainty (``nn``) (see ROADMAP.md for what is still to
+come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401

@@ -17,8 +17,10 @@ FlowModel, the VAE and VAEDualELBO, the seven loss classes, the CG maps,
 DistanceSelection, the attention nets, VectorAttention, AttentionBlock,
 ParticleEmbedding, LocalParticleDescriptors and BackmappingOnly,
 VectorAttentionTwoStage, SchNetInteraction, SchNetEmbedding,
-SchNetPotential, JointBackmapping, VelocityField, FlowMatching and
-FlowMatchingLayer; and
+SchNetPotential, JointBackmapping, VelocityField, FlowMatching,
+FlowMatchingLayer, Diffusion, DiffusionLayer, PaiNNBlock and
+PaiNNPotential (a committee stacked by the JAX ``stack_models`` through
+:func:`from_jax_stack`); and
 the molecular MD state: a ``CellNeighborList`` (either JAX build,
 evaluated by the port's cell-list energy) and an ``MDState``; an ``MLP``;
 and the biasing and path-sampling states ``BiasGrid``, ``OPESBias``,
@@ -34,6 +36,7 @@ given.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -41,7 +44,7 @@ import torch
 
 from vaemolsim_tpu_torch.config import default_device
 
-__all__ = ["from_jax"]
+__all__ = ["from_jax", "from_jax_stack"]
 
 
 def _t(a, device) -> torch.Tensor:
@@ -462,6 +465,34 @@ def _schnet_potential(o, device):
         _t(o.e_scale, device), _t(o.e_ref, device), o.n_rbf, o.cutoff)
 
 
+def _diffusion(o, device):
+    from vaemolsim_tpu_torch.flows.diffusion import Diffusion
+    return Diffusion(_velocity_field(o.eps_net, device), o.beta_min,
+                     o.beta_max, o.t_min)
+
+
+def _diffusion_layer(o, device):
+    from vaemolsim_tpu_torch.flows.diffusion import DiffusionLayer
+    return DiffusionLayer(_diffusion(o.model, device), o.cond_dim, o.n_steps)
+
+
+def _painn_block(o, device):
+    from vaemolsim_tpu_torch.nn.painn import PaiNNBlock
+    return PaiNNBlock(_dense(o.phi1, device), _dense(o.phi2, device),
+                      _dense(o.filter_net, device), _t(o.U, device),
+                      _t(o.V, device), _dense(o.upd1, device),
+                      _dense(o.upd2, device))
+
+
+def _painn_potential(o, device):
+    from vaemolsim_tpu_torch.nn.painn import PaiNNPotential
+    return PaiNNPotential(
+        _dense(o.species_net, device),
+        [_painn_block(b, device) for b in o.blocks],
+        _dense(o.out1, device), _dense(o.out2, device),
+        _t(o.e_scale, device), _t(o.e_ref, device), o.n_rbf, o.cutoff)
+
+
 def _joint_backmapping(o, device):
     from vaemolsim_tpu_torch.dists.joint import JointBackmapping
     return JointBackmapping(_local_descriptors(o.cg_embed, device),
@@ -531,6 +562,10 @@ _CONVERTERS: Dict[str, Callable[[Any, Any], Any]] = {
     "SchNetEmbedding": _schnet_embedding,
     "SchNetPotential": _schnet_potential,
     "JointBackmapping": _joint_backmapping,
+    "Diffusion": _diffusion,
+    "DiffusionLayer": _diffusion_layer,
+    "PaiNNBlock": _painn_block,
+    "PaiNNPotential": _painn_potential,
     "CellNeighborList": _cell_neighbor_list,
     "MDState": _md_state,
     "MLP": _mlp,
@@ -560,3 +595,37 @@ def from_jax(obj: Any, device=None) -> Any:
         raise TypeError(f"from_jax: no port of {name} yet; supported: "
                         f"{sorted(_CONVERTERS)}") from None
     return conv(obj, default_device(device))
+
+
+def _map_arrays(fn: Callable[[Any], Any], o: Any) -> Any:
+    """``o`` with ``fn`` applied to every array leaf: through tuples,
+    lists and dataclasses (flax's static ``pytree_node=False`` fields and
+    None kept)."""
+    if o is None:
+        return None
+    if hasattr(o, "shape"):
+        return fn(o)
+    if isinstance(o, (tuple, list)):
+        return type(o)(_map_arrays(fn, v) for v in o)
+    if dataclasses.is_dataclass(o):
+        return dataclasses.replace(o, **{
+            f.name: _map_arrays(fn, getattr(o, f.name))
+            for f in dataclasses.fields(o)
+            if f.init and f.metadata.get("pytree_node", True)})
+    raise TypeError(f"from_jax_stack: cannot unstack a {type(o).__name__}")
+
+
+def from_jax_stack(stack: Any, device=None) -> torch.nn.ModuleList:
+    """The port's committee (``train.stack_models``' ModuleList) of a JAX
+    committee stacked by the JAX package's ``stack_models`` (every leaf
+    with the same leading member axis): each member unstacked and carried
+    across by :func:`from_jax`."""
+    sizes = set()
+    _map_arrays(lambda a: sizes.add(int(a.shape[0])), stack)
+    if len(sizes) != 1:
+        raise TypeError(f"from_jax_stack: leading axes {sorted(sizes)}, "
+                        "not one member count")
+    (k,) = sizes
+    return torch.nn.ModuleList(
+        from_jax(_map_arrays(lambda a: np.asarray(a)[i], stack), device)
+        for i in range(k))

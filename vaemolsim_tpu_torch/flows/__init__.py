@@ -1,5 +1,10 @@
-"""Rational-quadratic-spline flows and flow matching."""
+"""Rational-quadratic-spline flows, flow matching and score diffusion."""
 
+from vaemolsim_tpu_torch.flows.diffusion import (  # noqa: F401
+    Diffusion,
+    DiffusionDist,
+    DiffusionLayer,
+)
 from vaemolsim_tpu_torch.flows.flow_matching import (  # noqa: F401
     FlowMatching,
     FlowMatchingDist,

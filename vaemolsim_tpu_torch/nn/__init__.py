@@ -32,3 +32,12 @@ from vaemolsim_tpu_torch.nn.schnet import (  # noqa: F401
     gaussian_rbf,
     shifted_softplus,
 )
+from vaemolsim_tpu_torch.nn.painn import (  # noqa: F401
+    PaiNNBlock,
+    PaiNNPotential,
+)
+from vaemolsim_tpu_torch.nn.uq import (  # noqa: F401
+    EnsemblePrediction,
+    ensemble_energy_forces,
+    max_force_uncertainty,
+)

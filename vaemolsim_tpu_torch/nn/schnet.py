@@ -258,7 +258,7 @@ class SchNetPotential(nn.Module):
         return lambda box: (lambda x: self(x, species, box, mask))
 
 
-def energy_force_loss(model: SchNetPotential, x: Tensor, species: Tensor,
+def energy_force_loss(model: nn.Module, x: Tensor, species: Tensor,
                       energy: Tensor, forces: Tensor, *,
                       box: Optional[Tensor] = None,
                       mask: Optional[Tensor] = None,
@@ -266,7 +266,10 @@ def energy_force_loss(model: SchNetPotential, x: Tensor, species: Tensor,
                       w_force: float = 1.0) -> Tensor:
     """``(w_e / N) mean_b (E_pred - E)^2 + (w_f / 3N) mean_b |F_pred -
     F|^2`` with ``F_pred = -grad_x E_pred`` (taken with ``create_graph``,
-    so the loss differentiates in the weights through the forces)."""
+    so the loss differentiates in the weights through the forces).
+    ``model`` is any ML potential with the contract ``model(x, species,
+    box, mask) -> energy``: a :class:`SchNetPotential` or a
+    :class:`~vaemolsim_tpu_torch.nn.painn.PaiNNPotential`."""
     if mask is None:
         n_eff = torch.tensor(float(x.shape[-2]), dtype=x.dtype,
                              device=x.device)
