@@ -3,8 +3,9 @@
 sampling-stack paths, the rest of the reference library's surface,
 joint backmapping with its tools, the rest of the molecular stack and
 biased sampling, path sampling, rare events and kinetics, top-down and
-bottom-up potential fitting, and score diffusion, an equivariant potential
-and committee uncertainty on one NVIDIA GPU.
+bottom-up potential fitting, score diffusion, an equivariant potential
+and committee uncertainty, the parallel layer, the input pipeline and
+the debug and profiling utilities on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 
@@ -190,6 +191,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ms a step replayed against eager with the idle share of a window that
    skips the first replay;
 16. runs slice 14a (``SLICE14A_PHASES``): example 28 at its default depths
+   but its epochs
    (a VP score diffusion with a 128 x 128 gelu noise net on kernel 2,
    trained by denoising score matching through ``fit`` with EMA weights;
    ancestral SDE samples, probability-flow densities on a grid and an
@@ -201,7 +203,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    gradient against a CPU copy, rotated forces on a cluster) with a
    committee of three PaiNNs (``ensemble_energy_forces`` and
    ``max_force_uncertainty`` over 256 frames, masked and not, against a CPU
-   copy; identical members spread exactly 0).
+   copy; identical members spread exactly 0);
+17. runs slice 14b (``SLICE14B_PHASES``): the parallel layer in a
+   world-size-1 NCCL group (the card is one; several ranks are held on
+   the CPU by tests/torch_ranks.py's gloo groups): example 08 at its
+   default depths (the flagship trained by ``fit(mesh=)``, then sharded
+   generic and fused MC, the fused run bit for bit against the unsharded
+   one), example 05 over a ("replica", "chain") mesh held to the JAX
+   example's spread over seeds, kernel 4 at a chain offset, kernel 6's
+   four slabs one after another at the molecular stack's shape and the
+   mesh path against the unsharded call, slab-decomposed PME, the
+   collective checkpoint; then the input pipeline (a DCD file through
+   ``epoch_stream``, prefetch copies against compute) and the utilities
+   (``checked`` on a NaN through kernel 2, ``StepTimer`` and
+   ``benchmark_fn`` against CUDA events, a ``trace`` file).
    A line before the last gives every phase's seconds, longest first.
 
 Every path runs with the launch counters zeroed just before it and read
@@ -301,9 +316,13 @@ MOL_SHAPE = "molecular coulomb+exclusion"
 # RealNVP flow workload (bench.py:368), the sampler-statistics block
 # (bench.py:461), molecular HMC (bench.py:521), examples 10 and 40 at
 # --full, REMC and simulated tempering.
-RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 10, 10_000
+# RNVP_EPOCHS: bench.py:368 runs 10; 6 here, a depth cut (PERF.md section 4).
+RNVP_N, RNVP_BATCH, RNVP_EPOCHS, RNVP_SAMPLES = 100_000, 4096, 6, 10_000
 STATS_CHAINS, STATS_STEPS = 10_000, 600
 HMC_CHAINS, HMC_STEPS, HMC_LEAP = 8192, 100, 10
+# Molecular HMC's set-up: minimize_energy steps and tuning rounds (bench.py:521
+# 1000 and 15; 500 and 8 here, a depth cut: PERF.md section 4).
+HMC_MIN_STEPS, HMC_TUNE_ROUNDS = 500, 8
 FE_CHAINS, FE_STEPS, FE_AIS, FE_EPOCHS = 4096, 125, 96, 6
 TFEP_N, TFEP_STEPS = 20_000, 200
 REMC_R, REMC_CHAINS, REMC_STEPS = 4, 1000, 50
@@ -449,6 +468,31 @@ def events(prof):
         out.extend((done, False, own / 1e3) for _, done, own in stack)
     prof._events = out
     return out
+
+
+def copy_overlap(prof):
+    """(µs of host-to-device copies on the card, µs of them during which
+    a kernel ran) in a profile: how much of the copies a side stream hid
+    behind compute."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, copies = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        span = (e.start_ns(), e.end_ns())
+        if e.name().startswith("Memcpy HtoD"):
+            copies.append(span)
+        elif not e.name().startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    busy = []                            # the kernels' union, in order
+    for a, b in sorted(kernels):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    hidden = sum(max(0, min(b, kb) - max(a, ka))
+                 for a, b in copies for ka, kb in busy)
+    return sum(b - a for a, b in copies) / 1e3, hidden / 1e3
 
 
 def device_time(prof, match=""):
@@ -1330,20 +1374,21 @@ def molecular_system():
     g = g * (L / np.array([mxy, mxy, mz]))
     bonds = np.array([[2 * k, 2 * k + 1] for k in range(n // 2)])
     q = np.tile([0.5, -0.5], n // 2)
-    recip = potentials.pme_coulomb(q, box=[L] * 3, r_cutoff=MOL["cutoff"],
-                                   tolerance=1e-4, exclude=bonds,
-                                   include_real_space=False)
-    build, cell_e = potentials.lennard_jones_cell_neighbor(
-        box=[L] * 3, cutoff=MOL["cutoff"], skin=MOL["skin"],
-        capacity=MOL["capacity"], charges=q,
-        coulomb_alpha=recip.ewald_alpha, exclude=bonds)
+    pme_kw = dict(charges=q, box=[L] * 3, r_cutoff=MOL["cutoff"],
+                  tolerance=1e-4, exclude=bonds, include_real_space=False)
+    recip = potentials.pme_coulomb(**pme_kw)
+    cell_kw = dict(box=[L] * 3, cutoff=MOL["cutoff"], skin=MOL["skin"],
+                   capacity=MOL["capacity"], charges=q,
+                   coulomb_alpha=recip.ewald_alpha, exclude=bonds)
+    build, cell_e = potentials.lennard_jones_cell_neighbor(**cell_kw)
     bonded = potentials.harmonic_bonds(bonds, k=200.0, r0=1.0)
 
     def energy(nl, x):
         return cell_e(nl, x) + recip(x) + bonded(x)
 
     return dict(name="molecular", L=L, build=build, energy=energy,
-                cell_energy=cell_e, recip=recip, x0=g, spec=MOL)
+                cell_energy=cell_e, recip=recip, x0=g, spec=MOL,
+                cell_kw=cell_kw, pme_kw=pme_kw)
 
 
 def lj_system():
@@ -1702,8 +1747,8 @@ class RqsRoutes:
         self.tally = {"broadcast": 0, "per_element": 0}
         launch = rqs.KERNEL.launch
 
-        def spy(device, *args):
-            launch(device, *args)
+        def spy(device, *args, **kw):
+            launch(device, *args, **kw)
             self.tally["broadcast" if args[8] == 1 else "per_element"] += 1
 
         rqs.KERNEL.launch = spy
@@ -1745,7 +1790,8 @@ def realnvp_1d_path(dev):
     """bench.py:368 (the reference notebook's flow workload): a 1-D
     RQSSplineRealNVP (4 blocks, 32 bins on [-5, 5], hidden 100) built by
     RealNVPConfig in a FlowModel over a standard normal, trained by fit()
-    at batch 4096 for 10 epochs after a warm-up epoch, then 10k samples:
+    at batch 4096 for RNVP_EPOCHS epochs after a warm-up epoch, then 10k
+    samples:
     each block's conditioner on one row (kernel 2's small-N regime) and
     its spline on one broadcast row (kernel 1)."""
     model = ExperimentConfig(model=FlowModelConfig(FlowedDistConfig(
@@ -1861,8 +1907,8 @@ def statistics_path(vae, dev):
 def molecular_hmc_path(dev):
     """bench.py:521: composite(lennard_jones(), com_restraint(2.0)) at
     beta 2 on HMC_CHAINS LJ7 clusters from 0.7 N(0, 1) starts, relaxed by
-    minimize_energy (1000 steps, lr 0.1), HMC tuned (init 0.05, 15
-    rounds, 10 leapfrog steps), then HMC_STEPS HMC steps.  The dense
+    minimize_energy (HMC_MIN_STEPS steps, lr 0.1), HMC tuned (init 0.05,
+    HMC_TUNE_ROUNDS rounds, 10 leapfrog steps), then HMC_STEPS HMC steps.  The dense
     O(N^2) LJ is plain PyTorch: no kernel runs on this path."""
     pot = potentials.composite(potentials.lennard_jones(device=dev),
                                potentials.com_restraint(2.0))
@@ -1872,12 +1918,12 @@ def molecular_hmc_path(dev):
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
-    x = potentials.minimize_energy(pot, x0, steps=1000, lr=0.1)
+    x = potentials.minimize_energy(pot, x0, steps=HMC_MIN_STEPS, lr=0.1)
     with torch.no_grad():
         e_start, e_min = pot(x0), pot(x)
         st = MCMCState.create(x, lp(x), gen)
-    eps, st = tune_scale(lp, st, kind="hmc", init_scale=0.05, rounds=15,
-                         n_leapfrog=HMC_LEAP)
+    eps, st = tune_scale(lp, st, kind="hmc", init_scale=0.05,
+                         rounds=HMC_TUNE_ROUNDS, n_leapfrog=HMC_LEAP)
     step = make_hmc_step(lp, step_size=eps, n_leapfrog=HMC_LEAP)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -3584,8 +3630,10 @@ def repairs_path(dev):
 MS_LAT, MS_STEPS, MS_TOL = 12, 1000, 1e-5
 EX_MOL, EX_EQUIL, EX_PROD, EX_CHUNK = 512, 250, 500, 250
 RW_MOL, RW_STEPS, RW_REPLICAS, RW_TF32_STEPS = 24, 4000, 8, 200
-BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 5, 50
-BG_PROPOSALS, BG_TUNE_ROUNDS = 60, 10
+# BG_MLE_EPOCHS 3 and BG_TUNE_ROUNDS 6: depth cuts of 5 and 10 (PERF.md
+# section 4).
+BG_CHAINS, BG_HMC, BG_MLE_EPOCHS, BG_RKL_STEPS = 2048, 200, 3, 50
+BG_PROPOSALS, BG_TUNE_ROUNDS = 60, 6
 NPT_CHAINS, NPT_ATOMS, NPT_STEPS = 256, 32, 200
 NPT_PRESSURES = (0.01, 0.02, 0.05, 0.1, 0.2)
 GC_REP, GC_SWEEPS, GB_CHAINS, GB_SWEEPS = 256, 500, 96, 2240
@@ -6601,11 +6649,12 @@ def cg_path(dev):
 # on md's shared replayed runner, and committee uncertainty
 # ---------------------------------------------------------------------------
 
-# Example 28 at its default depths (--full: 65 536 points, 1000 epochs at
-# batch 4096 with EMA 0.999, 20 000 evaluation points, 96 ODE and 40 MH
-# steps): training points, epochs, batch, EMA decay; evaluation points,
-# RK4 / SDE steps, MH steps.
-DF_TRAIN, DF_EPOCHS, DF_BATCH, DF_EMA = 16_384, 500, 2048, 0.998
+# Example 28 at its default depths but its epochs (--full: 65 536 points,
+# 1000 epochs at batch 4096 with EMA 0.999, 20 000 evaluation points, 96
+# ODE and 40 MH steps): training points, epochs (350, a depth cut of the
+# example's default 500: PERF.md section 4), batch, EMA decay; evaluation
+# points, RK4 / SDE steps, MH steps.
+DF_TRAIN, DF_EPOCHS, DF_BATCH, DF_EMA = 16_384, 350, 2048, 0.998
 DF_EVAL, DF_ODE, DF_MH = 4000, 48, 12
 DF_CENTERS = ((-2.5, -1.0), (0.0, 2.0), (2.5, -1.0))
 # Kernel 2's rows on the path: the DSM batch, the SDE's chains, the
@@ -6663,7 +6712,7 @@ def check_diffusion_kernel(model, gen, dev):
 
 
 def score_diffusion_path(dev):
-    """Example 28 at its default depths: a VP diffusion (hidden (128, 128),
+    """Example 28 at its default depths but DF_EPOCHS: a VP diffusion (hidden (128, 128),
     gelu: kernel 2) trained by denoising score matching through train.fit
     (DF_EPOCHS epochs at batch DF_BATCH on DF_TRAIN points of the 3-mode
     target, lr 2e-3, EMA DF_EMA); DF_EVAL ancestral (SDE) samples of
@@ -7073,6 +7122,602 @@ def bounds(vae, flow):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 14b: the parallel layer (examples 08 and 05, kernel 6's slabs,
+# slab-decomposed PME, the collective checkpoint), the input pipeline and
+# the debug and profiling utilities
+# ---------------------------------------------------------------------------
+
+EX08_SAMPLES, EX08_EPOCHS, EX08_CHAINS, EX08_STEPS = 4096, 3, 1024, 50
+EX08_COV_HALF = ((1.0, 0.0), (0.8, 0.6))
+# |sampled - target covariance|, largest entry: 0.109 (generic) and 0.111
+# (fused) in a CPU rehearsal of the phase; twice that, with room for the
+# card's other random streams (sampling error alone is ~0.044).
+EX08_COV_TOL = 0.25
+EX05_R, EX05_CHAINS, EX05_STEPS = 6, 256, 150
+# The cold replica's right-mode fraction: the JAX example's least and
+# largest over seeds 0-11 (0.4453, 0.5352; tools/remc_mode_spread.py on
+# the CPU) widened by three binomial standard errors of 256 chains (0.094).
+EX05_FRAC_BAND = (0.345, 0.635)
+SLAB_COUNT = 4
+PIPE_FRAMES, PIPE_ATOMS, PIPE_BATCH, PIPE_HIDDEN = 65_536, 22, 8192, 1024
+# prefetch_to_device's copies over PIPE_OVERLAP_PASSES passes through the
+# batches: the least share of their time on the card that must run beside
+# a kernel (at most 1 - 3 / 32 with the default two batches ahead).
+PIPE_OVERLAP_PASSES, PIPE_MIN_OVERLAP = 4, 0.5
+
+
+def free_port():
+    """A TCP port on localhost that no process holds now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ex08_target(dev):
+    """Example 08's log target: the data's Gaussian, -|L^-1 x|^2 / 2."""
+    inv = torch.linalg.inv(torch.tensor(EX08_COV_HALF, device=dev))
+
+    def log_target(x):
+        y = x @ inv.T
+        return -0.5 * (y * y).sum(-1)
+
+    return log_target
+
+
+def example_08(dev, mesh, chain_mesh):
+    """Example 08 at its default depths: the flagship VAE trained by its
+    ELBO with fit(mesh=) on EX08_SAMPLES correlated 2-D points for
+    EX08_EPOCHS epochs (batch EX08_SAMPLES / 8, scan_epochs as the
+    example), then EX08_CHAINS chains sharded over the chain mesh for
+    EX08_STEPS steps of the generic step (kernels 1 and 2) and of the
+    fused step (kernel 4), the fused run held bit for bit to the same
+    run unsharded; the sampled covariance held to the target's, the
+    acceptance in (0, 1)."""
+    from vaemolsim_tpu_torch import parallel
+
+    rng = np.random.default_rng(0)
+    cov_half = np.asarray(EX08_COV_HALF)
+    data = torch.tensor(rng.normal(size=(EX08_SAMPLES, 2)) @ cov_half.T,
+                        dtype=torch.float32, device=dev)
+    vae = flagship_experiment_config().build(dev)
+    world = parallel.process_count()
+    batch = max(EX08_SAMPLES // 8, world)
+    sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    vae, hist = fit(vae, lambda m, b, g: m.elbo_loss(b, g), data,
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    num_epochs=EX08_EPOCHS, batch_size=batch,
+                    scan_epochs=True, mesh=mesh)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    train_counts = path_counts("example_08_train",
+                               expect=("rqs", "dense_stack"))
+    steps = EX08_EPOCHS * (EX08_SAMPLES // batch)
+    fail_unless(all(math.isfinite(v) for v in hist["loss"]),
+                f"example 08: losses {hist['loss']}")
+
+    log_t = ex08_target(dev)
+    parallel.replicate(vae, chain_mesh)
+    x0 = torch.randn(EX08_CHAINS, 2, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    want = torch.tensor(cov_half @ cov_half.T, device=dev)
+
+    def run(step, sharded):
+        st = MCMCState.create(x0, log_t(x0),
+                              torch.Generator(device=dev).manual_seed(3))
+        if sharded:
+            st = parallel.shard_chain_state(st, chain_mesh)
+        sync(dev)
+        t0 = time.perf_counter()
+        st, _ = run_mcmc(step, st, EX08_STEPS)
+        sync(dev)
+        return st, time.perf_counter() - t0
+
+    rows = {}
+    for name, step, expect in (
+            ("generic", make_mcmc_step(*vae_proposal_fns(vae), log_t),
+             ("rqs", "dense_stack")),
+            ("fused", make_fused_vae_step(vae, log_t), ("vae_proposal",))):
+        _build.reset_launches()
+        st, secs = run(step, True)
+        counts = path_counts(f"example_08_{name}", expect=expect)
+        glob = parallel.local_to_global(
+            st.configs, parallel.chain_sharding(chain_mesh, 2)).full_tensor()
+        cov = torch.cov(glob.T.double())
+        err = float((cov - want).abs().max())
+        acc = float(st.acceptance_rate)
+        fail_unless(0.0 < acc < 1.0, f"example 08 {name}: acceptance {acc}")
+        fail_unless(int(st.num_trials) == EX08_CHAINS * EX08_STEPS,
+                    f"example 08 {name}: {int(st.num_trials)} trials")
+        fail_unless(err < EX08_COV_TOL,
+                    f"example 08 {name}: covariance {cov.tolist()} against "
+                    f"{want.tolist()}")
+        rows[name] = dict(seconds=secs, acceptance=acc, cov_err=err,
+                          proposals_per_s=EX08_CHAINS * EX08_STEPS / secs,
+                          launches=counts)
+        if name == "fused":
+            one, _ = run(step, False)
+            fail_unless(torch.equal(one.configs, st.configs),
+                        "example 08: the sharded fused run differs from "
+                        "the one-device run")
+    print(f"example 08: {steps} fit(mesh=) steps in {train_s:.2f} s "
+          f"({steps / train_s:.3f} steps/s), loss {hist['loss'][0]:.4f} -> "
+          f"{hist['loss'][-1]:.4f}; "
+          + "; ".join(f"{k} {v['proposals_per_s']:.1f} proposals/s, "
+                      f"acceptance {v['acceptance']:.4f}, covariance error "
+                      f"{v['cov_err']:.4f}" for k, v in rows.items()),
+          flush=True)
+    return dict(train_seconds=train_s, train_steps=steps,
+                train_steps_per_s=steps / train_s, loss=hist["loss"],
+                train_launches=train_counts, mc=rows)
+
+
+def example_05(dev, seed=0, check=True, mesh=None):
+    """Example 05 at its default depths: EX05_R tempered replicas (beta
+    down to 0.05) x EX05_CHAINS chains x EX05_STEPS steps on a rough
+    two-mode 1-D target (modes at -6 and 6, width 0.4), every chain
+    started in the left mode, an independence proposal (encoder = prior
+    = N(0, 1), decoder N(0, 3^2)), an exchange every 2 steps; sharded
+    over ``mesh`` (a ("replica", "chain") mesh) when given.  The cold
+    replica's right-mode fraction is held to EX05_FRAC_BAND."""
+    from vaemolsim_tpu_torch import parallel
+
+    z2 = torch.zeros(2, device=dev)
+    target = dist.MixtureSameFamily(z2, dist.Normal(
+        torch.tensor([-6.0, 6.0], device=dev), 0.4 + z2))
+
+    def log_target(x):
+        return target.log_prob(x[..., 0])
+
+    def enc(x):
+        z = torch.zeros(x.shape[:-1] + (1,), device=x.device)
+        return dist.Independent(dist.Normal(z, torch.ones_like(z)), 1)
+
+    def dec(z):
+        loc = torch.zeros(z.shape[:-1] + (1,), device=z.device)
+        return dist.Independent(dist.Normal(loc, 3.0 + loc), 1)
+
+    step = make_remc_step(enc, enc, dec, log_target, exchange_every=2,
+                          mesh=mesh)
+    state = REMCState.create(
+        torch.full((EX05_R, EX05_CHAINS, 1), -6.0, device=dev), log_target,
+        temperature_ladder(EX05_R, beta_min=0.05, device=dev),
+        torch.Generator(device=dev).manual_seed(seed))
+    if mesh is not None:
+        state = parallel.shard_chain_state(state, mesh)
+    sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    final = run_remc(step, state, EX05_STEPS)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    # This rank's cold-replica chains (the whole replica on one rank).
+    frac = float((final.configs[0, :, 0] > 0).double().mean())
+    row = dict(seconds=secs, right_mode_fraction=frac,
+               acceptance=float(final.acceptance_rate),
+               swap_acceptance=float(final.swap_acceptance_rate),
+               proposals_per_s=EX05_R * EX05_CHAINS * EX05_STEPS / secs,
+               launches=counts)
+    if check:
+        lo, hi = EX05_FRAC_BAND
+        fail_unless(lo <= frac <= hi,
+                    f"example 05: right-mode fraction {frac} outside "
+                    f"{EX05_FRAC_BAND}")
+        fail_unless(0.0 < row["swap_acceptance"] < 1.0
+                    and 0.0 < row["acceptance"] < 1.0,
+                    f"example 05: acceptance {row}")
+        fail_unless(bool(torch.isfinite(final.energies).all()),
+                    "example 05: non-finite energies")
+        print(f"example 05: {EX05_R} x {EX05_CHAINS} x {EX05_STEPS} in "
+              f"{secs:.2f} s ({row['proposals_per_s']:.1f} tempered "
+              f"proposals/s), acceptance {row['acceptance']:.3f}, swap "
+              f"acceptance {row['swap_acceptance']:.3f}, cold right-mode "
+              f"fraction {frac:.4f}", flush=True)
+    return row
+
+
+def check_proposal_offset(vae, dev):
+    """Kernel 4 with a chain offset: the second half of a launch over
+    EX08_CHAINS chains, launched alone from chain EX08_CHAINS / 2, is the
+    whole launch's second half bit for bit (what a rank of a sharded run
+    computes); the plain version at that offset agrees at check_proposal's
+    tolerances."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    x = torch.randn(EX08_CHAINS, 2, generator=gen, device=dev)
+    seed = torch.tensor([12345, -6789], dtype=torch.int32, device=dev)
+    rest = _proposal_args(vae)
+    half = EX08_CHAINS // 2
+    whole = mf.vae_proposal_cuda(x, seed, *rest)
+    part = mf.vae_proposal_cuda(x[half:].contiguous(), seed, *rest,
+                                chain0=half)
+    plain = mf.vae_proposal_plain(x[half:].contiguous(), seed, *rest,
+                                  chain0=half)
+    err = 0.0
+    for name, w, g, p in zip(("x2", "fwd", "rev", "z1", "z2"), whole, part,
+                             plain):
+        fail_unless(torch.equal(w[half:], g),
+                    f"kernel 4 at a chain offset: {name} differs from the "
+                    "whole launch's rows")
+        dens = name in ("fwd", "rev")
+        err = max(err, compare(f"proposal chain0={half} {name}", g, p,
+                               1e-3 if dens else 1e-4, 1e-4, 1e-4))
+    record("vae_proposal", f"chain0={half} philox N={half}", err)
+
+
+def check_slabs(mol, x, mesh):
+    """Kernel 6's sharded cell grid at the molecular stack's shape (MD_N
+    atoms, C = 72, charges and exclusions): the SLAB_COUNT slabs
+    evaluated one after another in this process (``energy.by_slabs``:
+    SLAB_COUNT times the launches of one call), their summed energy and
+    assembled gradient held to the unsharded call (energy 1e-6 relative,
+    gradient 1e-6 of its largest component: the same cell rows, summed
+    in another order), and the mesh path over ``mesh`` ("cells")
+    likewise.  The launch counts of the path are read from zero around
+    the slab and mesh evaluations only.  Then the kernel on the first
+    slab's rows against its plain version (check_cell_lj_case's
+    tolerances), each timed, beside the device ms of the slabs in turn,
+    the mesh path and the unsharded call."""
+    energy = mol["cell_energy"]
+    _, mesh_energy = potentials.lennard_jones_cell_neighbor(
+        mesh=mesh, mesh_axis="cells", **mol["cell_kw"])
+    nl = mol["build"](x)
+
+    def value_and_grad(fn):
+        xg = x.detach().clone().requires_grad_(True)
+        before = cell_lj.KERNEL.launches
+        e = fn(nl, xg)
+        (g,) = torch.autograd.grad(e, xg)
+        return e.detach(), g, cell_lj.KERNEL.launches - before
+
+    e, g, per_call = value_and_grad(energy)
+    scale = float(g.abs().max())
+    _build.reset_launches()
+    before = cell_lj.KERNEL.launches
+    slabs = energy.by_slabs(nl, x, SLAB_COUNT)
+    slabs += (cell_lj.KERNEL.launches - before,)
+    mesh_run = value_and_grad(mesh_energy)
+    counts = path_counts("sharded_cell_grid", expect=("cell_lj",))
+    out = {}
+    for name, (e_s, g_s, launched), want in (
+            ("slabs", slabs, SLAB_COUNT * per_call),
+            ("mesh", mesh_run, per_call)):
+        fail_unless(launched == want,
+                    f"kernel 6 {name}: {launched} launches, want {want}")
+        e_err = abs(float(e_s) - float(e)) / abs(float(e))
+        g_err = float((g_s - g).abs().max())
+        fail_unless(e_err < 1e-6 and g_err < 1e-6 * scale,
+                    f"kernel 6 {name}: energy {float(e_s)} against "
+                    f"{float(e)}, gradient error {g_err} of {scale}")
+        out[name] = dict(energy_rel_err=e_err, grad_err=g_err,
+                         launches=launched)
+
+    args, kw = energy.cell_pair_inputs(nl, x)
+    n_cells = args[0].shape[0]
+    rows = -(-n_cells // SLAB_COUNT)
+
+    def first_slab(a):
+        if a is None:
+            return None
+        if isinstance(a, (tuple, list)):
+            return type(a)(first_slab(t) for t in a)
+        return a[:rows].contiguous()
+
+    slab_args = first_slab(args)
+    kw = dict(kw, grid_cells=n_cells)
+    es, gs = cell_lj.cell_pair_energy_force_cuda(*slab_args, **kw)
+    ew, gw = cell_lj.cell_pair_energy_force_plain(*slab_args, **kw)
+    err = max(compare("cell_lj slab e", es, ew,
+                      1e-5 * float(ew.abs().max()), 1e-5),
+              compare("cell_lj slab grad", gs, gw,
+                      1e-4 * float(gw.abs().max()) + 1e-5, 0.0))
+    with torch.no_grad():
+        ms_slab = timed(lambda: cell_lj.cell_pair_energy_force_cuda(
+            *slab_args, **kw))
+        plain_slab = timed(lambda: cell_lj.cell_pair_energy_force_plain(
+            *slab_args, **kw), reps=5)
+        ms_one = timed(lambda: energy(nl, x))
+        ms_slabs = timed(lambda: energy.by_slabs(nl, x, SLAB_COUNT))
+        ms_mesh = timed(lambda: mesh_energy(nl, x))
+    record("cell_lj", f"slab 1 of {SLAB_COUNT} ({rows} of {n_cells} "
+           f"cells) of {MOL_SHAPE}", err, ms_slab, plain_slab,
+           slabs_ms=ms_slabs, mesh_ms=ms_mesh, unsharded_ms=ms_one,
+           launches_per_call=per_call)
+    print(f"kernel 6 slabs: {SLAB_COUNT} slabs {ms_slabs:.4f} ms, the "
+          f"mesh path {ms_mesh:.4f} ms, against {ms_one:.4f} ms unsharded "
+          f"({per_call} launch(es) a call); energy errors "
+          f"{out['slabs']['energy_rel_err']:.2e} and "
+          f"{out['mesh']['energy_rel_err']:.2e}; one slab's kernel "
+          f"{ms_slab:.4f} ms against its plain version {plain_slab:.4f} ms",
+          flush=True)
+    return dict(out, ms_slabs=ms_slabs, ms_mesh=ms_mesh,
+                ms_unsharded=ms_one, ms_slab=ms_slab,
+                plain_ms_slab=plain_slab, launches_per_call=per_call,
+                launches=counts)
+
+
+def check_sharded_pme(mol, x, mesh):
+    """Slab-decomposed PME over ``mesh`` ("atoms") on the molecular
+    stack's reciprocal sum (MD_N charges, exclusions, tolerance 1e-4)
+    against the unsharded call: energy 1e-5 relative, forces 1e-4 of
+    their largest component, with the device ms of each."""
+    out = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        fn = potentials.pme_coulomb(mesh=m, mesh_axis="atoms",
+                                    **mol["pme_kw"])
+        xg = x.detach().clone().requires_grad_(True)
+        e = fn(xg)
+        (g,) = torch.autograd.grad(e, xg)
+        with torch.no_grad():
+            ms = timed(lambda: fn(x), reps=5)
+        out[name] = (float(e.detach()), g, ms, fn.grid_shape)
+    (e0, g0, ms0, grid), (e1, g1, ms1, grid1) = (out["unsharded"],
+                                                 out["sharded"])
+    e_err = abs(e1 - e0) / abs(e0)
+    f_err = float((g1 - g0).abs().max()) / float(g0.abs().max())
+    fail_unless(grid == grid1 and e_err < 1e-5 and f_err < 1e-4,
+                f"sharded PME: energy {e1} against {e0}, forces {f_err}, "
+                f"grids {grid} {grid1}")
+    print(f"sharded PME grid {grid}: {ms1:.3f} ms against {ms0:.3f} ms "
+          f"unsharded, energy error {e_err:.2e}, force error {f_err:.2e}",
+          flush=True)
+    return dict(ms_sharded=ms1, ms_unsharded=ms0, energy_rel_err=e_err,
+                force_rel_err=f_err, grid=grid)
+
+
+def check_collective_checkpoint(vae, chain_mesh, dev):
+    """The distributed smoke's checkpoint step: a sharded fused MC state
+    saved by the collective CheckpointManager, restored into a template,
+    every shard back bit for bit and the run going on as if it had not
+    stopped."""
+    from vaemolsim_tpu_torch import parallel
+
+    log_t = ex08_target(dev)
+    step = make_fused_vae_step(vae, log_t)
+    x0 = torch.randn(EX08_CHAINS, 2, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+
+    def state(x):
+        return parallel.shard_chain_state(MCMCState.create(
+            x, log_t(x), torch.Generator(device=dev).manual_seed(6)),
+            chain_mesh)
+
+    st, _ = run_mcmc(step, state(x0), 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(tmp)
+        ck.save(5, st)
+        back = ck.restore(state(torch.zeros_like(x0)))
+    fail_unless(torch.equal(back.configs, st.configs)
+                and int(back.num_trials) == int(st.num_trials)
+                and torch.equal(back.generator.get_state(),
+                                st.generator.get_state()),
+                "collective checkpoint: the restored shard differs")
+    fail_unless(torch.equal(run_mcmc(step, back, 3)[0].configs,
+                            run_mcmc(step, st, 3)[0].configs),
+                "collective checkpoint: the resumed run differs")
+
+
+def distributed_path(dev, mol, mol_x, vae):
+    """The parallel layer on the card: a world-size-1 NCCL group (a
+    failed init raises), meshes over it, example 08 (fit(mesh=) and
+    sharded MC), example 05 over a ("replica", "chain") mesh, kernel 4
+    at a chain offset, kernel 6's slabs, slab-decomposed PME and the
+    collective checkpoint; the group destroyed with a timeout."""
+    import torch.distributed as dist
+
+    from vaemolsim_tpu_torch import parallel
+
+    parallel.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                    timeout=300.0)
+    try:
+        backend = dist.get_backend()
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        fail_unless(backend == want, f"backend {backend}, not {want}")
+        print(f"distributed: backend {backend}, world size "
+              f"{dist.get_world_size()}, {torch.cuda.device_count()} "
+              "device(s)", flush=True)
+        batch_mesh = parallel.make_mesh({"batch": -1})
+        chain_mesh = parallel.make_mesh({"chain": -1})
+        ex08 = example_08(dev, batch_mesh, chain_mesh)
+        ex05 = example_05(dev, mesh=parallel.make_mesh(
+            {"replica": 1, "chain": -1}))
+        with torch.no_grad():
+            check_proposal_offset(vae, dev)
+        slabs = check_slabs(mol, mol_x, parallel.make_mesh({"cells": -1}))
+        pme = check_sharded_pme(mol, mol_x, parallel.make_mesh(
+            {"atoms": -1}))
+        check_collective_checkpoint(vae, chain_mesh, dev)
+        row = dict(backend=backend, world_size=dist.get_world_size(),
+                   device_count=torch.cuda.device_count(), example_08=ex08,
+                   example_05=ex05, slabs=slabs, pme=pme)
+    finally:
+        done = threading.Thread(target=parallel.shutdown_distributed)
+        done.start()
+        done.join(timeout=120.0)
+    fail_unless(not done.is_alive(),
+                "destroying the process group took over 120 s")
+    RESULTS["distributed"] = row
+    launches = {}
+    for counts in (ex08["train_launches"], ex08["mc"]["generic"]["launches"],
+                   ex08["mc"]["fused"]["launches"]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    row["launches"] = launches
+    return row
+
+
+def pipeline_utils_path(dev):
+    """The input pipeline and the utilities on the card: a DCD file of
+    PIPE_FRAMES frames written here streamed through ``epoch_stream``
+    (every frame once, on the card); the copies of ``prefetch_to_device``
+    on a side stream against a step's compute (the share of the copies'
+    time on the card that ran beside a kernel, from a profile, held to
+    PIPE_MIN_OVERLAP; the loop's host wall time with prefetch, against
+    compute alone and copies alone, printed); ``checked``
+    raising on a NaN row carried into kernel 2's output by the flagship
+    encoder; ``StepTimer`` and ``benchmark_fn`` against CUDA events; a
+    ``trace`` file written."""
+    from vaemolsim_tpu_torch import utils
+
+    rng = np.random.default_rng(14)
+    frames = rng.normal(size=(PIPE_FRAMES, PIPE_ATOMS, 3)).astype(np.float32)
+    width = 3 * PIPE_ATOMS
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipe.dcd")
+        data.write_dcd(path, frames)
+        reader = data.DCDReader(path)
+        t0 = time.perf_counter()
+        total, seen = torch.zeros((), dtype=torch.float64, device=dev), 0
+        for b in data.epoch_stream(
+                lambda s, c: reader.read(s, c)[0].reshape(c, -1),
+                reader.n_frames, PIPE_BATCH, key=0, device=dev):
+            fail_unless(b.device.type == dev.type
+                        and b.shape == (PIPE_BATCH, width),
+                        f"epoch_stream batch {b.shape} on {b.device}")
+            total += b.double().sum()
+            seen += b.shape[0]
+        sync(dev)
+        out["epoch_seconds"] = time.perf_counter() - t0
+        want = float(frames.astype(np.float64).sum())
+        fail_unless(seen == PIPE_FRAMES
+                    and abs(float(total) - want) < 1e-6 * frames.size,
+                    f"epoch_stream: {seen} frames, sum {float(total)} "
+                    f"against {want}")
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    w1 = torch.randn(width, PIPE_HIDDEN, generator=gen, device=dev) * 0.1
+    w2 = torch.randn(PIPE_HIDDEN, PIPE_HIDDEN, generator=gen,
+                     device=dev) * 0.03
+    host = [frames[i:i + PIPE_BATCH].reshape(PIPE_BATCH, -1)
+            for i in range(0, PIPE_FRAMES, PIPE_BATCH)]
+
+    def step(b):
+        h = torch.tanh(b @ w1)
+        for _ in range(4):
+            h = torch.tanh(h @ w2)
+        return h.sum()
+
+    def loop(batches):
+        sync(dev)
+        t0 = time.perf_counter()
+        acc = torch.zeros((), device=dev)
+        for b in batches:
+            acc = acc + step(b)
+        sync(dev)
+        return time.perf_counter() - t0
+
+    def copies_alone():
+        """Each batch pinned and copied in turn, nothing to overlap."""
+        sync(dev)
+        t0 = time.perf_counter()
+        for h in host:
+            torch.as_tensor(h).pin_memory().to(dev, non_blocking=True)
+        sync(dev)
+        return time.perf_counter() - t0
+
+    def prefetched(batches=host):
+        return loop(data.prefetch_to_device(iter(batches), device=dev))
+
+    resident = [torch.as_tensor(h, device=dev) for h in host]
+    # One warm-up each (the host allocator's pinned blocks, the side
+    # stream), then the least of three runs: host wall times, printed.
+    loop(resident), copies_alone(), prefetched()
+    compute = min(loop(resident) for _ in range(3))
+    copies = min(copies_alone() for _ in range(3))
+    both = min(prefetched() for _ in range(3))
+    # The claim itself, on the card's clock: the share of the
+    # host-to-device copies' time during which a kernel ran, over
+    # PIPE_OVERLAP_PASSES passes through the batches (the first `size`
+    # + 1 copies, issued before any step, have nothing to hide behind).
+    _, prof = profiled(lambda: prefetched(host * PIPE_OVERLAP_PASSES))
+    copy_us, hidden_us = copy_overlap(prof)
+    overlap = hidden_us / copy_us if copy_us else 0.0
+    out.update(compute_s=compute, copies_s=copies, prefetch_s=both,
+               copy_us=copy_us, hidden_copy_us=hidden_us,
+               overlap_share=overlap)
+    print(f"prefetch: {len(host)} batches of {PIPE_BATCH} x {width}: "
+          f"compute {1e3 * compute:.3f} ms, pinned copies {1e3 * copies:.3f}"
+          f" ms, both through prefetch_to_device {1e3 * both:.3f} ms (host "
+          f"wall); on the card, {hidden_us:.1f} of {copy_us:.1f} us of "
+          f"copies ran beside a kernel over {PIPE_OVERLAP_PASSES} passes "
+          f"(overlap share {overlap:.3f})", flush=True)
+    fail_unless(copy_us > 0 and overlap >= PIPE_MIN_OVERLAP,
+                f"prefetch: {hidden_us} of {copy_us} us of copies ran "
+                f"beside a kernel, under {PIPE_MIN_OVERLAP}")
+
+    vae = flagship_experiment_config().build(dev)
+    x = torch.randn(1000, 2, generator=gen, device=dev)
+    enc = utils.checked(lambda v: vae.encoder.mapping(v))
+    with torch.no_grad():
+        torch.testing.assert_close(enc(x), vae.encoder.mapping(x))
+        x[5] = float("nan")
+        before = _build.KERNELS["dense_stack"].launches
+        try:
+            enc(x)
+            fail_unless(False, "checked let a NaN from kernel 2 through")
+        except utils.CheckError as err:
+            fail_unless("dense_stack kernel" in str(err),
+                        f"checked named {err}")
+            out["checked_message"] = str(err)
+        fail_unless(_build.KERNELS["dense_stack"].launches > before,
+                    "checked: kernel 2 did not launch")
+    print(f"checked: {out['checked_message']}", flush=True)
+
+    big = torch.randn(4096, 4096, generator=gen, device=dev)
+
+    def work():
+        h = big
+        for _ in range(8):
+            h = torch.tanh(h @ big) * 0.01
+        return h
+
+    # StepTimer's contract, against CUDA events recorded around the same
+    # work inside each phase: fenced (ph.result set), a phase lasts at
+    # least its device time; unfenced, it times only the host's enqueue,
+    # which returns before the device is done.
+    timer = utils.StepTimer()
+    work()
+    events = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        with timer.phase("fenced") as ph:
+            start.record()
+            ph.result = work()
+            end.record()
+        events.append(start.elapsed_time(end) / 1e3)
+        with timer.phase("unfenced"):
+            work()
+        sync(dev)
+    events_s = sum(events) / len(events)
+    bench_s = utils.benchmark_fn(lambda m: work(), big, iters=5)
+    fenced, unfenced = timer.mean("fenced"), timer.mean("unfenced")
+    out.update(step_timer_s=fenced, unfenced_s=unfenced, events_s=events_s,
+               benchmark_fn_s=bench_s)
+    fail_unless(all(t >= e for t, e in zip(timer.times["fenced"], events))
+                and (unfenced < events_s or dev.type != "cuda"),
+                f"StepTimer fenced {timer.times['fenced']} s, unfenced "
+                f"{timer.times['unfenced']} s, CUDA events {events} s")
+    print(f"StepTimer fenced {1e3 * fenced:.3f} ms, unfenced (the enqueue) "
+          f"{1e3 * unfenced:.3f} ms, CUDA events {1e3 * events_s:.3f} ms in "
+          f"the same phases; benchmark_fn {1e3 * bench_s:.3f} ms", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        with utils.trace(tmp):
+            with torch.no_grad():
+                vae.encoder.mapping(torch.randn(1000, 2, device=dev))
+            sync(dev)
+        traces = [f for _, _, fs in os.walk(tmp) for f in fs
+                  if f.endswith(".json") or f.endswith(".json.gz")]
+        fail_unless(bool(traces), "trace() wrote no trace file")
+    RESULTS["pipeline_utils"] = out
+    return out
+
+
 _T0 = time.perf_counter()
 SLICE12_PHASES = (triclinic_npt_path, charged_crystal_path,
                   remd_flow_matching_path, extrapolation_path, hrex_path,
@@ -7082,6 +7727,7 @@ SLICE13A_PHASES = (scan_replay_path, metadynamics_path, opes_eabf_path,
 SLICE13B_PHASES = (kinetics_path, weighted_ensemble_path, rare_event_path)
 SLICE13C_PHASES = (difftre_path, cg_path)
 SLICE14A_PHASES = (score_diffusion_path, painn_path)
+SLICE14B_PHASES = (distributed_path, pipeline_utils_path)
 
 
 def build_kernels(out):
@@ -7222,6 +7868,8 @@ def main():
     fm = stamped(cg_path, dev)
     ex28 = stamped(score_diffusion_path, dev)
     pn = stamped(painn_path, dev)
+    dist_row = stamped(distributed_path, dev, mol, mol_state.x, vae)
+    stamped(pipeline_utils_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -7285,7 +7933,13 @@ def main():
                 "cg_force_matching": fm["launches"],
                 "score_diffusion_train": ex28["train_launches"],
                 "score_diffusion_sample": ex28["launches"],
-                "painn_md": pn["launches"]}
+                "painn_md": pn["launches"],
+                "example_08_train": dist_row["example_08"]["train_launches"],
+                "example_08_generic":
+                    dist_row["example_08"]["mc"]["generic"]["launches"],
+                "example_08_fused":
+                    dist_row["example_08"]["mc"]["fused"]["launches"],
+                "sharded_cell_grid": dist_row["slabs"]["launches"]}
     print("kernel launches on the main paths: " + json.dumps(
         {k: sum(v.values()) for k, v in launches.items()}), flush=True)
     bound = bounds(vae, flow)
@@ -7340,10 +7994,13 @@ def main():
     slice13b = sum(seconds[p.__name__] for p in SLICE13B_PHASES)
     slice13c = sum(seconds[p.__name__] for p in SLICE13C_PHASES)
     slice14a = sum(seconds[p.__name__] for p in SLICE14A_PHASES)
+    slice14b = sum(seconds[p.__name__] for p in SLICE14B_PHASES)
     print(f"slice-12 phases {slice12:.1f} s; slice-13a phases "
           f"{slice13a:.1f} s; slice-13b phases {slice13b:.1f} s; slice-13c "
           f"phases {slice13c:.1f} s; slice-14a phases {slice14a:.1f} s; "
-          f"the script "
+          f"slice-14b phases {slice14b:.1f} s ("
+          + ", ".join(f"{p.__name__} {seconds[p.__name__]:.1f} s"
+                      for p in SLICE14B_PHASES) + "); the script "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(dict(sorted(
         ((k, round(v, 1)) for k, v in seconds.items()),

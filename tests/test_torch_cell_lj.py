@@ -335,7 +335,7 @@ def test_harmonic_bonds_and_exclusions_match_jax():
 
 
 def test_cell_neighbor_validation():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tp.lennard_jones_cell_neighbor(mesh=object(), device="cpu", **GEOM)
     with pytest.raises(ValueError, match="need >= 3"):
         tp.lennard_jones_cell_neighbor(device="cpu",

@@ -2185,3 +2185,194 @@ def test_committee_on_the_card_matches_a_cpu_copy(dev):
         pred = ensemble_energy_forces(same, x, sp.to(dev), box.to(dev))
     assert float(pred.energy_std.abs().max()) == 0.0
     assert float(pred.force_std.abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Slice 14b: the parallel layer in a world-size-1 NCCL group, kernel 6's
+# slabs, kernel 4's chain offset, the pipeline's side-stream copies and
+# ``checked`` on a kernel's output
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl(dev, tmp_path):
+    """A world-size-1 NCCL group (the card is one rank), destroyed after
+    the test."""
+    from vaemolsim_tpu_torch import parallel
+
+    parallel.initialize_distributed(f"file://{tmp_path / 'rdv'}", 1, 0,
+                                    timeout=120.0)
+    try:
+        yield parallel
+    finally:
+        parallel.shutdown_distributed()
+
+
+def test_kernel4_at_a_chain_offset_is_the_whole_launchs_rows(dev):
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+
+    vae = flagship_experiment_config().build(dev)
+    enc_w, enc_act, _, d_z = mf._extract_mlp(vae.encoder, "encoder")
+    dec_w, dec_act, _, d_x = mf._extract_mlp(vae.decoder, "decoder")
+    tables_fn, base = mf._extract_prior(vae.prior)
+    tables, rmin = tables_fn()
+    spec = mf._Spec(d_x, d_z, enc_act, dec_act, tables[0].shape[-1],
+                    float(rmin))
+    rest = ([t.detach() for t in enc_w], [t.detach() for t in dec_w],
+            [t.detach() for t in tables], base.detach(), spec)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1000, 2, generator=gen, device=dev)
+    seed = torch.tensor([7, -9], dtype=torch.int32, device=dev)
+    whole = mf.vae_proposal_cuda(x, seed, *rest)
+    part = mf.vae_proposal_cuda(x[600:].contiguous(), seed, *rest,
+                                chain0=600)
+    for w, p in zip(whole, part):
+        assert torch.equal(w[600:], p)
+
+
+def test_nccl_sharded_fused_mc_fit_remc_on_the_card(nccl, dev):
+    """World size 1: the sharded fused run equals the unsharded one,
+    fit(mesh=) trains on the kernels, REMC runs over a ("replica",
+    "chain") mesh, the backend is NCCL."""
+    import torch.distributed as dist
+
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+    from vaemolsim_tpu_torch.mcmc import (MCMCState, run_mcmc,
+                                          vae_proposal_fns)
+    from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
+                                              run_remc, temperature_ladder)
+    from vaemolsim_tpu_torch.train import fit
+
+    assert dist.get_backend() == "nccl"
+    vae = flagship_experiment_config().build(dev)
+    target = lambda x: -0.5 * (x ** 2).sum(-1)  # noqa: E731
+    step = mf.make_fused_vae_step(vae, target)
+    x0 = torch.randn(512, 2, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+
+    def fresh():
+        return MCMCState.create(x0, target(x0),
+                                torch.Generator(device=dev).manual_seed(2))
+
+    mesh = nccl.make_mesh({"chain": -1})
+    one, _ = run_mcmc(step, fresh(), 5)
+    sh, _ = run_mcmc(step, nccl.shard_chain_state(fresh(), mesh), 5)
+    assert torch.equal(one.configs, sh.configs)
+    assert int(sh.num_trials) == 512 * 5
+    before = _build.KERNELS["dense_stack"].launches
+    _, hist = fit(vae, lambda m, b, g: m.elbo_loss(b, g),
+                  torch.randn(1024, 2, device=dev),
+                  generator=torch.Generator(device=dev).manual_seed(3),
+                  batch_size=256, mesh=nccl.make_mesh({"batch": -1}))
+    assert _build.KERNELS["dense_stack"].launches > before
+    assert all(torch.isfinite(torch.tensor(hist["loss"])))
+    rmesh = nccl.make_mesh({"replica": 1, "chain": -1})
+    st = REMCState.create(torch.zeros(4, 64, 2, device=dev), target,
+                          temperature_ladder(4),
+                          torch.Generator(device=dev).manual_seed(4))
+    st = run_remc(make_remc_step(*vae_proposal_fns(vae), target,
+                                 mesh=rmesh),
+                  nccl.shard_chain_state(st, rmesh), 6)
+    assert int(st.num_swap_trials) == 3 * (2 + 1) * 64
+    assert bool(torch.isfinite(st.energies).all())
+
+
+def test_cell_grid_slabs_and_sharded_pme_on_the_card(nccl, dev):
+    """Kernel 6's four slabs one after another (four launches a call of
+    one run) and the mesh path sum to the unsharded call; PME over an
+    "atoms" mesh equals the unsharded PME."""
+    import numpy as np
+
+    from vaemolsim_tpu_torch import potentials as tp
+    from vaemolsim_tpu_torch.ops import cell_lj
+
+    rng = np.random.default_rng(0)
+    g = np.stack(np.meshgrid(np.arange(5), np.arange(5), np.arange(6),
+                             indexing="ij"), -1).reshape(-1, 3)
+    x = torch.tensor((g + 0.5) * (10.0 / np.array([5, 5, 6]))
+                     + 0.2 * rng.normal(size=(150, 3)), dtype=torch.float32,
+                     device=dev)
+    q = np.tile([0.5, -0.5], 75)
+    bonds = np.array([[2 * k, 2 * k + 1] for k in range(75)])
+    kw = dict(box=[10.0] * 3, cutoff=2.5, skin=0.5, capacity=32, charges=q,
+              coulomb_alpha=0.9, exclude=bonds)
+    build, energy = tp.lennard_jones_cell_neighbor(**kw)
+    _, mesh_energy = tp.lennard_jones_cell_neighbor(
+        mesh=nccl.make_mesh({"cells": -1}), **kw)
+    nl = build(x)
+    xg = x.clone().requires_grad_(True)
+    e = energy(nl, xg)
+    (gr,) = torch.autograd.grad(e, xg)
+    before = cell_lj.KERNEL.launches
+    e4, g4 = energy.by_slabs(nl, x, 4)
+    assert cell_lj.KERNEL.launches == before + 4
+    xm = x.clone().requires_grad_(True)
+    em = mesh_energy(nl, xm)
+    (gm,) = torch.autograd.grad(em, xm)
+    scale = float(gr.abs().max())
+    e = float(e.detach())
+    for ev, gv in ((e4, g4), (em, gm)):
+        assert abs(float(ev.detach()) - e) <= 1e-6 * abs(e)
+        assert float((gv - gr).abs().max()) <= 1e-6 * scale
+    xp = torch.tensor(rng.uniform(size=(50, 3)) * [9.0, 8.0, 10.0],
+                      dtype=torch.float32, device=dev)
+    qp = rng.normal(size=50)
+    qp -= qp.mean()
+    out = []
+    for m in (None, nccl.make_mesh({"atoms": -1})):
+        fn = tp.pme_coulomb(qp, box=[9.0, 8.0, 10.0], r_cutoff=3.0,
+                            tolerance=1e-4, exclude=bonds[:10], mesh=m)
+        xv = xp.clone().requires_grad_(True)
+        ev = fn(xv)
+        out.append((float(ev.detach()), torch.autograd.grad(ev, xv)[0]))
+    assert abs(out[0][0] - out[1][0]) < 1e-5 * max(1.0, abs(out[0][0]))
+    torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-4, atol=1e-5)
+
+
+def test_prefetch_copies_on_a_side_stream_while_the_card_is_busy(dev):
+    """The copies run on a side stream: with the current stream held by
+    a device spin, every item is issued (the host is not blocked) and,
+    once the stream waits for the copies, holds the right values."""
+    import numpy as np
+
+    from vaemolsim_tpu_torch.data import prefetch_to_device
+
+    items = [np.full((4096, 64), i, np.float32) for i in range(6)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))  # ~0.1 s on the current stream
+    got = [t for t in prefetch_to_device(iter(items), size=2)]
+    sums = torch.stack([t.sum() for t in got])
+    torch.cuda.synchronize()
+    assert all(t.is_cuda for t in got)
+    assert sums.tolist() == [4096 * 64 * float(i) for i in range(6)]
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+def test_dense_stack_carries_a_nan_row_as_plain_does(dev, act):
+    """A NaN input row comes out NaN, the other rows unchanged, as in the
+    plain chain (kernel 2's relu once took fmaxf, which returns 0 for a
+    NaN, and so hid it)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ws = [torch.randn(2, 200, generator=gen, device=dev),
+          torch.randn(200, 2, generator=gen, device=dev)]
+    bs = [torch.randn(200, generator=gen, device=dev),
+          torch.randn(2, generator=gen, device=dev)]
+    x = torch.randn(1000, 2, generator=gen, device=dev)
+    x[7] = float("nan")
+    got = fused_dense_stack(x, Ws, bs, [act, None])
+    want = dense_stack_plain(x, Ws, bs, [act, None])
+    assert bool(torch.isnan(got[7]).all()) and bool(torch.isnan(want[7]).all())
+    keep = torch.arange(1000, device=dev) != 7
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-5, atol=1e-5)
+
+
+def test_checked_names_kernel2_on_a_nan_it_writes(dev):
+    from vaemolsim_tpu_torch.config import flagship_experiment_config
+    from vaemolsim_tpu_torch.utils import CheckError, checked
+
+    vae = flagship_experiment_config().build(dev)
+    x = torch.randn(100, 2, device=dev)
+    x[3] = float("nan")
+    with torch.no_grad(), pytest.raises(CheckError,
+                                        match="dense_stack kernel"):
+        checked(lambda v: vae.encoder.mapping(v))(x)

@@ -103,7 +103,7 @@ def test_pme_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="exactly one"):
         tp.pme_coulomb(q, box=[6.0] * 3, cell=np.eye(3) * 6.0, r_cutoff=2.0,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tp.pme_coulomb(q, box=[6.0] * 3, r_cutoff=2.0, mesh=object(),
                        device="cpu")
     with pytest.raises(ValueError, match="r_cutoff"):

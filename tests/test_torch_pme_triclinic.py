@@ -113,6 +113,9 @@ def test_validation_and_mesh_refusal():
                        device="cpu")
     with pytest.raises(ValueError, match="perpendicular width"):
         tp.pme_coulomb(q, cell=CELL, r_cutoff=4.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tp.pme_coulomb(q, box=[5.0] * 3, r_cutoff=1.0, mesh=object(),
+                       device="cpu")
+    with pytest.raises(ValueError, match="orthorhombic"):
+        tp.pme_coulomb(q, cell=CELL, r_cutoff=1.0, mesh=object(),
                        device="cpu")

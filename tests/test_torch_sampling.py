@@ -109,7 +109,7 @@ def test_remc_exchange_matches_jax_on_its_uniforms(R):
 def test_remc_on_the_flagship_counts_exactly():
     """The flagship VAE proposes for (R, C, 2) configurations at once;
     trials are R C a step, swap attempts pairs x C an exchange, and a
-    mesh raises."""
+    mesh the state was not sharded over raises."""
     vae = flagship_experiment_config().build("cpu")
     g = torch.Generator().manual_seed(0)
     R, C, steps = 4, 40, 6
@@ -124,8 +124,9 @@ def test_remc_on_the_flagship_counts_exactly():
     assert 0.0 < float(st.swap_acceptance_rate) < 1.0
     assert bool(torch.isfinite(st.configs).all())
     assert st.step_index == steps
-    with pytest.raises(NotImplementedError):
-        trep.make_remc_step(*vae_proposal_fns(vae), _gauss, mesh="chains")
+    with pytest.raises(ValueError, match="shard_chain_state"):
+        trep.make_remc_step(*vae_proposal_fns(vae), _gauss,
+                            mesh="chains")(st)
 
 
 # --- simulated tempering ----------------------------------------------

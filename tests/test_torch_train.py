@@ -392,10 +392,10 @@ def test_fit_scan_epochs_runs_the_same_loop():
 @pytest.mark.parametrize("kw", ["mesh", "process_local_data", "streamed",
                                 "fit_ensemble"])
 def test_fit_options_not_ported_raise(kw):
-    """Sharded training is not ported and raises by name.  Streamed data
-    and fit_ensemble are (tests/test_torch_ensemble_ckpt.py); they raise
-    as the JAX package does on what they cannot take: an empty stream,
-    and a stream given to the ensemble."""
+    """Every option is ported; each raises as the JAX package does on what
+    it cannot take: a mesh that is not a DeviceMesh, process_local_data
+    without scan_epochs, an empty stream, and a stream given to the
+    ensemble (sharded training runs in tests/test_torch_distributed.py)."""
     gen = torch.Generator()
     if kw == "fit_ensemble":
         with pytest.raises(ValueError, match="in-memory"):
@@ -404,10 +404,13 @@ def test_fit_options_not_ported_raise(kw):
     elif kw == "streamed":
         with pytest.raises(ValueError, match="no batches"):
             fit(Toy(), quad_loss(), lambda g: iter([]), generator=gen)
+    elif kw == "mesh":
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            fit(Toy(), quad_loss(), _data(), generator=gen, mesh=object())
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="scan_epochs"):
             fit(Toy(), quad_loss(), _data(), generator=gen,
-                **{kw: object() if kw == "mesh" else True})
+                mesh=object(), process_local_data=True)
 
 
 def test_flow_model_nll_falls_under_fit():

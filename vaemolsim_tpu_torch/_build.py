@@ -23,11 +23,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "NVCC_FLAGS", "BUILD_LOGS", "build_all",
+__all__ = ["Kernel", "KERNELS", "LAUNCH_HOOKS", "NVCC_FLAGS", "BUILD_LOGS",
+           "build_all",
            "reset_launches", "launch_counts",
            "call_with_plain_grad"]
 
@@ -138,7 +139,12 @@ class Kernel:
         return fn
 
     def launch(self, device: torch.device, *args,
-               mode: Optional[str] = None) -> None:
+               mode: Optional[str] = None,
+               outputs: Sequence[torch.Tensor] = ()) -> None:
+        """Launch on ``device``'s current stream.  ``outputs`` are the
+        tensors the launch writes: every hook in ``LAUNCH_HOOKS`` (the
+        NaN check of ``utils.debug.checked``) sees them after the launch;
+        the dispatcher never does."""
         fn = self._fn or self._bind()
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -148,6 +154,8 @@ class Kernel:
         self.launches += 1
         if mode is not None:
             self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
+        for hook in LAUNCH_HOOKS:
+            hook(self, outputs)
 
     def query(self, symbol: str, *args: int) -> int:
         """An int-valued host function of the kernel's library (a limit
@@ -159,6 +167,8 @@ class Kernel:
 
 
 KERNELS: Dict[str, Kernel] = {}
+# Callables ``hook(kernel, outputs)`` run after every launch.
+LAUNCH_HOOKS: List[Callable] = []
 
 
 def reset_launches() -> None:

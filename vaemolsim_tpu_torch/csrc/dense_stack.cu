@@ -86,7 +86,8 @@ struct Stack {
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kTanh) return tanhf(v);
-  if (act == kRelu) return fmaxf(v, 0.f);
+  // Not fmaxf, which returns 0 for a NaN: a NaN goes on, as in torch.relu.
+  if (act == kRelu) return v < 0.f ? 0.f : v;
   if (act == kGelu)  // 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3)))
     return 0.5f * v *
            (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));

@@ -117,7 +117,8 @@ enum Act { kLinear = 0, kRelu = 1, kTanh = 2 };
 
 template <int A>
 __device__ __forceinline__ float activate(float v) {
-  if (A == kRelu) return fmaxf(v, 0.f);
+  // Not fmaxf, which returns 0 for a NaN: a NaN goes on, as in torch.relu.
+  if (A == kRelu) return v < 0.f ? 0.f : v;
   if (A == kTanh) return tanhf(v);
   return v;
 }

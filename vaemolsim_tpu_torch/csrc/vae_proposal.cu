@@ -43,8 +43,9 @@
 //   float4 stores.)
 // The plan (R, threads a block, blocks, shared bytes) comes from
 // mcmc/fused.py `kernel_plan`; the launch only checks it.
-// Normals: Philox4x32-10 (key = the two seed words, counter = (chain,
-// draw, 0, 0)) through Box-Muller on the top 24 bits mapped into (0, 1),
+// Normals: Philox4x32-10 (key = the two seed words, counter = (chain0 +
+// chain, draw, 0, 0): chain0 is a rank's first global chain, so a sharded
+// run draws the one-device run's normals) through Box-Muller on the top 24 bits mapped into (0, 1),
 // so log never sees 0.
 #include <cuda_pipeline.h>
 
@@ -72,7 +73,7 @@ struct Proposal {
   const float* sw; const float* sh; const float* ss;  // (B,K),(B,K),(B,K-1)
   const float* base;   // (2,) loc, scale
   float* x2; float* fwd; float* rev; float* z1; float* z2;
-  long long n;
+  long long n, chain0;
   int H, Hp, B, K, enc_act, dec_act;
   float range_min;
 };
@@ -161,7 +162,8 @@ __device__ __forceinline__ void draw_normals(long long i, const int* seed,
 
 template <int ACT>
 __device__ __forceinline__ float activate(float a) {
-  return ACT == kRelu ? fmaxf(a, 0.f) : tanhf(a);
+  // Not fmaxf, which returns 0 for a NaN: a NaN goes on, as in torch.relu.
+  return ACT == kRelu ? (a < 0.f ? 0.f : a) : tanhf(a);
 }
 
 // U hidden units u, u + R, ..., u + (U-1) R into M rows' head sums (a
@@ -370,7 +372,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   const float base_loc = p.base[0], base_scale = p.base[1];
   stage<DX>(p, enc, dec, raw, bias);
-  if (p.noise == nullptr) draw_normals<kNoise>(i, p.seed, eps);
+  if (p.noise == nullptr) draw_normals<kNoise>(p.chain0 + i, p.seed, eps);
   __pipeline_wait_prior(0);
   __syncthreads();
   for (int q = threadIdx.x; q < B * (K + 1); q += blockDim.x) {
@@ -479,13 +481,14 @@ extern "C" int vae_proposal_launch(
     const float* eb1, const float* ew2, const float* eb2, const float* dw1,
     const float* db1, const float* dw2, const float* db2, const float* sw,
     const float* sh, const float* ss, const float* base, float* x2,
-    float* fwd, float* rev, float* z1, float* z2, long long n, int d_x,
+    float* fwd, float* rev, float* z1, float* z2, long long n,
+    long long chain0, int d_x,
     int H, int B, int K, int enc_act, int dec_act, float range_min, int R,
     int threads, long long blocks, long long smem, cudaStream_t stream) {
   const Proposal p{x1,  seed, noise, ew1, eb1, ew2, eb2, dw1,     db1,
                    dw2, db2,  sw,    sh,  ss,  base, x2, fwd,     rev,
-                   z1,  z2,   n,     H,   0,   B,    K,  enc_act, dec_act,
-                   range_min};
+                   z1,  z2,   n,     chain0, H, 0, B,  K,  enc_act,
+                   dec_act, range_min};
   switch (d_x) {
     case 1: return launch<1>(p, R, threads, blocks, smem, stream);
     case 2: return launch<2>(p, R, threads, blocks, smem, stream);

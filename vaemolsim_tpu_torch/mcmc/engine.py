@@ -23,7 +23,8 @@ import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["MCMCState", "apply_mh", "mh_propose", "make_mcmc_step",
+__all__ = ["MCMCState", "apply_mh", "counts", "mh_propose",
+           "proposal_generator", "make_mcmc_step",
            "run_mcmc", "run_mcmc_checkpointed", "vae_proposal_fns", "MCMC",
            "log_uniform"]
 
@@ -41,13 +42,16 @@ def log_uniform(generator: torch.Generator, shape, dtype=torch.float32,
 class MCMCState:
     """Chain state: configurations, log target densities, the generator
     the chains draw from, and exact int64 trial / acceptance counts
-    (exact far past float32's 2^24, like the JAX two-word counter)."""
+    (exact far past float32's 2^24, like the JAX two-word counter).
+    ``shard`` is set by ``parallel.shard_chain_state``: the state then
+    holds this rank's chains and global counts."""
 
     configs: Tensor  # (n_chains, *event)
     energies: Tensor  # (n_chains,) log target density
     generator: torch.Generator
     num_trials: Tensor  # () int64
     num_acc: Tensor  # () int64
+    shard: Optional[Any] = None  # parallel.sharding.ChainShard
 
     @property
     def acceptance_rate(self) -> Tensor:
@@ -60,17 +64,37 @@ class MCMCState:
         return cls(configs, energies, generator, zero, zero.clone())
 
 
+def counts(shard, accept: Tensor, dims=None):
+    """Trials and acceptances of one accept mask, int64 on its device:
+    summed over the ranks of a sharded state (one all-reduce), so every
+    rank counts the global chains."""
+    if shard is None:
+        return accept.numel(), accept.sum(dtype=torch.int64)
+    c = shard.all_sum(torch.stack([
+        torch.full((), accept.numel(), dtype=torch.int64,
+                   device=accept.device), accept.sum(dtype=torch.int64)]),
+        dims)
+    return c[0], c[1]
+
+
 def apply_mh(state: MCMCState, x2: Tensor, e2: Tensor,
              accept: Tensor) -> MCMCState:
     """Shared accept/select/bookkeeping tail of every MH kernel; the
     configurations may have any number of event axes after accept's."""
     sel = accept.reshape(accept.shape
                          + (1,) * (state.configs.dim() - accept.dim()))
+    trials, acc = counts(state.shard, accept)
     return replace(
         state, configs=torch.where(sel, x2, state.configs),
         energies=torch.where(accept, e2, state.energies),
-        num_trials=state.num_trials + accept.numel(),
-        num_acc=state.num_acc + accept.sum(dtype=torch.int64))
+        num_trials=state.num_trials + trials,
+        num_acc=state.num_acc + acc)
+
+
+def proposal_generator(state) -> torch.Generator:
+    """The generator a generic proposal draws from: the state's own, or
+    on a sharded state the rank's own stream (``ChainShard.generator``)."""
+    return state.generator if state.shard is None else state.shard.generator
 
 
 def mh_propose(encoder_fn: Callable[[Tensor], Any],
@@ -106,12 +130,16 @@ def mh_propose(encoder_fn: Callable[[Tensor], Any],
 def make_mcmc_step(encoder_fn, prior_fn, decoder_fn, log_target_fn
                    ) -> Callable[[MCMCState], MCMCState]:
     """One MC step from distribution factories (each maps a batched
-    tensor to a distribution, chains on the batch axis)."""
+    tensor to a distribution, chains on the batch axis).  On a sharded
+    state each rank proposes for its chains from its own stream, so a
+    sharded run is the one-device run's statistical equal, not its
+    copy (the fused step is its copy)."""
 
     def step(state: MCMCState) -> MCMCState:
         x2, e2, accept = mh_propose(encoder_fn, prior_fn, decoder_fn,
                                     log_target_fn, state.configs,
-                                    state.energies, state.generator)
+                                    state.energies,
+                                    proposal_generator(state))
         return apply_mh(state, x2, e2, accept)
 
     return step

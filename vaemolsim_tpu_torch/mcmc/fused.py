@@ -48,7 +48,7 @@ __all__ = ["make_fused_vae_step", "fused_vae_proposal", "vae_proposal_plain",
 
 KERNEL = _build.Kernel(
     "vae_proposal", "csrc/vae_proposal.cu", "vae_proposal_launch",
-    [ctypes.c_void_p] * 20 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 20 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2,
     replaces="vaemolsim_tpu/mcmc/fused.py:185")
 
@@ -122,13 +122,15 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def _philox_normals(seed: Tensor, n: int, n_noise: int) -> Tensor:
+def _philox_normals(seed: Tensor, n: int, n_noise: int,
+                    chain0: int = 0) -> Tensor:
     """(n, n_noise) standard normals, the kernel's stream: chain i's word
-    w is lane w % 4 of Philox call (i, w // 4); pair j takes u1 = word j
-    and u2 = word n_pair + j through Box-Muller."""
+    w is lane w % 4 of Philox call (chain0 + i, w // 4); pair j takes
+    u1 = word j and u2 = word n_pair + j through Box-Muller."""
     n_pair = (n_noise + 1) // 2
     key = seed.to(torch.int64) & _MASK
-    chain = torch.arange(n, dtype=torch.int64, device=seed.device)
+    chain = torch.arange(chain0, chain0 + n, dtype=torch.int64,
+                         device=seed.device) & _MASK
     zero = torch.zeros_like(chain)
     words = []
     for c in range((2 * n_pair + 3) // 4):
@@ -171,12 +173,14 @@ def _normal_logprob(x, loc, scale):
 
 def vae_proposal_plain(x1: Tensor, seed: Tensor, enc_w, dec_w,
                        spline_tables, base_params: Tensor, spec: _Spec,
-                       noise: Optional[Tensor] = None):
+                       noise: Optional[Tensor] = None, chain0: int = 0):
     """The proposal in plain PyTorch; returns (x2, forward, reverse, z1,
-    z2).  Without ``noise`` it draws the kernel's Philox stream."""
+    z2).  Without ``noise`` it draws the kernel's Philox stream, row i
+    as global chain ``chain0 + i``."""
     d_z = spec.d_z
     if noise is None:
-        noise = _philox_normals(seed, x1.shape[0], 2 * d_z + spec.d_x)
+        noise = _philox_normals(seed, x1.shape[0], 2 * d_z + spec.d_x,
+                                chain0)
     sw, sh, ss = spline_tables
     loc, scale = base_params[0], base_params[1]
 
@@ -216,9 +220,10 @@ def vae_proposal_plain(x1: Tensor, seed: Tensor, enc_w, dec_w,
 
 def vae_proposal_cuda(x1: Tensor, seed: Tensor, enc_w, dec_w, spline_tables,
                       base_params: Tensor, spec: _Spec,
-                      noise: Optional[Tensor] = None):
+                      noise: Optional[Tensor] = None, chain0: int = 0):
     """Launch ``csrc/vae_proposal.cu``; returns (x2, forward, reverse,
-    z1, z2)."""
+    z1, z2).  Row i draws the Philox stream of global chain
+    ``chain0 + i``."""
     if spec.d_z != 1 or not 1 <= spec.d_x <= MAX_DX:
         raise ValueError(f"the proposal kernel takes d_z = 1 and "
                          f"1 <= d_x <= {MAX_DX}, got {spec}")
@@ -253,23 +258,27 @@ def vae_proposal_cuda(x1: Tensor, seed: Tensor, enc_w, dec_w, spline_tables,
     KERNEL.launch(x1.device, x1.data_ptr(), seed.data_ptr(),
                   _build.ptr(noise), *[t.data_ptr() for t in ew + dw + tables],
                   base.data_ptr(), x2.data_ptr(), fwd.data_ptr(),
-                  rev.data_ptr(), z1.data_ptr(), z2.data_ptr(), n, d_x, H, B,
+                  rev.data_ptr(), z1.data_ptr(), z2.data_ptr(), n,
+                  int(chain0), d_x, H, B,
                   K, _ACT_CODES[spec.enc_act], _ACT_CODES[spec.dec_act],
                   float(spec.range_min), plan["R"], plan["threads"],
-                  plan["blocks"], plan["smem"])
+                  plan["blocks"], plan["smem"],
+                  outputs=(x2, fwd, rev, z1, z2))
     return x2, fwd, rev, z1, z2
 
 
 def fused_vae_proposal(x1: Tensor, seed: Tensor, enc_w, dec_w, spline_tables,
                        base_params: Tensor, spec: _Spec,
-                       noise: Optional[Tensor] = None):
+                       noise: Optional[Tensor] = None, chain0: int = 0):
     """The proposal over all chains: the kernel on CUDA, the plain version
     on the CPU.  ``seed``: (2,) int32 Philox key words; ``noise``:
     optional (N, 2*d_z + d_x) standard normals to use instead of the
-    Philox stream.  Returns (x2, forward_log_p, reverse_log_p, z1, z2)."""
+    Philox stream; ``chain0``: the global index of row 0 (a rank's first
+    chain), the Philox counter of each row being its global chain.
+    Returns (x2, forward_log_p, reverse_log_p, z1, z2)."""
     fn = vae_proposal_cuda if x1.is_cuda else vae_proposal_plain
     return fn(x1, seed, enc_w, dec_w, spline_tables, base_params, spec,
-              noise)
+              noise, chain0)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +354,13 @@ def make_fused_vae_step(vae, log_target_fn: Callable[[Tensor], Tensor]
                         ) -> Callable[[MCMCState], MCMCState]:
     """An MCMCState -> MCMCState step for the flagship model family,
     through :func:`fused_vae_proposal`.  Raises
-    :class:`UnsupportedModelError` for other models."""
+    :class:`UnsupportedModelError` for other models.
+
+    On a sharded state (``parallel.shard_chain_state``) every rank draws
+    the Philox key and the accept uniforms of all the global chains from
+    the replicated generator and takes its chains' share, the kernel
+    drawing each chain's normals by its global index: a sharded run
+    equals the one-device run bit for bit."""
     enc_w, enc_act, enc_in, d_z = _extract_mlp(vae.encoder, "encoder")
     dec_w, dec_act, dec_in, d_x = _extract_mlp(vae.decoder, "decoder")
     _require(dec_in == d_z and enc_in == d_x,
@@ -355,7 +370,7 @@ def make_fused_vae_step(vae, log_target_fn: Callable[[Tensor], Tensor]
 
     @torch.no_grad()
     def step(state: MCMCState) -> MCMCState:
-        gen, x1 = state.generator, state.configs
+        gen, x1, shard = state.generator, state.configs, state.shard
         # Two full 32-bit key words per step: a ~64-bit seed space.
         seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), generator=gen,
                              dtype=torch.int32, device=x1.device)
@@ -363,11 +378,13 @@ def make_fused_vae_step(vae, log_target_fn: Callable[[Tensor], Tensor]
         spec = _Spec(d_x, d_z, enc_act, dec_act, tables[0].shape[-1],
                      float(range_min))
         x2, fwd, rev, _, _ = fused_vae_proposal(
-            x1, seed, enc_w, dec_w, tables, base_params, spec)
+            x1, seed, enc_w, dec_w, tables, base_params, spec,
+            chain0=0 if shard is None else shard.starts[0])
         e2 = log_target_fn(x2)
         log_acc = (e2 - state.energies) + rev - fwd
-        accept = log_acc >= log_uniform(gen, log_acc.shape, log_acc.dtype,
-                                        log_acc.device)
+        n_all = x1.shape[0] if shard is None else shard.totals[0]
+        log_u = log_uniform(gen, (n_all,), log_acc.dtype, log_acc.device)
+        accept = log_acc >= (log_u if shard is None else shard.local(log_u))
         return apply_mh(state, x2, e2, accept)
 
     return step

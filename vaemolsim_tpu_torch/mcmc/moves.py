@@ -9,6 +9,11 @@ normals ``xi`` and the accept draw ``log_u``); :func:`_scaled_trial`
 draws them from the chains' generator.  The production moves, the tuner,
 simulated tempering and AIS all run that one core.
 
+On a state sharded by ``parallel.shard_chain_state`` the moves and the
+tuner draw the noise of all the global chains from the replicated
+generator and take this rank's slice, and count (and tune on) the
+global acceptances: a sharded run equals the one-device run.
+
 ``run_mcmc`` runs under ``torch.no_grad()``.  MALA and HMC need the
 gradient of the log target inside the step: the core takes it under
 ``torch.enable_grad()`` on a detached leaf (the ones-seeded gradient of
@@ -26,7 +31,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from vaemolsim_tpu_torch.mcmc.engine import MCMCState, log_uniform
+from vaemolsim_tpu_torch.mcmc.engine import MCMCState, counts, log_uniform
 
 Tensor = torch.Tensor
 
@@ -106,12 +111,19 @@ def scaled_trial_core(kind: str, log_target_fn: Callable[[Tensor], Tensor],
 
 
 def _scaled_trial(kind: str, log_target_fn, x1: Tensor, e1: Tensor, scale,
-                  generator: torch.Generator, n_leapfrog: int = 10):
+                  generator: torch.Generator, n_leapfrog: int = 10,
+                  shard=None):
     """:func:`scaled_trial_core` on noise drawn from ``generator``:
-    ``(x_new, e_new, accept)``."""
-    xi = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
-                     device=x1.device)
-    log_u = log_uniform(generator, e1.shape, e1.dtype, e1.device)
+    ``(x_new, e_new, accept)``.  With a ``shard`` (a ``ChainShard``)
+    the noise of all the global chains is drawn and this rank's slice
+    taken."""
+    n = x1.shape[0] if shard is None else shard.totals[0]
+    xi = torch.randn((n,) + tuple(x1.shape[1:]), generator=generator,
+                     dtype=x1.dtype, device=x1.device)
+    log_u = log_uniform(generator, (n,) + tuple(e1.shape[1:]), e1.dtype,
+                        e1.device)
+    if shard is not None:
+        xi, log_u = shard.local(xi), shard.local(log_u)
     return scaled_trial_core(kind, log_target_fn, x1, e1, scale, xi, log_u,
                              n_leapfrog)[:3]
 
@@ -122,11 +134,11 @@ def _make_local_step(kind: str, log_target_fn, scale: float,
     def step(state: MCMCState) -> MCMCState:
         x, e, accept = _scaled_trial(kind, log_target_fn, state.configs,
                                      state.energies, scale, state.generator,
-                                     n_leapfrog)
+                                     n_leapfrog, state.shard)
+        trials, acc = counts(state.shard, accept)
         return replace(state, configs=x, energies=e,
-                       num_trials=state.num_trials + accept.numel(),
-                       num_acc=state.num_acc
-                       + accept.sum(dtype=torch.int64))
+                       num_trials=state.num_trials + trials,
+                       num_acc=state.num_acc + acc)
 
     return step
 
@@ -171,7 +183,9 @@ def tune_scale(log_target_fn: Callable[[Tensor], Tensor],
     target the optima 0.234 (random walk), 0.574 (MALA) and 0.651 (HMC).
     The scale stays a float32 tensor on the chains' device throughout:
     one host read at the end.  Returns ``(scale, warmed_state)``; the
-    warm-up trials are not counted in the state's counters."""
+    warm-up trials are not counted in the state's counters.  On a
+    sharded state the rate is the global chains' (one all-reduce a
+    trial), so every rank tunes to the same scale."""
     if kind not in _KINDS:
         raise ValueError(f"unknown move kind {kind!r}")
     if target_accept is None:
@@ -184,8 +198,10 @@ def tune_scale(log_target_fn: Callable[[Tensor], Tensor],
         acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for _ in range(steps_per_round):
             x, e, accept = _scaled_trial(kind, log_target_fn, x, e, scale,
-                                         state.generator, n_leapfrog)
-            acc_sum = acc_sum + accept.float().mean()
+                                         state.generator, n_leapfrog,
+                                         state.shard)
+            trials, acc = counts(state.shard, accept)
+            acc_sum = acc_sum + acc.float() / trials
         log_s = log_s + 2.0 * (acc_sum / steps_per_round
                                - target_accept) / math.sqrt(1.0 + r)
     return float(torch.exp(log_s)), replace(state, configs=x, energies=e)

@@ -326,11 +326,14 @@ class MADE(nn.Module):
         self.activation = activation
         self.input_order_static = tuple(int(d) for d in input_order_static)
         hidden = tuple(k.shape[1] for k in kernels[:-1])
-        for i, m in enumerate(_made_masks(self.input_order_static, hidden,
-                                          params_per_dim)):
+        masks = _made_masks(self.input_order_static, hidden, params_per_dim)
+        for i, m in enumerate(masks):
             # A copy: the cached numpy masks are shared by every MADE.
             self.register_buffer(f"mask{i}", torch.tensor(
                 m, device=self.kernels[0].device))
+        # Built from the input order, not state of the JAX model (which
+        # holds them as static fields): utils.count_params skips them.
+        self.derived_buffers = tuple(f"mask{i}" for i in range(len(masks)))
 
     @property
     def masks(self) -> Tuple[Tensor, ...]:

@@ -252,7 +252,7 @@ def pair_attention_cuda(coords: Tensor, ni_s: Tensor, nj_s: Tensor,
                   out.data_ptr(), B, N, H, Fo, ACT_CODES[act], int(reduce),
                   float(ln_eps), _REGIMES[plan["regime"]],
                   plan["lanes"] or 0, plan["units"] or 0, plan["frames"],
-                  plan["smem"])
+                  plan["smem"], outputs=(out,))
     return out
 
 

@@ -110,10 +110,11 @@ def cell_pair_energy_force_plain(
         charge: Optional[Sequence[Tensor]] = None,
         exclusion: Optional[Tensor] = None, *, n_atoms: int, sigma: float,
         epsilon: float, cutoff: float, box: Sequence[float],
-        shift: bool = True, coulomb_alpha: float = 0.0
-        ) -> Tuple[Tensor, Tensor]:
+        shift: bool = True, coulomb_alpha: float = 0.0,
+        grid_cells: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """Per-cell half-energy ``(n_cells, 1, 1)`` and gradient ``(n_cells,
-    3, C)`` in plain PyTorch.  cxt (n_cells, 3, C) and nxt (n_cells, 3, K)
+    3, C)`` in plain PyTorch (``grid_cells``, the kernel's launch plan,
+    is not used here).  cxt (n_cells, 3, C) and nxt (n_cells, 3, K)
     float32 positions; cid (n_cells, 1, C) and nid (n_cells, 1, K) int32
     ids (``n_atoms`` = padding); species (csig, nsig, cse, nse): per-slot
     sigma and sqrt(epsilon) blocks of width C / K, overriding the scalar
@@ -178,10 +179,12 @@ def cell_pair_energy_force_cuda(
         charge: Optional[Sequence[Tensor]] = None,
         exclusion: Optional[Tensor] = None, *, n_atoms: int, sigma: float,
         epsilon: float, cutoff: float, box: Sequence[float],
-        shift: bool = True, coulomb_alpha: float = 0.0
-        ) -> Tuple[Tensor, Tensor]:
+        shift: bool = True, coulomb_alpha: float = 0.0,
+        grid_cells: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """Launch ``csrc/cell_lj.cu`` (same arguments and outputs as the plain
-    version), split over :func:`cluster_split` blocks per cell.  A
+    version), split over :func:`cluster_split` blocks per cell, planned
+    for the occupancy of ``grid_cells`` cells (by default the rows given:
+    a slab of a sharded grid passes the whole grid's count).  A
     neighbour block of more than 16384 slots, or one that does not fit
     shared memory, is refused by the kernel's launch, which raises."""
     if cxt.dim() != 3 or cxt.shape[1] != 3:
@@ -220,7 +223,8 @@ def cell_pair_energy_force_cuda(
                   1.0 / float(cutoff) ** 6,
                   SLOPE_F * float(epsilon) / float(sigma), SLOPE_F,
                   float(coulomb_alpha), *box, *[1.0 / b for b in box],
-                  cluster_split(int(n_atoms), nc))
+                  cluster_split(int(n_atoms), grid_cells or nc),
+                  outputs=(e, grad))
     return e, grad
 
 

@@ -175,7 +175,7 @@ def dense_stack_cuda(x: Tensor, kernels: Sequence[Tensor],
         (ctypes.c_int * (n_layers + 1))(*dims),
         (ctypes.c_int * n_layers)(*[_ACT_CODES[a] for a in activations]),
         ptrs(*[W.data_ptr() for W in Ws]), ptrs(*[b.data_ptr() for b in bs]),
-        ptrs(*[_build.ptr(C) for C in Cs]), dc)
+        ptrs(*[_build.ptr(C) for C in Cs]), dc, outputs=(out,))
     return out.reshape(lead + (dims[-1],))
 
 

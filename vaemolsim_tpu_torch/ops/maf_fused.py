@@ -214,7 +214,7 @@ def maf_block_cuda(y: Tensor, params: Sequence[Tensor],
                   float(_span(bin_min, bin_max, K)), int(inverse),
                   int(bf16), (ctypes.c_int * D)(*deg),
                   (ctypes.c_int * (D + 1))(*hidden_degree_starts(D, H)),
-                  mode="bf16" if bf16 else None)
+                  mode="bf16" if bf16 else None, outputs=(x, ldj))
     return x, ldj
 
 

@@ -215,7 +215,7 @@ def rqs_cuda(x: Tensor, widths: Tensor, heights: Tensor, slopes: Tensor,
     KERNEL.launch(x.device, xf.data_ptr(), w.data_ptr(), h.data_ptr(),
                   s.data_ptr(), out.data_ptr(), ldj.data_ptr(), xf.numel(),
                   K, rows, float(range_min), int(inverse), plan["threads"],
-                  plan["blocks"], plan["smem"])
+                  plan["blocks"], plan["smem"], outputs=(out, ldj))
     return out.reshape(batch), ldj.reshape(batch)
 
 

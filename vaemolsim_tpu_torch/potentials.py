@@ -17,13 +17,14 @@ independent O(N^2) reference, ``lennard_jones_softcore``, ``buckingham``,
 ``composite``, ``com_restraint``, ``as_log_prob``, ``minimize_energy``
 (with its L-BFGS polish), ``CellNeighborList`` /
 ``lennard_jones_cell_neighbor`` with ``lennard_jones_cell``, and
-``pme_coulomb`` on an orthorhombic box or a static triclinic cell.  The
+``pme_coulomb`` on an orthorhombic box or a static triclinic cell; the
+cell grid and PME also shard over a ``DeviceMesh`` (``mesh=``).  The
 dense periodic factories take a tensor ``box`` (kept in the autograd
 graph: NPT moves, virial dilations).  The
 cell-list energy runs the cell-pair kernel (``ops/cell_lj.py``) on the
 card: the neighbour list is always built in the kernel's cell layout,
 and there is no other route (the JAX ``backend=`` and ``interpret=``
-options are not ported).  ROADMAP.md lists what is still to come.
+options are not ported).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch
 from vaemolsim_tpu_torch.config import default_device
 from vaemolsim_tpu_torch.coords import dihedrals
 from vaemolsim_tpu_torch.ops.cell_lj import SLOPE_F, cell_pair_energy_force
+from vaemolsim_tpu_torch.parallel.distributed import (
+    all_gather_cat, all_sum, mesh_dim, replicated, sum_over)
 
 Tensor = torch.Tensor
 
@@ -50,7 +53,6 @@ __all__ = ["harmonic_bonds", "harmonic_angles", "periodic_torsions",
 
 _EPS = 1e-12  # guards sqrt gradients at coincident points
 _TWO_OPI = 2.0 / math.sqrt(math.pi)
-_MESH = "ROADMAP.md, Queue 1 item 4, slice 14"
 
 
 def _f32(a, device) -> Tensor:
@@ -617,7 +619,8 @@ class _CellEnergy(torch.autograd.Function):
 def lennard_jones_cell_neighbor(
         sigma=1.0, epsilon=1.0, *, box: Sequence[float], cutoff: float,
         skin: float = 0.4, capacity: int = 24, shift: bool = True,
-        mesh=None, charges=None, coulomb_alpha: Optional[float] = None,
+        mesh=None, mesh_axis: str = "cells", charges=None,
+        coulomb_alpha: Optional[float] = None,
         exclude: Optional[np.ndarray] = None, device=None
         ) -> Tuple[Callable[[Tensor], CellNeighborList],
                    Callable[[CellNeighborList, Tensor], Tensor]]:
@@ -642,11 +645,19 @@ def lennard_jones_cell_neighbor(
     pressure tensor) and ``energy.heat_flux(nl, x, v, masses)`` (refused
     with exclusions) run plain PyTorch on the per-atom candidate layout;
     ``energy.cell_pair_inputs(nl, x)`` returns the kernel's
-    ``(args, kwargs)``.  ``mesh=`` is not ported yet."""
+    ``(args, kwargs)``.
+
+    ``mesh=`` (a ``DeviceMesh`` with dimension ``mesh_axis``) shards the
+    cell grid: the cells are cut into one slab of ``ceil(cells / P)``
+    rows a rank (the last slab shorter; the JAX package pads the grid
+    with empty cells instead), each rank gathers and evaluates only its
+    slab's rows (kernel 6 on the card), the energies are all-reduced
+    and the gradient rows all-gathered, so every rank gets the whole
+    energy and gradient.  ``energy.by_slabs(nl, x, count)`` evaluates the
+    ``count`` slabs one after another in one process: the sum the mesh
+    path computes."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"a mesh-sharded cell grid is not ported yet ({_MESH}: "
-            "mesh-sharded cell grid over torch.distributed)")
+        mesh_dim(mesh, mesh_axis)
     if skin < 0:
         raise ValueError(f"skin must be >= 0; got {skin}")
     dev = default_device(device)
@@ -821,21 +832,23 @@ def lennard_jones_cell_neighbor(
         blocks gathered into cell layout."""
         return _inputs(nl, _wrap(x))
 
-    def _inputs(nl, xw):
+    def _inputs(nl, xw, lo=0, hi=n_cells):
+        """The kernel's inputs for cell rows lo..hi (all by default)."""
         n = xw.shape[0]
         _check_n(n)
+        rows, nb = hi - lo, cell_nb[lo:hi]
         cells = nl.cell_atoms.long().clamp(0, n - 1)
         cell_x = xw[cells]                               # (n_cells, C, 3)
-        cxt = cell_x.transpose(1, 2).contiguous()
-        nxt = cell_x[cell_nb].reshape(n_cells, 27 * capacity, 3).transpose(
+        cxt = cell_x[lo:hi].transpose(1, 2).contiguous()
+        nxt = cell_x[nb].reshape(rows, 27 * capacity, 3).transpose(
             1, 2).contiguous()
-        cid = nl.cell_atoms.reshape(n_cells, 1, capacity)
-        nid = nl.cell_atoms[cell_nb].reshape(n_cells, 1, 27 * capacity)
+        cid = nl.cell_atoms[lo:hi].reshape(rows, 1, capacity)
+        nid = nl.cell_atoms[nb].reshape(rows, 1, 27 * capacity)
 
         def blocks(per_atom_t):
             c = per_atom_t[cells]
-            return (c.reshape(n_cells, 1, capacity),
-                    c[cell_nb].reshape(n_cells, 1, 27 * capacity))
+            return (c[lo:hi].reshape(rows, 1, capacity),
+                    c[nb].reshape(rows, 1, 27 * capacity))
 
         species = charge = exclusion = None
         if per_atom:
@@ -846,27 +859,65 @@ def lennard_jones_cell_neighbor(
         if exclude is not None:
             # Padding slots (id n, clipped to n - 1) gather a real atom's
             # partners; the kernel's i < n mask drops them first.
-            exclusion = _excl_tab(n)[cells].transpose(1, 2).contiguous()
+            exclusion = _excl_tab(n)[cells[lo:hi]].transpose(
+                1, 2).contiguous()
         kwargs = dict(n_atoms=n, sigma=1.0 if sigma is None else sigma,
                       epsilon=1.0 if epsilon is None else epsilon,
                       cutoff=float(cutoff), box=tuple(box_np.tolist()),
                       shift=shift, coulomb_alpha=c_alpha)
         return (cxt, nxt, cid, nid, species, charge, exclusion), kwargs
 
-    def _impl(nl, x):
-        xw = _wrap(x)
-        args, kwargs = _inputs(nl, xw)
-        e_cells, grad_t = cell_pair_energy_force(*args, **kwargs)
+    def _assemble(nl, xw, e, grad_t):
+        """Energy and per-atom gradient from the cell rows' gradient
+        ``grad_t`` (at least n_cells rows), NaN on an invalid list."""
         bad = _invalid(nl, xw)
         # An overflowed build's atom_slot runs past the last slot: clamp
         # (the result is NaN anyway) rather than index out of bounds.
-        grad = grad_t.transpose(1, 2).reshape(n_cells * capacity, 3)[
+        grad = grad_t[:n_cells].transpose(1, 2).reshape(
+            n_cells * capacity, 3)[
             nl.atom_slot.long().clamp(max=n_cells * capacity - 1)]
         nan = torch.where(bad, torch.nan, 1.0)
-        return e_cells.sum() * nan, grad * nan
+        return e * nan, grad * nan
+
+    def _slab(nl, xw, index, count):
+        """Slab ``index`` of ``count``: its energy and its gradient rows,
+        zero-padded to ceil(n_cells / count) rows (slab 0 of 1 is the
+        whole grid, unpadded)."""
+        rows = -(-n_cells // count)
+        lo, hi = min(index * rows, n_cells), min((index + 1) * rows, n_cells)
+        args, kwargs = _inputs(nl, xw, lo, hi)
+        if hi > lo:
+            e_cells, grad_t = cell_pair_energy_force(
+                *args, grid_cells=n_cells, **kwargs)
+        else:
+            e_cells = grad_t = xw.new_zeros((0, 3, capacity))
+        if hi - lo < rows:
+            grad_t = torch.cat([grad_t, grad_t.new_zeros(
+                (rows - (hi - lo), 3, capacity))])
+        return e_cells.sum(), grad_t
+
+    def _impl(nl, x):
+        xw = _wrap(x)
+        return _assemble(nl, xw, *_slab(nl, xw, 0, 1))
+
+    def by_slabs(nl: CellNeighborList, x: Tensor, count: int):
+        """``(energy, gradient)`` evaluated slab by slab in this process,
+        one kernel launch a slab: what the mesh path sums over ranks."""
+        xw = _wrap(x)
+        parts = [_slab(nl, xw, i, count) for i in range(count)]
+        return _assemble(nl, xw, torch.stack([p[0] for p in parts]).sum(),
+                         torch.cat([p[1] for p in parts]))
+
+    def _impl_mesh(nl, x):
+        group, count, index = mesh_dim(mesh, mesh_axis)
+        xw = _wrap(x)
+        e, rows = _slab(nl, xw, index, count)
+        return _assemble(nl, xw, all_sum(e, group),
+                         all_gather_cat(rows, group))
 
     def energy(nl: CellNeighborList, x: Tensor) -> Tensor:
-        return _CellEnergy.apply(x, _impl, nl, _grad)
+        return _CellEnergy.apply(x, _impl if mesh is None else _impl_mesh,
+                                 nl, _grad)
 
     # ---- the per-atom candidate layout: stress and heat flux ----
     def _nb_cid_mask(nl, n):
@@ -995,6 +1046,7 @@ def lennard_jones_cell_neighbor(
     energy.stress = stress
     energy.heat_flux = heat_flux if exclude is None else heat_flux_refused
     energy.cell_pair_inputs = cell_pair_inputs
+    energy.by_slabs = by_slabs
     return build, energy
 
 
@@ -1048,17 +1100,21 @@ def _bspline_integer_values(order: int) -> np.ndarray:
     return mn(order, xs)
 
 
-def _next_smooth(n: int) -> int:
-    """The least 5-smooth even size >= max(n, 4): a fast FFT length."""
-    cand = max(int(n), 4)
-    while True:
+def _next_smooth(n: int, div: int = 1) -> int:
+    """The least 5-smooth even size >= max(n, 4) divisible by ``div``: a
+    fast FFT length.  Where ``div`` has a prime factor above 5 none
+    exists within 8n: then the least even multiple of ``div`` (the JAX
+    package's rule)."""
+    n = max(int(n), 4)
+    for cand in range(n, 8 * n + 1):
         m = cand
         for p in (2, 3, 5):
             while m % p == 0:
                 m //= p
-        if m == 1 and cand % 2 == 0:
+        if m == 1 and cand % 2 == 0 and cand % div == 0:
             return cand
-        cand += 1
+    step = div if div % 2 == 0 else 2 * div
+    return -(-n // step) * step
 
 
 def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
@@ -1066,7 +1122,8 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
                 grid_shape: Optional[Sequence[int]] = None, order: int = 6,
                 exclude: Optional[np.ndarray] = None,
                 alpha: Optional[float] = None, tolerance: float = 1e-5,
-                include_real_space: bool = True, mesh=None, device=None
+                include_real_space: bool = True, mesh=None,
+                mesh_axis: str = "atoms", device=None
                 ) -> Callable[[Tensor], Tensor]:
     """Smooth particle-mesh Ewald (Essmann et al. 1995) on an orthorhombic
     ``box`` or a static restricted-triclinic ``cell`` (a (3, 3) lower-
@@ -1086,12 +1143,19 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
     package's rule).  ``exclude`` (an (n, n) bool matrix or (E, 2) pair
     list) removes each excluded pair's Coulomb interaction, real and
     reciprocal.  ``energy.ewald_alpha`` and ``energy.grid_shape`` give
-    the chosen values.  ``mesh=`` (the slab-decomposed PME) is not
-    ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh-sharded PME is not ported yet ({_MESH}: PME over "
-            "torch.distributed)")
+    the chosen values.
+
+    ``mesh=`` (a ``DeviceMesh`` with dimension ``mesh_axis``, P ranks)
+    decomposes the evaluation into slabs, orthorhombic boxes only: each
+    rank spreads its shard of the atoms onto a whole grid, a
+    reduce-scatter leaves it the summed x-slab, local z and y FFTs, an
+    all-to-all transpose into y-slabs and the x FFT make the 3-D rFFT,
+    and the influence sum runs on the rank's y-slab; the erfc pair sum
+    runs on the rank's rows of atoms.  The partial energies are summed
+    over the ranks; forces come by autograd through the collectives
+    (``torch.distributed.nn.functional``), every rank getting the whole
+    gradient.  Grid x and y sizes must divide by P (the automatic grid
+    is chosen so)."""
     q_np = np.asarray(charges, np.float64)
     if q_np.ndim != 1:
         raise ValueError(f"charges must be (n,); got {q_np.shape}")
@@ -1111,6 +1175,10 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
                 f"perpendicular width ({w_np.min() / 2}) of the cell "
                 "for minimum-image validity")
         box_np = np.sqrt((h_np ** 2).sum(axis=1))
+        if mesh is not None:
+            raise ValueError("mesh-sharded PME takes an orthorhombic box= "
+                             "only (the slab decomposition is "
+                             "orthorhombic); cell= runs replicated")
     else:
         box_np = np.asarray(box, np.float64)
         if box_np.shape != (3,):
@@ -1126,14 +1194,21 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
     ln_tol = float(np.sqrt(-np.log(tolerance)))
     alpha_v = float(alpha) if alpha is not None else ln_tol / float(r_cutoff)
     k_cut = 2.0 * alpha_v * ln_tol
+    n_shards = 1 if mesh is None else mesh_dim(mesh, mesh_axis)[1]
     if grid_shape is None:
         need = np.ceil(1.5 * k_cut * box_np / np.pi).astype(int)
-        grid_shape = tuple(_next_smooth(g) for g in need)
+        grid_shape = (_next_smooth(need[0], n_shards),
+                      _next_smooth(need[1], n_shards), _next_smooth(need[2]))
     gx, gy, gz = (int(g) for g in grid_shape)
     for g in (gx, gy, gz):
         if g < 2 * order:
             raise ValueError(f"grid_shape {grid_shape} too coarse for "
                              f"order {order} (need >= {2 * order})")
+    if gx % n_shards or gy % n_shards:
+        raise ValueError(
+            f"mesh-sharded PME needs grid x/y sizes divisible by the "
+            f"'{mesh_axis}' axis size {n_shards}; got {grid_shape} "
+            "(leave grid_shape=None to auto-select)")
 
     # Influence function on the rfft half-spectrum, built with numpy.
     def axis_modes(g):
@@ -1222,7 +1297,7 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
         def _minimg(d):
             return tc.min_image(d, cell_t)
 
-    def _spread(x: Tensor) -> Tensor:
+    def _spread(x: Tensor, q=q) -> Tensor:
         """Charges on the (gx, gy, gz) grid: order^3 B-spline points per
         atom, summed by one index_add."""
         s = _frac(x)
@@ -1246,18 +1321,14 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
             flat = x.reshape((-1,) + x.shape[-2:])
             return torch.stack([energy(xi) for xi in flat]).reshape(
                 x.shape[:-2])
-        f = torch.fft.rfftn(_spread(x))
-        u_recip = (infl_t * (f.real ** 2 + f.imag ** 2)).sum()
         xw = _wrapx(x)
-        total = u_recip
-        if include_real_space:
-            d = _minimg(xw[:, None, :] - xw[None, :, :])
-            r2 = (d * d).sum(-1)
-            mask = real_mask & (r2 < rc2)
-            r = torch.sqrt(torch.where(mask, r2, 1.0).clamp_min(_EPS))
-            qq = q[:, None] * q[None, :]
-            total = total + torch.where(
-                mask, qq * torch.special.erfc(alpha_v * r) / r, 0.0).sum()
+        if mesh is not None:
+            total = _sharded_part(x)
+        else:
+            f = torch.fft.rfftn(_spread(x))
+            total = (infl_t * (f.real ** 2 + f.imag ** 2)).sum()
+        if include_real_space and mesh is None:
+            total = total + _real_space(xw, 0, n_q)
         total = total - alpha_v / math.sqrt(math.pi) * (q * q).sum()
         total = total - math.pi / (2 * vol * alpha_v * alpha_v) * q.sum() ** 2
         if excl_pairs is not None:
@@ -1267,6 +1338,44 @@ def pme_coulomb(charges, *, box: Optional[Sequence[float]] = None,
             total = total - (q[pi] * q[pj] * torch.special.erf(alpha_v * re)
                              / re).sum()
         return total
+
+    def _sharded_part(x: Tensor) -> Tensor:
+        """The reciprocal sum and the erfc pair sum, slab-decomposed over
+        the mesh, summed over its ranks (see the docstring)."""
+        import torch.distributed.nn.functional as dfn
+
+        group, P, p = mesh_dim(mesh, mesh_axis)
+        rows = -(-n_q // P)
+        lo, hi = min(p * rows, n_q), min((p + 1) * rows, n_q)
+        xr = replicated(x, group)
+        rho = _spread(xr[lo:hi], q[lo:hi])
+        slab = dfn.reduce_scatter(
+            rho.new_empty((gx // P, gy, gz)),
+            [c.contiguous() for c in rho.chunk(P, 0)], group=group)
+        f = torch.fft.fft(torch.fft.rfft(slab, dim=2), dim=1)
+        mz = f.shape[2]
+        blocks = torch.view_as_real(f).reshape(
+            gx // P, P, gy // P, mz, 2).transpose(0, 1).contiguous()
+        f = torch.view_as_complex(dfn.all_to_all_single(
+            torch.empty_like(blocks), blocks, group=group).reshape(
+            gx, gy // P, mz, 2).contiguous())
+        f = torch.fft.fft(f, dim=0)
+        infl = infl_t[:, p * (gy // P):(p + 1) * (gy // P)]
+        part = (infl * (f.real ** 2 + f.imag ** 2)).sum()
+        if include_real_space:
+            part = part + _real_space(_wrapx(xr), lo, hi)
+        return sum_over(part, group)
+
+    def _real_space(xw: Tensor, lo: int, hi: int) -> Tensor:
+        """The erfc pair sum over the pairs of rows lo..hi (of wrapped
+        coordinates ``xw``) with every atom."""
+        d = _minimg(xw[lo:hi, None, :] - xw[None, :, :])
+        r2 = (d * d).sum(-1)
+        mask = real_mask[lo:hi] & (r2 < rc2)
+        r = torch.sqrt(torch.where(mask, r2, 1.0).clamp_min(_EPS))
+        qq = q[lo:hi, None] * q[None, :]
+        return torch.where(
+            mask, qq * torch.special.erfc(alpha_v * r) / r, 0.0).sum()
 
     energy.ewald_alpha = alpha_v
     energy.grid_shape = (gx, gy, gz)

@@ -15,6 +15,14 @@ are loaded IN PLACE and returned; dataclasses come back as new
 instances whose tensors sit on the template's devices and whose
 generators are the template's, loaded.  The format is this package's
 own: it does not read the JAX package's orbax checkpoints.
+
+Under ``torch.distributed`` a :class:`CheckpointManager` is collective:
+every rank writes its own shard of the tree (a sharded chain state holds
+only the rank's chains) into ``ckpt_<step>.tmp/rank<r>.pt``, and after a
+barrier rank 0 commits the step by renaming the directory to
+``ckpt_<step>/``; a restore gives every rank its own shard back.  A
+dataclass field marked ``metadata={"checkpoint": False}`` (a shard's
+mesh) is not saved; a restore keeps the template's.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import shutil
 from typing import Any, Dict, Optional
 
 import torch
@@ -42,7 +51,7 @@ def _encode(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {_KIND: "dataclass", "name": type(obj).__name__,
                 "fields": {f.name: _encode(getattr(obj, f.name))
-                           for f in dataclasses.fields(obj)}}
+                           for f in _saved_fields(obj)}}
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
@@ -52,6 +61,11 @@ def _encode(obj: Any) -> Any:
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     raise TypeError(f"cannot checkpoint a {type(obj).__name__}")
+
+
+def _saved_fields(obj: Any) -> list:
+    return [f for f in dataclasses.fields(obj)
+            if f.metadata.get("checkpoint", True)]
 
 
 def _kind(saved: Any) -> Optional[str]:
@@ -80,7 +94,7 @@ def _decode(template: Any, saved: Any) -> Any:
         return dataclasses.replace(template, **{
             f.name: _decode(getattr(template, f.name),
                             saved["fields"][f.name])
-            for f in dataclasses.fields(template)})
+            for f in _saved_fields(template)})
     if torch.is_tensor(template):
         return saved.to(template.device)
     if isinstance(template, dict):
@@ -121,18 +135,32 @@ def restore_checkpoint(path: str, template: Any) -> Any:
 
 class CheckpointManager:
     """Step-numbered checkpoints in ``directory``, the newest
-    ``max_to_keep`` kept."""
+    ``max_to_keep`` kept.  Collective, one shard a rank, while a
+    ``torch.distributed`` process group exists (the module docstring):
+    every rank then calls ``save`` and ``restore`` with its own shard,
+    and ``directory`` is on a file system every rank sees."""
 
-    _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+    _NAME = re.compile(r"^ckpt_(\d+)(\.pt)?$")
 
     def __init__(self, directory: str, max_to_keep: int = 3):
         if max_to_keep < 1:
             raise ValueError("max_to_keep must be at least 1")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = int(max_to_keep)
-        os.makedirs(self.directory, exist_ok=True)
+        import torch.distributed as dist
+        self._dist = dist if dist.is_initialized() else None
+        if self._dist is None or self._dist.get_rank() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self._dist is not None:
+            self._dist.barrier()
 
     def _path(self, step: int) -> str:
+        if self._dist is not None:
+            return os.path.join(self.directory, f"ckpt_{int(step)}",
+                                f"rank{self._dist.get_rank()}.pt")
         return os.path.join(self.directory, f"ckpt_{int(step)}.pt")
 
     def all_steps(self) -> list:
@@ -144,9 +172,26 @@ class CheckpointManager:
         return sorted(steps)
 
     def save(self, step: int, tree: Any) -> None:
-        save_checkpoint(self._path(step), tree)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        if self._dist is None:
+            save_checkpoint(self._path(step), tree)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+            return
+        final = os.path.join(self.directory, f"ckpt_{int(step)}")
+        staging = final + ".tmp"
+        if self._dist.get_rank() == 0:
+            shutil.rmtree(staging, ignore_errors=True)
+            os.makedirs(staging)
+        self._barrier()
+        save_checkpoint(os.path.join(
+            staging, f"rank{self._dist.get_rank()}.pt"), tree)
+        self._barrier()
+        if self._dist.get_rank() == 0:
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(staging, final)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, f"ckpt_{old}"))
+        self._barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

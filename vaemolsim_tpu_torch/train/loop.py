@@ -12,8 +12,9 @@ batches``, a stream drawn anew each epoch.  ``fit_ensemble`` trains K
 models of one structure side by side on the same batches, each with its
 own optimizer and generator; it runs the K members one after another
 within each step (the JAX package ``vmap``s them into one program; a
-member-batched program is a ROADMAP.md item).  Sharded training
-(``mesh``, ``process_local_data``) raises ``NotImplementedError``.
+member-batched program is a ROADMAP.md item).  ``fit(mesh=...)`` trains
+data-parallel over a ``DeviceMesh`` dimension: each rank takes its slice
+of every batch and the gradients are all-reduced after ``backward``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from vaemolsim_tpu_torch._tree import leaves, tree_map
+from vaemolsim_tpu_torch.parallel.distributed import (all_gather_cat,
+                                                      mesh_dim,
+                                                      rank_generator)
+from vaemolsim_tpu_torch.parallel.sharding import replicate
 
 Tensor = torch.Tensor
 
@@ -34,32 +41,11 @@ __all__ = ["fit", "fit_ensemble", "make_train_step", "stack_models",
 _RESERVED = ("loss", "epoch_time_s")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to vaemolsim_tpu_torch yet (see ROADMAP.md)")
-
-
-def _leaves(data) -> List[Tensor]:
-    if isinstance(data, dict):
-        return [l for v in data.values() for l in _leaves(v)]
-    if isinstance(data, (tuple, list)):
-        return [l for v in data for l in _leaves(v)]
-    return [data]
-
-
-def _map(fn: Callable[[Tensor], Tensor], data):
-    if isinstance(data, dict):
-        return {k: _map(fn, v) for k, v in data.items()}
-    if isinstance(data, (tuple, list)):
-        return type(data)(_map(fn, v) for v in data)
-    return fn(data)
-
-
 def _num_samples(data) -> int:
-    leaves = _leaves(data)
-    if not leaves:
+    found = leaves(data)
+    if not found:
         raise ValueError("data has no tensor leaves")
-    sizes = {leaf.shape[0] for leaf in leaves}
+    sizes = {leaf.shape[0] for leaf in found}
     if len(sizes) != 1:
         raise ValueError("all data leaves must share the leading (sample) "
                          f"axis; got sizes {sorted(sizes)}")
@@ -67,20 +53,42 @@ def _num_samples(data) -> int:
 
 
 def _take(data, idx: Tensor):
-    return _map(lambda a: a[idx.to(a.device)], data)
+    return tree_map(lambda a: a[idx.to(a.device)], data)
 
 
-def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer
-                    ) -> Callable:
+def _average_grads(params: List[Tensor], group, world: int) -> None:
+    """Each parameter's gradient replaced by its mean over ``group``'s
+    ranks: one all-reduce of the flattened gradients (a missing gradient
+    counts as zeros, so every rank sends the same layout)."""
+    import torch.distributed as dist
+
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    offset = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[offset:offset + g.numel()].view_as(p).clone()
+        offset += g.numel()
+
+
+def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
+                    grad_group=None, world: int = 1) -> Callable:
     """``step(model, batch, generator) -> (loss, metrics)``: forward,
     backward and one optimizer step (the optimizer holds the model's
-    parameters).  Loss and metrics come back detached, on the device."""
+    parameters).  Loss and metrics come back detached, on the device.
+    With ``grad_group`` (a process group of ``world`` ranks) the
+    gradients are averaged over its ranks before the optimizer step."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(model, batch, generator):
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn(model, batch, generator)
         loss, metrics = out if isinstance(out, tuple) else (out, {})
         loss.backward()
+        if grad_group is not None:
+            _average_grads(params, grad_group, world)
         optimizer.step()
         return loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
                                for k, v in metrics.items()}
@@ -97,6 +105,7 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
         shuffle: bool = True,
         scan_epochs: bool = False,
         mesh=None,
+        mesh_axis: str = "batch",
         process_local_data: bool = False,
         validation_data: Any = None,
         early_stopping_patience: Optional[int] = None,
@@ -132,30 +141,98 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
 
     A callable ``data(generator)`` is a stream: each epoch iterates
     over the batches it returns (``batch_size`` and ``shuffle`` are then
-    its own concern).  ``mesh`` and ``process_local_data`` raise
-    ``NotImplementedError``.
+    its own concern).
+
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) for data-parallel
+    training over its dimension ``mesh_axis``.  Every rank calls ``fit``
+    with the same model, data, generator seed and settings; the model is
+    made equal to rank 0's, every rank draws the same shuffle and takes
+    its slice of each batch, the loss's own draws come from a stream of
+    the rank's own, and the gradients are averaged over the ranks (one
+    all-reduce a step) before the optimizer step, so the ranks' weights
+    stay identical.  ``batch_size`` must divide over the dimension, and
+    the sample count is trimmed to a multiple of it.  Results match the
+    one-device ``fit`` up to float reduction order (for a loss that
+    draws nothing).  The history is the mean over the ranks; a
+    validation set is trimmed alike and evaluated whole on every rank,
+    which all get the same value.
+
+    ``process_local_data=True``: every rank passes only its shard of the
+    data; the shards are all-gathered once, in rank order, into the
+    global set (at the sizes this library trains on, a copy on every
+    rank is cheap), which then trains as above.  It takes a ``mesh``,
+    ``scan_epochs=True`` (the JAX package's requirement, kept), no
+    stream and no validation set, and a global sample count that
+    divides over the dimension.
     """
-    if mesh is not None:
-        raise _not_ported("fit(mesh=...), sharded training")
-    if process_local_data:
-        raise _not_ported("fit(process_local_data=True)")
     streamed = callable(data)
+    if process_local_data:
+        if validation_data is not None:
+            raise ValueError(
+                "validation_data is not supported with process_local_data "
+                "(each rank holds only its shard); evaluate after training")
+        if mesh is None:
+            raise ValueError("process_local_data needs a process-spanning "
+                             "mesh (parallel.make_mesh after "
+                             "initialize_distributed)")
+        if streamed:
+            raise ValueError("process_local_data takes in-memory local "
+                             "shards; wrap streams per-process upstream")
+        if not scan_epochs:
+            raise ValueError(
+                "multi-process fit requires scan_epochs=True (the JAX "
+                "package's rule, kept so that one call runs in both)")
     if ema_decay is not None and not (0.0 <= ema_decay < 1.0):
         raise ValueError(f"ema_decay must be in [0, 1); got {ema_decay}")
+    group, world, rank = None, 1, 0
+    if mesh is not None:
+        group, world, rank = mesh_dim(mesh, mesh_axis)
+        if process_local_data:
+            data = _gather_shards(data, group)
+        replicate(model, mesh)
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer = (optimizer or (lambda ps: torch.optim.Adam(
         ps, lr=learning_rate)))(params)
-    step = make_train_step(loss_fn, optimizer)
+    step = make_train_step(loss_fn, optimizer, group, world)
 
     if not streamed:
         n = _num_samples(data)
         batch_size = min(batch_size or n, n)
         n_batches = max(n // batch_size, 1)
+        if mesh is not None:
+            if batch_size % world:
+                raise ValueError(
+                    f"batch_size ({batch_size}) must divide evenly over "
+                    f"the {world}-way {mesh_axis!r} mesh axis")
+            n_keep = n - n % world
+            if n_keep != n:
+                if process_local_data:
+                    raise ValueError(
+                        f"global sample count ({n}) must divide evenly "
+                        f"over the {world}-way {mesh_axis!r} axis in "
+                        "multi-process mode (pad or trim the shards)")
+                data = tree_map(lambda a: a[:n_keep], data)
+                n = n_keep
+                batch_size = min(batch_size, n)
+                n_batches = max(n // batch_size, 1)
     device = generator.device
+    # Under a mesh the loss draws from this rank's own stream (the same
+    # draws on every rank would correlate the ranks' samples); the
+    # shuffles and the evaluation seed stay on the shared generator.
+    loss_gen = (generator if mesh is None
+                else rank_generator(generator, rank))
 
     eval_seed = None
     if validation_data is not None:
-        _num_samples(validation_data)
+        nv = _num_samples(validation_data)
+        if mesh is not None:
+            nv_keep = nv - nv % world
+            if nv_keep == 0:
+                raise ValueError(
+                    f"validation_data has {nv} samples, fewer than the "
+                    f"{world}-way {mesh_axis!r} mesh axis (an empty "
+                    "trimmed set would make val_loss NaN)")
+            validation_data = tree_map(lambda a: a[:nv_keep], validation_data)
         # One seed, drawn only with a validation set so that training
         # streams are unchanged otherwise; every epoch evaluates with a
         # generator reset to it, so val_loss moves with the model only.
@@ -178,8 +255,8 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
         metrics: Dict[str, List[Tensor]] = {}
         for batch in (data(generator) if streamed
                       else _batches(data, n, batch_size, n_batches, shuffle,
-                                    generator)):
-            loss, step_metrics = step(model, batch, generator)
+                                    generator, rank, world)):
+            loss, step_metrics = step(model, batch, loss_gen)
             if ema is not None:
                 with torch.no_grad():
                     for e, p in zip(ema_params, params):
@@ -193,7 +270,12 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
             raise ValueError("data stream yielded no batches")
         means = torch.stack([torch.stack(losses).float().mean()]
                             + [torch.stack(v).float().mean()
-                               for v in metrics.values()]).tolist()
+                               for v in metrics.values()])
+        if group is not None:
+            import torch.distributed as dist
+            dist.all_reduce(means, group=group)
+            means = means / world
+        means = means.tolist()
         history["loss"].append(means[0])
         history["epoch_time_s"].append(time.perf_counter() - t0)
         for name, v in zip(metrics, means[1:]):
@@ -230,13 +312,34 @@ def fit(model: torch.nn.Module, loss_fn: Callable, data: Any, *,
 
 
 def _batches(data, n: int, batch_size: int, n_batches: int, shuffle: bool,
-             generator: torch.Generator):
+             generator: torch.Generator, rank: int = 0, world: int = 1):
     """One epoch's batches: a permutation drawn from ``generator`` (or
-    the identity), cut into ``n_batches`` of ``batch_size``."""
+    the identity), cut into ``n_batches`` of ``batch_size``; with
+    ``world`` ranks, slice ``rank`` of each batch."""
     order = (torch.randperm(n, generator=generator, device=generator.device)
              if shuffle else torch.arange(n, device=generator.device))
+    share = batch_size // world
     for b in range(n_batches):
-        yield _take(data, order[b * batch_size:(b + 1) * batch_size])
+        lo = b * batch_size + rank * share
+        yield _take(data, order[lo:lo + share])
+
+
+def _gather_shards(data, group):
+    """The global data set from each rank's shard: an all-gather of every
+    leaf over ``group``, concatenated in rank order (shards may differ
+    in length).  One gather of the whole set, once a fit: fine at the
+    sizes a single host's memory holds."""
+    sizes = all_gather_cat(torch.tensor([_num_samples(data)]),
+                           group).tolist()
+    top = max(sizes)
+
+    def gather(a):
+        a = torch.as_tensor(a)
+        pad = a.new_zeros((top - a.shape[0],) + tuple(a.shape[1:]))
+        parts = all_gather_cat(torch.cat([a, pad]), group).split(top)
+        return torch.cat([p[:k] for p, k in zip(parts, sizes)])
+
+    return tree_map(gather, data)
 
 
 def stack_models(models: Sequence[torch.nn.Module]) -> torch.nn.ModuleList:
