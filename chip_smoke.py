@@ -100,7 +100,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and resumed into a fresh model, optimizer and generator with the
    uninterrupted run's losses); examples/09 at its --full widths (K = 8
    members, 25k points, batch 1024) through ``fit_ensemble`` for
-   ENS_EPOCHS epochs with the example's validation; the backmapping
+   ENS_EPOCHS epochs with the example's validation, on the member axis
+   (one vmapped step: kernels 1 and 2 launch once a block for all eight
+   members, each member-batched launch then held to the plain version
+   member by member); the backmapping
    model with BASELINE.json's autoregressive von Mises mixture decoder
    (training, ``predict`` and ``log_prob`` at 10k sites, rotation
    invariance); then kernel 2 at that decoder's MADE (3 -> 24 -> 24) and
@@ -216,7 +219,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    collective checkpoint; then the input pipeline (a DCD file through
    ``epoch_stream``, prefetch copies against compute) and the utilities
    (``checked`` on a NaN through kernel 2, ``StepTimer`` and
-   ``benchmark_fn`` against CUDA events, a ``trace`` file).
+   ``benchmark_fn`` against CUDA events, a ``trace`` file);
+18. runs slice 15 (``SLICE15_PHASES``): examples/30 at its default
+   depths (a committee of three SchNets stacked on the member axis,
+   trained on cold LJ frames, deployed by committee-mean MD at a hotter
+   state, two rounds of labelling the frames of highest force
+   disagreement, the random-acquisition control, the example's four
+   asserts), its committee trainer and every MD run replayed from
+   captured CUDA graphs.
    A line before the last gives every phase's seconds, longest first.
 
 Every path runs with the launch counters zeroed just before it and read
@@ -284,6 +294,7 @@ from vaemolsim_tpu_torch.ops import distributions as dist
 from vaemolsim_tpu_torch.parallel import (REMCState, make_remc_step,
                                           run_remc, temperature_ladder)
 from vaemolsim_tpu_torch.ops.fused_mlp import (dense_stack_cuda,
+                                               dense_stack_members_cuda,
                                                dense_stack_plain,
                                                stack_regime)
 from vaemolsim_tpu_torch.train import (CheckpointManager, fit, fit_ensemble,
@@ -2590,10 +2601,113 @@ def ensemble_member(seed, dev):
                     "bin_range": [-5.0, 5.0]}), base)
 
 
+def member_kernel_bounds(M, n, ks, bs=None, K=None):
+    """(bound µs, what bounds it) of M members' dense stacks (weights
+    ``ks``, biases ``bs``, n rows each) or, with ``K``, of M splines of
+    one K-bin knot row over n elements each."""
+    if K is not None:
+        return _bound(4 * M * (3 * n + 3 * K - 1), M * n * spline_flops(K))
+    nbytes = 4 * M * (n * (ks[0].shape[1] + ks[-1].shape[2])
+                      + sum(k[0].numel() for k in ks)
+                      + sum(b[0].numel() for b in bs))
+    return _bound(nbytes, 2 * M * n * sum(k[0].numel() for k in ks))
+
+
+def check_member_kernels(stack, gen, dev):
+    """Kernels 2 and 1 with a member axis (one launch for all members),
+    each against the plain version run member by member: example 09's
+    conditioner at its trained stacked weights (M = ENS_K, one ones row,
+    1->64->47 tanh; the small-N regime), the backmapping decoder's widths
+    for M = 3 members at 1024 rows (the tiled regime), and M = ENS_K knot
+    rows of 16 bins on [-5, 5], one a member over 1024 elements each,
+    forward and inverse (the table regime), at check_dense_stack's and
+    check_rqs's tolerances (two log-dets of the 8192 may differ more),
+    each member's spline also bit for bit against its own single-spline
+    launch.  Each
+    is timed against the plain version vmapped over the members (one
+    batched call), beside its bound; the stacks also against the batched
+    library chain (baddbmm, tanh, baddbmm)."""
+    state = stack.state()
+    pre = "flow.blocks.0.conditioner."
+    heads = ("w_head", "h_head", "s_head")
+    cond_case = (
+        [state[pre + "trunk.kernel"],
+         torch.cat([state[f"{pre}{h}.kernel"] for h in heads], -1)],
+        [state[pre + "trunk.bias"],
+         torch.cat([state[f"{pre}{h}.bias"] for h in heads], -1)])
+    tiled = ([torch.randn(3, a, b, generator=gen, device=dev) / math.sqrt(a)
+              for a, b in ((20, 40), (40, 9))],
+             [0.1 * torch.randn(3, b, generator=gen, device=dev)
+              for b in (40, 9)])
+    cases = [(f"members M={ENS_K} N=1 1->64->47 tanh", cond_case,
+              ["tanh", None], 1),
+             ("members M=3 N=1024 20->40->9 relu", tiled, ["relu", None],
+              1024)]
+    for name, (ks, bs), acts, n in cases:
+        M = ks[0].shape[0]
+        x = (torch.ones(M, n, ks[0].shape[1], device=dev) if n == 1 else
+             torch.randn(M, n, ks[0].shape[1], generator=gen, device=dev))
+        got = dense_stack_members_cuda(x, ks, bs, acts)
+        want = torch.stack([dense_stack_plain(
+            x[m], [k[m] for k in ks], [b[m] for b in bs], acts)
+            for m in range(M)])
+        err = compare(name, got, want, 1e-4, 1e-4)
+        plain = torch.func.vmap(
+            lambda xm, k1, k2, b1, b2: dense_stack_plain(
+                xm, [k1, k2], [b1, b2], acts))
+        ms = timed(lambda: dense_stack_members_cuda(x, ks, bs, acts))
+        plain_ms = timed(lambda: plain(x, *ks, *bs))
+        act = torch.tanh if acts[0] == "tanh" else torch.relu
+        lib_ms = timed(lambda: torch.baddbmm(
+            bs[1][:, None], act(torch.baddbmm(bs[0][:, None], x, ks[0])),
+            ks[1]))
+        bound_us, bound_by = member_kernel_bounds(M, n, ks, bs)
+        record("dense_stack", name, err, ms, plain_ms,
+               regime=stack_regime(n, [ks[0].shape[1]]
+                                   + [k.shape[2] for k in ks])[0],
+               bound_us=bound_us, bound_by=bound_by, library_ms=lib_ms)
+    K, n = 16, 1024
+    raw = [torch.randn(ENS_K, 1, 1, k, generator=gen, device=dev)
+           for k in (K, K, K - 1)]
+    params = (_bin_positions(raw[0], -5.0, 5.0, K),
+              _bin_positions(raw[1], -5.0, 5.0, K), _slopes(raw[2]))
+    x = torch.rand(ENS_K, n, 1, generator=gen, device=dev) * 14.0 - 7.0
+    for inverse in (False, True):
+        plain = rqs.rqs_inverse_plain if inverse else rqs.rqs_forward_plain
+        got = rqs.rqs_members_cuda(x, *params, -5.0, inverse)
+        want = [torch.stack(v) for v in zip(*[
+            plain(x[m], *(p[m] for p in params), -5.0)
+            for m in range(ENS_K)])]
+        # Two log-dets of the 8192 may differ more: the inverse's root near
+        # a vanishing discriminant magnifies FMA contraction.
+        err = max(compare("rqs members value", got[0], want[0], 1e-5, 1e-5),
+                  compare("rqs members ldj", got[1], want[1], 1e-4, 0.0,
+                          2 / got[1].numel()))
+        for m in range(ENS_K):
+            one = rqs.rqs_cuda(x[m], *(p[m] for p in params), -5.0, inverse)
+            fail_unless(torch.equal(got[0][m], one[0])
+                        and torch.equal(got[1][m], one[1]),
+                        f"rqs members: member {m} differs from its own "
+                        "single-spline launch")
+        vplain = torch.func.vmap(lambda *a: plain(*a, -5.0))
+        ms = timed(lambda: rqs.rqs_members_cuda(x, *params, -5.0, inverse))
+        plain_ms = timed(lambda: vplain(x, *params))
+        bound_us, bound_by = member_kernel_bounds(ENS_K, n, None, K=K)
+        way = "inverse" if inverse else "forward"
+        record("rqs", f"members M={ENS_K} {way} broadcast N={n} K={K}",
+               err, ms, plain_ms,
+               plan=rqs.kernel_plan(n, K, 1, members=ENS_K),
+               bound_us=bound_us, bound_by=bound_by)
+
+
 def ensemble_path(dev):
     """examples/09_ensemble_training.py at --full widths (K = 8 members,
     ENS_TRAIN training and 10k validation points of the 4-mode mixture, batch
-    1024, Adam 3e-3) through fit_ensemble, ENS_EPOCHS epochs; then the
+    1024, Adam 3e-3) through fit_ensemble, ENS_EPOCHS epochs: each step
+    one vmapped gradient over the stacked members, so kernels 2 and 1
+    launch once a block for all members (the kernels' member axis) and
+    never one member at a time; then each member-batched kernel against
+    its plain version member by member (check_member_kernels), and the
     example's own validation: each member's held-out NLL, the
     deep-ensemble NLL against the target's entropy, and the best
     member's mode split of 20k samples (about 0.75 / 0.5 / 0.25)."""
@@ -2621,10 +2735,17 @@ def ensemble_path(dev):
             learning_rate=3e-3)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    counts = path_counts("ensemble_path")
-    fail_unless(counts["rqs"] > 0 and counts["dense_stack"] > 0,
-                f"ensemble launch counts {counts}")
+    counts = path_counts("ensemble_path",
+                         expect=("rqs_members", "dense_stack_members"))
     steps = ENS_EPOCHS * (ENS_TRAIN // ENS_BATCH)
+    blocks = len(stack[0].flow.blocks)
+    fail_unless(all(counts[k] == counts[f"{k}_members"] == blocks * steps
+                    for k in ("rqs", "dense_stack")),
+                f"ensemble launch counts {counts}: expected one member-"
+                f"batched launch of kernels 1 and 2 a block a step "
+                f"({blocks} x {steps}) and no other")
+    with torch.no_grad():
+        check_member_kernels(stack, gen, dev)
     nll = val_nll()
     with torch.no_grad():
         member_lp = torch.stack([m().log_prob(val) for m in stack])
@@ -2652,6 +2773,7 @@ def ensemble_path(dev):
     row = sampling_row(
         "ensemble", dt, ENS_K * steps / dt, "member-steps/s", counts, busy,
         ms_per_step=1e3 * dt / steps, members=ENS_K, epochs=ENS_EPOCHS,
+        vmapped=True,
         val_nll=nll.tolist(), ensemble_nll=ens_nll, target_entropy=entropy,
         best_member=best, mode_split=split, routes=dict(routes),
         losses=[h.tolist() for h in hist["loss"]])
@@ -7028,6 +7150,21 @@ def spline_flops(K):
     return 4 * (K - 1) + 25
 
 
+def proposal_bound(vae, m, K=32):
+    """(bound µs, what bounds it) of kernel 4's whole proposal over m
+    chains: two encoder and two decoder passes and 2B = 4 spline walks a
+    chain; x1 in, x2 and four scalars out."""
+    enc_w, _, _, _ = mf._extract_mlp(vae.encoder, "encoder")
+    dec_w, _, _, _ = mf._extract_mlp(vae.decoder, "decoder")
+    ew = (enc_w[0].shape[0] * enc_w[0].shape[1]
+          + enc_w[2].shape[0] * enc_w[2].shape[1])
+    dw = (dec_w[0].shape[0] * dec_w[0].shape[1]
+          + dec_w[2].shape[0] * dec_w[2].shape[1])
+    d_x = dec_w[2].shape[1] // 2
+    return _bound(4 * m * (d_x + d_x + 4),
+                  m * (2 * 2 * ew + 2 * 2 * dw + 4 * spline_flops(K)))
+
+
 def bounds(vae, flow):
     """{kernel or shape: (bound µs, what bounds it)}, at each kernel's
     main shape and at the one-row MAF conditioner and the MAF forward:
@@ -7038,23 +7175,15 @@ def bounds(vae, flow):
            f"rqs N={SIZES[0]}": _bound(4 * (3 * SIZES[0] + 3 * K - 1),
                                        SIZES[0] * spline_flops(K))}
     enc_w, _, _, _ = mf._extract_mlp(vae.encoder, "encoder")
-    dec_w, _, _, _ = mf._extract_mlp(vae.decoder, "decoder")
     ew = (enc_w[0].shape[0] * enc_w[0].shape[1]
           + enc_w[2].shape[0] * enc_w[2].shape[1])
-    dw = (dec_w[0].shape[0] * dec_w[0].shape[1]
-          + dec_w[2].shape[0] * dec_w[2].shape[1])
     d_in, d_out = enc_w[0].shape[0], enc_w[2].shape[1]
     out["dense_stack"] = _bound(
         4 * (n * (d_in + d_out) + ew + sum(t.numel() for t in enc_w[1::2])),
         2 * n * ew)
-    # Whole proposal: two encoder and two decoder passes and 2B = 4
-    # spline walks per chain; x1 in, x2 and four scalars out.
-    d_x = dec_w[2].shape[1] // 2
     for m, key in ((n, "vae_proposal"),
                    (SIZES[0], f"vae_proposal N={SIZES[0]}")):
-        out[key] = _bound(4 * m * (d_x + d_x + 4),
-                          m * (2 * 2 * ew + 2 * 2 * dw
-                               + 4 * spline_flops(K)))
+        out[key] = proposal_bound(vae, m, K)
     cond = flow.flowed_dist.flow.blocks[0].conditioner
     D, H, Kf = (cond.w_net.event_size, cond.w_net.kernels[0].shape[1],
                 cond.num_bins)
@@ -7332,11 +7461,10 @@ def check_proposal_offset(vae, dev):
     seed = torch.tensor([12345, -6789], dtype=torch.int32, device=dev)
     rest = _proposal_args(vae)
     half = EX08_CHAINS // 2
+    xh = x[half:].contiguous()
     whole = mf.vae_proposal_cuda(x, seed, *rest)
-    part = mf.vae_proposal_cuda(x[half:].contiguous(), seed, *rest,
-                                chain0=half)
-    plain = mf.vae_proposal_plain(x[half:].contiguous(), seed, *rest,
-                                  chain0=half)
+    part = mf.vae_proposal_cuda(xh, seed, *rest, chain0=half)
+    plain = mf.vae_proposal_plain(xh, seed, *rest, chain0=half)
     err = 0.0
     for name, w, g, p in zip(("x2", "fwd", "rev", "z1", "z2"), whole, part,
                              plain):
@@ -7346,7 +7474,12 @@ def check_proposal_offset(vae, dev):
         dens = name in ("fwd", "rev")
         err = max(err, compare(f"proposal chain0={half} {name}", g, p,
                                1e-3 if dens else 1e-4, 1e-4, 1e-4))
-    record("vae_proposal", f"chain0={half} philox N={half}", err)
+    ms = timed(lambda: mf.vae_proposal_cuda(xh, seed, *rest, chain0=half))
+    plain_ms = timed(lambda: mf.vae_proposal_plain(xh, seed, *rest,
+                                                   chain0=half))
+    bound_us, bound_by = proposal_bound(vae, half)
+    record("vae_proposal", f"chain0={half} philox N={half}", err, ms,
+           plain_ms, bound_us=bound_us, bound_by=bound_by)
 
 
 def check_slabs(mol, x, mesh):
@@ -7718,6 +7851,272 @@ def pipeline_utils_path(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the member axis (example 09's ensemble above, through one
+# vmapped step) and example 30, committee active learning
+# ---------------------------------------------------------------------------
+
+# Example 30 at its default depths: atoms, density, the cold (training)
+# and hot (deployment) kT, committee members, initial frames, frames
+# acquired a round, rounds, committee train steps initially and a round,
+# bootstrap batch; the validation and deployment chains, deployment MD
+# steps and its collection stride, the label MD's steps (cold, hot).
+AL30_N, AL30_RHO, AL30_KT_COLD, AL30_KT_HOT, AL30_K = 8, 0.4, 0.7, 2.2, 3
+AL30_INIT, AL30_ACQ, AL30_ROUNDS = 96, 48, 2
+AL30_STEPS_INIT, AL30_STEPS_ROUND, AL30_BATCH = 350, 300, 32
+AL30_VAL, AL30_DEPLOY, AL30_MD_STEPS, AL30_COLLECT = 64, 32, 600, 25
+AL30_COLD_STEPS, AL30_HOT_STEPS = 1500, 2500
+# Committee train steps a captured chunk: each capture's eager warm-up
+# runs this many steps (one capture a data size, as JAX compiles one
+# program a size).
+AL30_CHUNK = 10
+
+
+def al30_box():
+    return (AL30_N / AL30_RHO) ** (1.0 / 3.0)
+
+
+def al30_frames(gen, pot, n_frames, kt, n_steps, dev):
+    """Example 30's ``equilibrium_frames``: uniform starts relaxed by 300
+    ``minimize_energy`` steps at lr 0.05, then ``n_steps`` BAOAB steps
+    (dt 0.003, friction 1) replayed through md._BAOAB, wrapped into the
+    box."""
+    L = al30_box()
+    x0 = L * torch.rand(n_frames, AL30_N, 3, generator=gen, device=dev)
+    x0 = potentials.minimize_energy(pot, x0, steps=300, lr=0.05)
+    dyn = md._BAOAB(pot, dt=0.003, kt=kt, friction=1.0, masses=1.0)
+    st, _ = dyn.scan(dyn.start(x0, torch.zeros_like(x0)), n_steps, gen)
+    return st.x - L * torch.floor(st.x / L)
+
+
+def al30_label(pot, x):
+    """The ground-truth oracle: energies and forces."""
+    return md._force_fn(pot)(x)
+
+
+def al30_closest(x):
+    """Per frame, the minimum-image closest approach."""
+    L = al30_box()
+    d = x[..., :, None, :] - x[..., None, :, :]
+    d = d - L * torch.round(d / L)
+    r2 = (d * d).sum(-1) + 1e9 * torch.eye(AL30_N, device=x.device)
+    return torch.sqrt(r2.amin((-2, -1)))
+
+
+def al30_train(stack, data, species, box, steps, seed, dev):
+    """Example 30's ``make_trainer``: ``steps`` steps of the whole
+    committee from fresh Adam moments (optax's adam at 3e-3), each member
+    on its own bootstrap batch of AL30_BATCH frames drawn without
+    replacement from its own generator, the members' losses
+    (``energy_force_loss``, w_energy 0.1) one vmapped gradient, the loop
+    replayed through scan_collect in chunks of AL30_CHUNK steps with the
+    members' generators registered.  Writes the trained weights into the
+    stack; returns the last step's mean loss."""
+    from vaemolsim_tpu_torch.train import EnsembleAdam
+    from vaemolsim_tpu_torch.utils.scan import scan_collect
+    x, e, f = data
+    n = x.shape[0]
+    trainer = EnsembleAdam(stack, lambda m, ix: energy_force_loss(
+        m, x[ix], species, e[ix], f[ix], box=box, w_energy=0.1,
+        w_force=1.0), learning_rate=3e-3)
+    gens = [torch.Generator(device=dev).manual_seed(seed + i)
+            for i in range(len(stack))]
+
+    def step(carry):
+        state, _ = carry
+        idx = torch.stack([torch.rand(n, generator=g, device=dev).argsort()
+                           [:AL30_BATCH] for g in gens])
+        state, loss = trainer.update(state, idx, in_dims=(0,))
+        return state, loss.mean()
+
+    (state, loss), _ = scan_collect(
+        step, (trainer.init(), torch.zeros((), device=dev)), steps,
+        chunk=AL30_CHUNK, generators=gens)
+    trainer.write(state)
+    return float(loss)
+
+
+def al30_committee(stack, species, box):
+    """The committee-mean potential: the members' energies averaged, one
+    vmapped call over the stack."""
+    return lambda x: stack.vmap(lambda m, c: m(c, species, box), x).mean(0)
+
+
+def active_learning_path(dev):
+    """examples/30_active_learning.py at its default depths: a committee
+    of AL30_K SchNets (features 16, 2 blocks, 12 RBFs, cutoff 2.2) stacked
+    on the member axis, trained on AL30_INIT cold frames (kT 0.7) of the
+    periodic 8-atom LJ fluid (AL30_STEPS_INIT steps), deployed for
+    AL30_ROUNDS rounds of AL30_MD_STEPS steps of committee-mean MD at kT
+    2.2 from AL30_DEPLOY hot frames (a frame every AL30_COLLECT steps),
+    labelling the AL30_ACQ frames of highest committee force
+    disagreement and retraining AL30_STEPS_ROUND steps; then the
+    random-acquisition control from the same initial committee and
+    budget, and the example's four asserts.  Every MD run (labels and
+    committee) is replayed by md._BAOAB and every training run by
+    al30_train's scan_collect; no port kernel runs (SchNet has none)."""
+    from vaemolsim_tpu_torch.nn import (ensemble_energy_forces,
+                                        max_force_uncertainty)
+    from vaemolsim_tpu_torch.utils import scan
+    L = al30_box()
+    box = torch.full((3,), L, device=dev)
+    true_pot = potentials.lennard_jones(box=(L, L, L), cutoff=2.2,
+                                        device=dev)
+    species = torch.ones(AL30_N, 1, device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    x_tr = al30_frames(torch.Generator(device=dev).manual_seed(0), true_pot,
+                       AL30_INIT, AL30_KT_COLD, AL30_COLD_STEPS, dev)
+    e_tr, f_tr = al30_label(true_pot, x_tr)
+    x_val = al30_frames(torch.Generator(device=dev).manual_seed(1), true_pot,
+                        AL30_VAL, AL30_KT_HOT, AL30_HOT_STEPS, dev)
+    e_val, f_val = al30_label(true_pot, x_val)
+    f_rms = float(torch.sqrt((f_val ** 2).mean()))
+    sync(dev)
+    label_s = time.perf_counter() - t0
+    stack = stack_models([SchNetPotential.create(
+        torch.Generator(device=dev).manual_seed(10 + i), 1, features=16,
+        num_blocks=2, n_rbf=12, cutoff=2.2, device=dev)
+        for i in range(AL30_K)])
+
+    def validate(st, tag):
+        with torch.no_grad():
+            pred = ensemble_energy_forces(st, x_val, species, box)
+            unc = float(max_force_uncertainty(st, x_val, species, box).mean())
+        rmse = float(torch.sqrt(((pred.forces - f_val) ** 2).mean()))
+        print(f"  [{tag}] hot-ensemble force RMSE {rmse:.3f} "
+              f"({100 * rmse / f_rms:.1f}% of rms), committee uncertainty "
+              f"{unc:.3f}", flush=True)
+        return rmse, unc
+
+    sync(dev)
+    t1 = time.perf_counter()
+    loss0 = al30_train(stack, (x_tr, e_tr, f_tr), species, box,
+                       AL30_STEPS_INIT, 2, dev)
+    sync(dev)
+    train_s = [time.perf_counter() - t1]
+    train_steps = [AL30_STEPS_INIT]
+    print(f"initial committee trained ({AL30_STEPS_INIT} steps, final loss "
+          f"{loss0:.4f})", flush=True)
+    rmse0, _ = validate(stack, "round 0")
+    stack0 = copy.deepcopy(stack)     # the control branches from here
+
+    md_gen = torch.Generator(device=dev).manual_seed(3)
+    sel_closest, flagged, traj1, md_s = [], [], None, 0.0
+    for rnd in range(1, AL30_ROUNDS + 1):
+        dyn = md._BAOAB(al30_committee(stack, species, box), dt=0.003,
+                        kt=AL30_KT_HOT, friction=1.0, masses=1.0)
+        x0 = x_val[:AL30_DEPLOY]
+        sync(dev)
+        t2 = time.perf_counter()
+        traj = dyn.run(x0, torch.zeros_like(x0), AL30_MD_STEPS, md_gen,
+                       False, AL30_COLLECT)
+        sync(dev)
+        md_s += time.perf_counter() - t2
+        frames = traj.reshape(-1, AL30_N, 3)
+        frames = frames - L * torch.floor(frames / L)
+        if traj1 is None:
+            traj1 = frames
+        with torch.no_grad():
+            u = max_force_uncertainty(stack, frames, species, box)
+        top = torch.argsort(-u)[:AL30_ACQ]
+        x_new = frames[top]
+        sel_closest.append(float(al30_closest(x_new).mean()))
+        e_new, f_new = al30_label(true_pot, x_new)
+        x_tr, e_tr, f_tr = (torch.cat([a, b]) for a, b in
+                            ((x_tr, x_new), (e_tr, e_new), (f_tr, f_new)))
+        u_before = float(u[top].median())
+        print(f"round {rnd}: flagged {AL30_ACQ}/{frames.shape[0]} frames "
+              f"(median u {u_before:.3f} vs trajectory "
+              f"{float(u.mean()):.3f}); retraining on {x_tr.shape[0]} "
+              f"labels", flush=True)
+        sync(dev)
+        t1 = time.perf_counter()
+        al30_train(stack, (x_tr, e_tr, f_tr), species, box,
+                   AL30_STEPS_ROUND, 10 * rnd, dev)
+        sync(dev)
+        train_s.append(time.perf_counter() - t1)
+        train_steps.append(AL30_STEPS_ROUND)
+        with torch.no_grad():
+            u_after = float(max_force_uncertainty(
+                stack, x_new, species, box).median())
+        flagged.append((u_before, u_after))
+        rmse_al, _ = validate(stack, f"round {rnd}")
+
+    pick = torch.rand(traj1.shape[0], generator=md_gen,
+                      device=dev).argsort()[:AL30_ROUNDS * AL30_ACQ]
+    x_rnd = traj1[pick]
+    e_rnd, f_rnd = al30_label(true_pot, x_rnd)
+    rnd_data = tuple(torch.cat([a[:AL30_INIT], b]) for a, b in
+                     ((x_tr, x_rnd), (e_tr, e_rnd), (f_tr, f_rnd)))
+    for r in range(AL30_ROUNDS):
+        sync(dev)
+        t1 = time.perf_counter()
+        al30_train(stack0, rnd_data, species, box, AL30_STEPS_ROUND,
+                   100 + 10 * r, dev)
+        sync(dev)
+        train_s.append(time.perf_counter() - t1)
+        train_steps.append(AL30_STEPS_ROUND)
+    rmse_rnd, _ = validate(stack0, "random-acquisition control")
+    mean_cold = float(al30_closest(x_tr[:AL30_INIT]).mean())
+    counts = path_counts("active_learning")
+    fail_unless(sum(counts.values()) == 0,
+                f"example 30 launched port kernels: {counts}")
+    print(f"acquired-frame closest approach {sel_closest[0]:.3f} vs "
+          f"cold-data mean {mean_cold:.3f}; flagged-frame uncertainty "
+          "before->after retrain: " + ", ".join(
+              f"{b:.3f}->{a:.3f}" for b, a in flagged), flush=True)
+    fail_unless(rmse_al < 0.7 * rmse0,
+                f"example 30: AL RMSE {rmse_al} not below 0.7 x {rmse0}")
+    fail_unless(rmse_al < 0.9 * rmse_rnd,
+                f"example 30: AL RMSE {rmse_al} not below 0.9 x the random "
+                f"control's {rmse_rnd}")
+    fail_unless(all(a < 0.8 * b for b, a in flagged),
+                f"example 30: flagged-frame uncertainty {flagged}")
+    fail_unless(sel_closest[0] < mean_cold,
+                f"example 30: acquired closest approach {sel_closest} not "
+                f"below the cold data's {mean_cold}")
+    # The committee steps of the timed runs (train_s), and only those.
+    steps, wall = sum(train_steps), sum(train_s)
+    probe = copy.deepcopy(stack)
+    data = (x_tr, e_tr, f_tr)
+    row = replay_row(
+        "active_learning_train", wall, steps, steps / wall, "committee "
+        "steps/s", counts,
+        lambda: al30_train(probe, data, species, box, AL30_CHUNK, 7, dev),
+        AL30_CHUNK,
+        lambda: al30_train(probe, data, species, box, 4 * AL30_CHUNK, 7,
+                           dev),
+        3 * AL30_CHUNK, dev, skip=1, label_md_seconds=label_s,
+        committee_md_seconds=md_s, train_seconds=train_s,
+        train_steps=train_steps,
+        rmse=dict(initial=rmse0, active=rmse_al, random=rmse_rnd,
+                  f_rms=f_rms),
+        flagged_uncertainty=flagged, selected_closest=sel_closest,
+        cold_closest=mean_cold)
+    print(f"example 30: OK (AL {100 * rmse_al / f_rms:.1f}% vs random "
+          f"{100 * rmse_rnd / f_rms:.1f}% vs initial "
+          f"{100 * rmse0 / f_rms:.1f}% of force rms); labels {label_s:.2f} "
+          f"s, committee MD {md_s:.2f} s "
+          f"({1e3 * md_s / (AL30_ROUNDS * AL30_MD_STEPS):.4f} ms a step, "
+          f"capture included), committee training "
+          f"{', '.join(f'{v:.2f}' for v in train_s)} s", flush=True)
+    with scan.eager():
+        sync(dev)
+        t2 = time.perf_counter()
+        dyn.run(x0, torch.zeros_like(x0), AL30_COLLECT, md_gen, False,
+                AL30_COLLECT)
+        sync(dev)
+        row["committee_md_ms_eager"] = (1e3 * (time.perf_counter() - t2)
+                                        / AL30_COLLECT)
+    row["committee_md_ms_replayed"] = 1e3 * md_s / (AL30_ROUNDS
+                                                    * AL30_MD_STEPS)
+    print(f"example 30: committee MD {row['committee_md_ms_replayed']:.4f} "
+          f"ms a step replayed (capture included) against "
+          f"{row['committee_md_ms_eager']:.4f} eager", flush=True)
+    return row
+
+
 _T0 = time.perf_counter()
 SLICE12_PHASES = (triclinic_npt_path, charged_crystal_path,
                   remd_flow_matching_path, extrapolation_path, hrex_path,
@@ -7728,6 +8127,7 @@ SLICE13B_PHASES = (kinetics_path, weighted_ensemble_path, rare_event_path)
 SLICE13C_PHASES = (difftre_path, cg_path)
 SLICE14A_PHASES = (score_diffusion_path, painn_path)
 SLICE14B_PHASES = (distributed_path, pipeline_utils_path)
+SLICE15_PHASES = (active_learning_path,)
 
 
 def build_kernels(out):
@@ -7870,6 +8270,7 @@ def main():
     pn = stamped(painn_path, dev)
     dist_row = stamped(distributed_path, dev, mol, mol_state.x, vae)
     stamped(pipeline_utils_path, dev)
+    al30 = stamped(active_learning_path, dev)
     fail_unless("jax" not in sys.modules, "jax was imported")
 
     launches = {"generic": generic, "fused": fused,
@@ -7939,7 +8340,8 @@ def main():
                     dist_row["example_08"]["mc"]["generic"]["launches"],
                 "example_08_fused":
                     dist_row["example_08"]["mc"]["fused"]["launches"],
-                "sharded_cell_grid": dist_row["slabs"]["launches"]}
+                "sharded_cell_grid": dist_row["slabs"]["launches"],
+                "active_learning": al30["launches"]}
     print("kernel launches on the main paths: " + json.dumps(
         {k: sum(v.values()) for k, v in launches.items()}), flush=True)
     bound = bounds(vae, flow)
@@ -7956,15 +8358,26 @@ def main():
                   "maf_block": f"inverse D={FLOW_D} N={TRAIN_BATCH}",
                   "pair_attention": PA_MAIN,
                   "cell_lj": MOL_SHAPE}
-    # Kernel 3's bf16 mode is a second entry: its launches are the
-    # maf_block launches made in that mode (maf_block counts both).
+    # Kernel 3's bf16 mode and kernels 1 and 2's member axis are entries
+    # of their own: their launches are the launches made in that mode
+    # (the kernel's own entry counts them too).
     entries = [(name, k, name, None) for name, k in _build.KERNELS.items()]
     entries.append(("maf_block_bf16", _build.KERNELS["maf_block"],
                     "maf_block", "bf16"))
     main_shape["maf_block_bf16"] = f"inverse bf16 D={FLOW_D} N={TRAIN_BATCH}"
+    for kname in ("rqs", "dense_stack"):
+        entries.append((f"{kname}_members", _build.KERNELS[kname], kname,
+                        "members"))
+    main_shape["rqs_members"] = f"members M={ENS_K} forward"
+    main_shape["dense_stack_members"] = f"members M={ENS_K} N=1"
+
+    def mode_of(check):
+        return ("bf16" if "bf16" in check["shape"] else "members"
+                if check["shape"].startswith("members") else None)
+
     for name, k, kernel, mode in entries:
         rows = [c for c in RESULTS["checks"] if c["kernel"] == kernel
-                and ("bf16" in c["shape"]) == (mode == "bf16")]
+                and mode_of(c) == mode]
         timed_row = next(c for c in rows if c["ms"] is not None
                          and c["shape"].startswith(main_shape[name]))
         bound_us, bound_by = (bound[name] if mode is None else
@@ -7995,12 +8408,16 @@ def main():
     slice13c = sum(seconds[p.__name__] for p in SLICE13C_PHASES)
     slice14a = sum(seconds[p.__name__] for p in SLICE14A_PHASES)
     slice14b = sum(seconds[p.__name__] for p in SLICE14B_PHASES)
+    slice15 = sum(seconds[p.__name__] for p in SLICE15_PHASES)
     print(f"slice-12 phases {slice12:.1f} s; slice-13a phases "
           f"{slice13a:.1f} s; slice-13b phases {slice13b:.1f} s; slice-13c "
           f"phases {slice13c:.1f} s; slice-14a phases {slice14a:.1f} s; "
           f"slice-14b phases {slice14b:.1f} s ("
           + ", ".join(f"{p.__name__} {seconds[p.__name__]:.1f} s"
-                      for p in SLICE14B_PHASES) + "); the script "
+                      for p in SLICE14B_PHASES) + f"); slice-15 phases "
+          f"{slice15:.1f} s (ensemble_path "
+          f"{seconds['ensemble_path']:.1f} s, on the member axis); the "
+          f"script "
           f"{time.perf_counter() - _T0:.1f} s", flush=True)
     print("phase seconds: " + json.dumps(dict(sorted(
         ((k, round(v, 1)) for k, v in seconds.items()),

@@ -329,7 +329,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
             dev, x4.data_ptr(), None, out.data_ptr(), 4, 2,
             (ctypes.c_int * 3)(1, 30000, 1), (ctypes.c_int * 2)(2, 0),
             ptrs(wide[0].data_ptr(), wide[1].data_ptr()),
-            ptrs(wide[0].data_ptr(), out.data_ptr()), ptrs(None, None), 0)
+            ptrs(wide[0].data_ptr(), out.data_ptr()), ptrs(None, None), 0,
+            1)
     assert set(_build.launch_counts()) == {"rqs", "dense_stack",
                                            "vae_proposal", "maf_block",
                                            "pair_attention", "cell_lj"}
@@ -2376,3 +2377,129 @@ def test_checked_names_kernel2_on_a_nan_it_writes(dev):
     with torch.no_grad(), pytest.raises(CheckError,
                                         match="dense_stack kernel"):
         checked(lambda v: vae.encoder.mapping(v))(x)
+
+
+# ---------------------------------------------------------------------------
+# Slice 15: kernels 1 and 2's member axis, fit_ensemble as one vmapped step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,n,dims,acts", [
+    (8, 1, [1, 64, 47], ["tanh", None]),         # example 09 (small N)
+    (3, 1024, [20, 40, 9], ["relu", None]),      # the tiled regime
+    (3, 3000, [2, 50, 2], ["tanh", None]),       # the streaming regime
+    (2, 300, [900, 5], ["relu"]),                # the wide regime
+])
+def test_dense_stack_member_axis_matches_plain(dev, M, n, dims, acts):
+    """One launch for M stacks, each member's rows through its own
+    weights, against the plain version member by member (1e-4, as the
+    single stack); counted once, in the "members" mode."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    gen = torch.Generator(device=dev).manual_seed(M + n)
+    ks = [torch.randn(M, a, b, generator=gen, device=dev) / a ** 0.5
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(M, b, generator=gen, device=dev)
+          for b in dims[1:]]
+    x = torch.randn(M, n, dims[0], generator=gen, device=dev)
+    before = dict(fused_mlp.KERNEL.mode_launches)
+    got = fused_mlp.dense_stack_members_cuda(x, ks, bs, acts)
+    assert (fused_mlp.KERNEL.mode_launches.get("members", 0)
+            == before.get("members", 0) + 1)
+    for m in range(M):
+        want = dense_stack_plain(x[m], [k[m] for k in ks],
+                                 [b[m] for b in bs], acts)
+        torch.testing.assert_close(got[m], want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("rows", ["broadcast", "per_element"])
+def test_rqs_member_axis_matches_plain(dev, inverse, rows):
+    """M = 8 splines of 16 bins on [-5, 5] over 1024 elements each in one
+    launch: one knot row a member (the table regime) or a row per element
+    (the walk).  Each member's values and log-dets equal the single
+    spline's launch on that member's parameters bit for bit, and the
+    plain version's at the single spline's tolerances (values to 1e-5 +
+    1e-5|y|, log-dets to 1e-4) on all but 2 of the 8192 log-dets: the
+    inverse's root near a vanishing discriminant magnifies FMA
+    contraction (test_rqs_kernel_edges: 2 of 50 000; here 1.3e-4 at one
+    input of the inverse, in the single launch as in the member one)."""
+    M, n, K = 8, 1024, 16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shape = (M, 1, 1) if rows == "broadcast" else (M, n, 1)
+
+    def raw(k):
+        return torch.randn(shape + (k,), generator=gen, device=dev)
+
+    params = (_bin_positions(raw(K), -5.0, 5.0, K),
+              _bin_positions(raw(K), -5.0, 5.0, K), _slopes(raw(K - 1)))
+    x = torch.rand(M, n, 1, generator=gen, device=dev) * 14.0 - 7.0
+    y, ldj = rqs.rqs_members_cuda(x, *params, -5.0, inverse)
+    plain = rqs.rqs_inverse_plain if inverse else rqs.rqs_forward_plain
+    want = [torch.stack(v) for v in zip(*[
+        plain(x[m], *(p[m] for p in params), -5.0) for m in range(M)])]
+    for m in range(M):
+        one = rqs.rqs_cuda(x[m], *(p[m] for p in params), -5.0, inverse)
+        assert torch.equal(y[m], one[0]) and torch.equal(ldj[m], one[1])
+    torch.testing.assert_close(y, want[0], atol=1e-5, rtol=1e-5)
+    _close_but("ldj", ldj, want[1], 1e-4, 0.0, frac=2 / (M * n))
+
+
+def _ens_member(seed, dev):
+    from vaemolsim_tpu_torch.dists import StaticFlowedDistribution
+    from vaemolsim_tpu_torch.flows import RQSSplineRealNVP
+    from vaemolsim_tpu_torch.ops import distributions as dist
+    base = dist.Independent(dist.Normal(torch.zeros(1, device=dev),
+                                        torch.ones(1, device=dev)), 1)
+    return StaticFlowedDistribution(RQSSplineRealNVP.create(
+        torch.Generator(device=dev).manual_seed(seed), 1, num_blocks=4,
+        rqs_params={"num_bins": 16, "hidden_dim": 64,
+                    "bin_range": [-5.0, 5.0]}, device=dev), base)
+
+
+def test_vmapped_fit_ensemble_step_matches_member_by_member(dev):
+    """One fit_ensemble step of example 09's members on the card (one
+    vmapped gradient: a member-batched launch of kernels 1 and 2 a block)
+    against each member's own step (make_train_step with its own Adam:
+    single-member launches): losses and weights to 1e-5 relative."""
+    from vaemolsim_tpu_torch.ops import fused_mlp
+    from vaemolsim_tpu_torch.train import (fit_ensemble, make_train_step,
+                                           stack_models)
+    K = 4
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = torch.randn(1024, 1, generator=gen, device=dev)
+
+    def loss(f, b, g):
+        return -f().log_prob(b).mean()
+
+    before = [dict(k.mode_launches) for k in (rqs.KERNEL, fused_mlp.KERNEL)]
+    stack, hist = fit_ensemble(
+        stack_models([_ens_member(100 + i, dev) for i in range(K)]), loss,
+        batch, generator=gen, batch_size=1024, shuffle=False,
+        learning_rate=3e-3)
+    for k, was in zip((rqs.KERNEL, fused_mlp.KERNEL), before):
+        assert (k.mode_launches.get("members", 0)
+                - was.get("members", 0)) == 4
+    for i in range(K):
+        alone = _ens_member(100 + i, dev)
+        opt = torch.optim.Adam(alone.parameters(), lr=3e-3)
+        got, _ = make_train_step(loss, opt)(alone, batch, None)
+        torch.testing.assert_close(
+            torch.as_tensor(hist["loss"][0][i]), got.cpu(), rtol=1e-5,
+            atol=1e-6)
+        for p, q in zip(stack[i].parameters(), alone.parameters()):
+            torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6)
+
+
+def test_vmap_of_a_kernel_without_a_member_axis_raises(dev):
+    """A kernel route given no member-batched form raises under
+    torch.func.vmap on a CUDA tensor: no quiet member loop."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(8, 4, generator=gen, device=dev)
+    w = torch.randn(3, 4, 5, generator=gen, device=dev)
+
+    def route(wm):
+        return _build.call_with_plain_grad(lambda a, b: a @ b,
+                                           lambda a, b: a @ b, x, wm)
+
+    with pytest.raises(RuntimeError, match="no member axis"):
+        torch.func.vmap(route)(w)

@@ -11,6 +11,8 @@ to 1e-5 (absolute and relative) after Adam steps in float32, trained
 weights to 1e-4.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -238,3 +240,94 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
     with pytest.raises(ValueError, match="template"):
         mgr.restore({"w": torch.nn.Linear(2, 2)})
     mgr.close()
+
+
+def test_stack_holds_each_tensor_once_with_a_member_axis():
+    """The stacked form: every parameter and buffer once, (K, ...), under
+    the members' own names; each member's tensors are views of its slice
+    (an update of the stack is the member's, and the reverse); moving the
+    stack re-points the members; a copy is independent; a member stacked
+    again is copied, so the first stack keeps its views."""
+    members = [from_jax(jmember(400 + i), "cpu") for i in range(3)]
+    shapes = {n: p.shape for n, p in members[0].named_parameters()}
+    stack = stack_models(members)
+    assert len(stack) == 3 and list(stack) == members
+    state = stack.state()
+    assert set(state) == set(shapes) | {n for n, _ in
+                                        members[0].named_buffers()}
+    for n, shape in shapes.items():
+        assert state[n].shape == (3,) + tuple(shape)
+    assert len(list(stack.parameters())) == len(shapes)
+    assert all(k.startswith("stacked.") for k in stack.state_dict())
+    name = next(iter(shapes))
+    with torch.no_grad():
+        stack.stacked.get_parameter(name).add_(1.0)
+        assert torch.equal(members[1].get_parameter(name), state[name][1])
+        members[2].get_parameter(name).mul_(2.0)
+    assert torch.equal(stack.state()[name][2],
+                       members[2].get_parameter(name))
+    twin = copy.deepcopy(stack)
+    with torch.no_grad():
+        twin.stacked.get_parameter(name).zero_()
+    assert float(members[0].get_parameter(name).detach().abs().sum()) > 0
+    again = stack_models([members[0], members[0]])
+    assert again[0] is not members[0] and again[1] is not again[0]
+    with torch.no_grad():
+        again.stacked.get_parameter(name).zero_()
+    assert torch.equal(members[0].get_parameter(name), stack.state()[name][0])
+    stack.to(torch.float64)
+    assert members[0].get_parameter(name).dtype == torch.float64
+    assert (members[0].get_parameter(name).data_ptr()
+            == stack.stacked.get_parameter(name).data_ptr())
+
+
+def test_stack_checkpoint_round_trip(tmp_path):
+    """A trained stack and its optimizer restored into a stack of other
+    seeds: the stacked tensors, and so every member, equal the saved."""
+    x = t(mixture_data(64, 8))
+    stack, _ = fit_ensemble(
+        stack_models([from_jax(jmember(500 + i), "cpu") for i in range(2)]),
+        nll, x, generator=torch.Generator().manual_seed(1), batch_size=32)
+    path = tmp_path / "stack.pt"
+    save_checkpoint(str(path), {"stack": stack})
+    fresh = stack_models([from_jax(jmember(600 + i), "cpu")
+                          for i in range(2)])
+    restored = restore_checkpoint(str(path), {"stack": fresh})
+    assert restored["stack"] is fresh
+    for (n, a), b in zip(stack.state().items(), fresh.state().values()):
+        assert torch.equal(a, b), n
+    for m, f in zip(stack, fresh):
+        with torch.no_grad():
+            assert torch.equal(m().log_prob(x), f().log_prob(x))
+
+
+def test_fit_ensemble_draws_come_from_each_members_generator():
+    """``draw`` makes each member's random inputs from its own generator
+    outside the vmapped call (stacked on the member axis); the trained
+    members equal fits that replay each member's draws.  A loss that
+    draws inside the vmapped call raises instead."""
+    x = t(mixture_data(64, 9))
+
+    def noisy(f, b, d):
+        return nll(f, b + 0.05 * d, None)
+
+    stack, _ = fit_ensemble(
+        stack_models([from_jax(jmember(700 + i), "cpu") for i in range(2)]),
+        noisy, x, generator=torch.Generator().manual_seed(2),
+        batch_size=32, shuffle=False,
+        draw=lambda g: torch.randn(32, 1, generator=g))
+    seeds = torch.randint(2 ** 62, (2,),
+                          generator=torch.Generator().manual_seed(2))
+    for i, member in enumerate(stack):
+        g = torch.Generator().manual_seed(int(seeds[i]))
+        alone = from_jax(jmember(700 + i), "cpu")
+        batches = [x[:32] + 0.05 * torch.randn(32, 1, generator=g),
+                   x[32:] + 0.05 * torch.randn(32, 1, generator=g)]
+        fit(alone, nll, lambda gen: iter(batches),
+            generator=torch.Generator())
+        for p, q in zip(alone.parameters(), member.parameters()):
+            torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
+    with pytest.raises(RuntimeError, match="random"):
+        fit_ensemble(stack, lambda f, b, d: nll(
+            f, b + torch.randn(b.shape), None), x,
+            generator=torch.Generator(), batch_size=32)

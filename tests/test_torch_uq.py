@@ -126,3 +126,95 @@ def test_identical_members_give_zero_spread(kind):
     np.testing.assert_allclose(
         ensemble_energy_forces(st, xt, spt).forces.detach().numpy(),
         -g.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["schnet", "painn"])
+def test_from_jax_stack_gives_the_stacked_form(kind):
+    """A JAX committee comes across as the port's stacked form: each
+    leaf once with the leading member axis, equal to the JAX leaf, and
+    member i equal to the JAX member i unstacked."""
+    members = committee(kind)
+    jst = jstack(members)
+    st = from_jax_stack(jst, "cpu")
+    one = from_jax(members[1], "cpu")
+    state = st.state()
+    assert {n for n, _ in one.named_parameters()} <= set(state)
+    for n, p in one.named_parameters():
+        assert state[n].shape == (3,) + tuple(p.shape)
+        torch.testing.assert_close(state[n][1], p.detach(), rtol=0, atol=0)
+    x, sp = frames(batch=2, seed=5)
+    with torch.no_grad():
+        torch.testing.assert_close(st[1](torch.as_tensor(x),
+                                         torch.as_tensor(sp)),
+                                   one(torch.as_tensor(x),
+                                       torch.as_tensor(sp)))
+
+
+@pytest.mark.parametrize("kind", ["schnet", "painn"])
+def test_force_loss_gradient_under_func_grad_equals_autograd(kind):
+    """energy_force_loss takes the force by torch.func.grad: its weight
+    gradient by loss.backward() and by torch.func.grad over the
+    functional call agree (what the vmapped committee trainer takes)."""
+    from vaemolsim_tpu_torch.nn import energy_force_loss
+    member = from_jax(committee(kind, 1)[0], "cpu")
+    x, sp = frames(batch=3, seed=6)
+    rng = np.random.default_rng(6)
+    e, f = (torch.as_tensor(rng.normal(size=(3,)).astype(np.float32)),
+            torch.as_tensor(rng.normal(size=x.shape).astype(np.float32)))
+    args = (torch.as_tensor(x), torch.as_tensor(sp), e, f)
+    energy_force_loss(member, *args, w_energy=0.1).backward()
+    params = {n: p.detach() for n, p in member.named_parameters()}
+    grads = torch.func.grad(lambda ps: energy_force_loss(
+        lambda *a: torch.func.functional_call(member, ps, a), *args,
+        w_energy=0.1))(params)
+    for n, p in member.named_parameters():
+        close(grads[n], p.grad.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["schnet", "painn"])
+@pytest.mark.parametrize("form", ["sequence", "stack"])
+def test_weight_gradient_through_the_committee_equals_member_by_member(
+        kind, form):
+    """Under grad mode the committee keeps its graph to the members'
+    weights: the gradient of the summed energy and force spread in every
+    weight (a sequence's members' own parameters, or a stack's stacked
+    ones, member i's slice) equals the one of the same statistics built
+    member by member with autograd (``create_graph`` forces), to 1e-4 of
+    its largest |value|.  A sequence's members are left as they are: the
+    same parameter objects, not views of a stack."""
+    members = committee(kind)
+    x, sp = frames(n_atoms=5, batch=2, seed=7)
+    xt, spt = torch.as_tensor(x), torch.as_tensor(sp)
+    if form == "stack":
+        st = from_jax_stack(jstack(members), "cpu")
+        named = [dict(st.stacked.named_parameters())]
+    else:
+        st = [from_jax(m, "cpu") for m in members]
+        named = [dict(m.named_parameters()) for m in st]
+        before = [{n: (id(p), p.data_ptr()) for n, p in d.items()}
+                  for d in named]
+    pred = ensemble_energy_forces(st, xt, spt)
+    (pred.energy_std.sum() + pred.force_std.sum()
+     + pred.energy.sum()).backward()
+    if form == "sequence":
+        assert [{n: (id(p), p.data_ptr()) for n, p in m.named_parameters()}
+                for m in st] == before
+        assert all(p._base is None for d in named for p in d.values())
+
+    ref = [from_jax(m, "cpu") for m in members]
+    es, fs = [], []
+    for m in ref:
+        xg = xt.clone().requires_grad_(True)
+        e = m(xg, spt)
+        (g,) = torch.autograd.grad(e.sum(), xg, create_graph=True)
+        es.append(e)
+        fs.append(-g)
+    e_k, f_k = torch.stack(es), torch.stack(fs)
+    (e_k.std(0, correction=0).sum()
+     + torch.sqrt(f_k.var(0, correction=0).mean((-2, -1))).sum()
+     + e_k.mean(0).sum()).backward()
+    for i, m in enumerate(ref):
+        for n, p in m.named_parameters():
+            got = (named[0][n].grad[i] if form == "stack"
+                   else named[i][n].grad)
+            close(got, p.grad.numpy(), 1e-4)

@@ -45,8 +45,10 @@ ensembles (``we``), Markov state models with TICA (``msm``) and VAMPnets
 replayed BAOAB runner; and differentiable trajectory reweighting
 (``difftre``) and CG force matching and relative-entropy fitting
 (``cg``); and score diffusion (``flows.Diffusion``), the PaiNN potential
-and committee uncertainty (``nn``) (see ROADMAP.md for what is still to
-come).
+and committee uncertainty (``nn``); and the member axis (``members``:
+stacked ensembles and committees evaluated and trained as one
+``torch.func.vmap``, kernels 1 and 2 launching once for all members)
+(see ROADMAP.md for what is still to come).
 """
 
 from vaemolsim_tpu_torch import config, convert, coords, data  # noqa: F401
@@ -60,6 +62,6 @@ from vaemolsim_tpu_torch import train, utils  # noqa: F401
 from vaemolsim_tpu_torch import abf, colvars, metadynamics  # noqa: F401
 from vaemolsim_tpu_torch import opes, paths  # noqa: F401
 from vaemolsim_tpu_torch import msm, vamp, we  # noqa: F401
-from vaemolsim_tpu_torch import cg, difftre  # noqa: F401
+from vaemolsim_tpu_torch import cg, difftre, members  # noqa: F401
 
 __version__ = "0.1.0"

@@ -113,7 +113,7 @@ class Kernel:
     (``ctypes.c_void_p`` for every pointer).  ``launches`` counts the
     launches made through :meth:`launch` and nowhere else, and
     ``mode_launches`` those of them made in a named mode (the MAF block's
-    ``"bf16"``)."""
+    ``"bf16"``, kernels 1 and 2's ``"members"``)."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -204,47 +204,93 @@ def require(t: torch.Tensor, what: str, shape=None,
 
 
 class _PlainGrad(torch.autograd.Function):
-    """Forward through a kernel, backward by recomputing the plain
-    version under autograd (the counterpart of the JAX ``custom_vjp``s
-    whose backward re-runs the XLA path).
+    """Forward through a kernel, backward by the plain version's VJP
+    (the counterpart of the JAX ``custom_vjp``s whose backward re-runs
+    the XLA path), in the ``setup_context`` form, so that it also runs
+    under ``torch.func`` transforms.
 
-    Under ``create_graph=True`` the backward runs in grad mode: it then
-    recomputes on the saved inputs themselves and keeps the graph, so
-    the gradient it returns is differentiable again (a second derivative
-    through a kernel route).  Otherwise it recomputes on detached copies
-    and keeps no graph alive."""
+    The backward is ``torch.func.vjp`` of the plain version at the saved
+    inputs.  Under ``create_graph=True`` it runs in grad mode and the
+    gradient it returns is differentiable again (a second derivative
+    through a kernel route); otherwise it keeps no graph.
+
+    Under ``torch.func.vmap`` (a member axis) the ``vmap`` rule maps the
+    batch axis onto one launch of the kernel's member-batched form
+    (``kernel_fn.members``, see :func:`call_with_plain_grad`).  A kernel
+    without one raises on a CUDA tensor; on the CPU the stand-in kernel
+    is itself vmapped."""
 
     @staticmethod
-    def forward(ctx, kernel_fn, plain_fn, *tensors):
-        ctx.plain_fn = plain_fn
-        ctx.save_for_backward(*tensors)
+    def forward(kernel_fn, plain_fn, *tensors):
         return kernel_fn(*tensors)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plain_fn = inputs[1]
+        ctx.save_for_backward(*inputs[2:])
+
+    @staticmethod
     def backward(ctx, *grads):
-        higher = torch.is_grad_enabled()
-        if higher:
-            inputs = list(ctx.saved_tensors)
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        wrt = [i for i, n in enumerate(need) if n]
+
+        def plain(*diff):
+            args = list(inputs)
+            for i, d in zip(wrt, diff):
+                args[i] = d
+            return ctx.plain_fn(*args)
+
+        _, vjp_fn = torch.func.vjp(plain, *[inputs[i] for i in wrt])
+        got = iter(vjp_fn(grads if len(grads) > 1 else grads[0]))
+        return (None, None, *[next(got) if n else None for n in need])
+
+    @staticmethod
+    def vmap(info, in_dims, kernel_fn, plain_fn, *tensors):
+        dims = in_dims[2:]
+        members = getattr(kernel_fn, "members", None)
+        if members is None:
+            if any(t.is_cuda for t in tensors):
+                raise RuntimeError(
+                    "this kernel has no member axis: it cannot run under "
+                    "torch.func.vmap on a CUDA tensor")
+            out = torch.func.vmap(kernel_fn, in_dims=dims)(*tensors)
         else:
-            inputs = [t.detach().requires_grad_(t.requires_grad)
-                      for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ctx.plain_fn(*inputs)
-        outs = out if isinstance(out, tuple) else (out,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        need = [t for t in inputs if t.requires_grad]
-        got = iter(torch.autograd.grad([o for o, _ in pairs],
-                                       need, [g for _, g in pairs],
-                                       allow_unused=True,
-                                       create_graph=higher))
-        return (None, None, *[next(got) if t.requires_grad else None
-                              for t in inputs])
+            out = members(*[
+                (t.expand((info.batch_size,) + t.shape) if d is None
+                 else t.movedim(d, 0)).contiguous()
+                for t, d in zip(tensors, dims)])
+        return out, (tuple(0 for _ in out) if isinstance(out, tuple) else 0)
+
+
+class _WithMembers:
+    """A kernel call with a member-batched form: ``fn(*tensors)`` for one
+    member, ``members(*tensors)`` for all at once (every tensor and
+    every output with a leading member axis)."""
+
+    def __init__(self, fn: Callable, members: Callable):
+        self.fn, self.members = fn, members
+
+    def __call__(self, *tensors):
+        return self.fn(*tensors)
+
+
+def _transformed(t: torch.Tensor) -> bool:
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 def call_with_plain_grad(kernel_fn: Callable, plain_fn: Callable,
-                         *tensors: torch.Tensor):
+                         *tensors: torch.Tensor,
+                         member_fn: Optional[Callable] = None):
     """``kernel_fn(*tensors)``, differentiable through ``plain_fn``.
-    Without a gradient to track it is the bare kernel call."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    ``member_fn``, where the kernel has a member axis, takes every
+    tensor with a leading member axis and launches once for all members:
+    the route under ``torch.func.vmap``.  Without a gradient to track or
+    a transform around it, it is the bare kernel call."""
+    if member_fn is not None:
+        kernel_fn = _WithMembers(kernel_fn, member_fn)
+    if (any(_transformed(t) for t in tensors)
+            or (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))):
         return _PlainGrad.apply(kernel_fn, plain_fn, *tensors)
     return kernel_fn(*tensors)

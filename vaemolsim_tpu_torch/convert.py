@@ -20,7 +20,7 @@ VectorAttentionTwoStage, SchNetInteraction, SchNetEmbedding,
 SchNetPotential, JointBackmapping, VelocityField, FlowMatching,
 FlowMatchingLayer, Diffusion, DiffusionLayer, PaiNNBlock and
 PaiNNPotential (a committee stacked by the JAX ``stack_models`` through
-:func:`from_jax_stack`); and
+:func:`from_jax_stack`, into the port's stacked form); and
 the molecular MD state: a ``CellNeighborList`` (either JAX build,
 evaluated by the port's cell-list energy) and an ``MDState``; an ``MLP``;
 and the biasing and path-sampling states ``BiasGrid``, ``OPESBias``,
@@ -615,17 +615,19 @@ def _map_arrays(fn: Callable[[Any], Any], o: Any) -> Any:
     raise TypeError(f"from_jax_stack: cannot unstack a {type(o).__name__}")
 
 
-def from_jax_stack(stack: Any, device=None) -> torch.nn.ModuleList:
-    """The port's committee (``train.stack_models``' ModuleList) of a JAX
+def from_jax_stack(stack: Any, device=None):
+    """The port's stacked committee (a ``members.ModelStack``, whose
+    parameters and buffers carry the leading member axis) of a JAX
     committee stacked by the JAX package's ``stack_models`` (every leaf
-    with the same leading member axis): each member unstacked and carried
-    across by :func:`from_jax`."""
+    with the same leading member axis): each member unstacked, carried
+    across by :func:`from_jax` and stacked again."""
     sizes = set()
     _map_arrays(lambda a: sizes.add(int(a.shape[0])), stack)
     if len(sizes) != 1:
         raise TypeError(f"from_jax_stack: leading axes {sorted(sizes)}, "
                         "not one member count")
     (k,) = sizes
-    return torch.nn.ModuleList(
+    from vaemolsim_tpu_torch.members import stack_models
+    return stack_models([
         from_jax(_map_arrays(lambda a: np.asarray(a)[i], stack), device)
-        for i in range(k))
+        for i in range(k)])

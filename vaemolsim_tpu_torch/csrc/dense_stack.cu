@@ -48,6 +48,14 @@
 //   output pass through device memory, so a deep stack of wide layers is
 //   split into one launch a layer (ops/fused_mlp.py `stack_runs`).
 //
+// A member axis (M stacks of one structure, each with its own weights,
+// in one launch: the counterpart of fit_ensemble's vmap over the Pallas
+// kernel, which adds a leading grid axis) is the grid's z dimension:
+// block z runs member z's rows through member z's weights, which follow
+// member z-1's in each array (W: M x (dims[l], dims[l+1]), b, C alike).
+// Every regime's plan is the one member's (the rows n are per member),
+// so M = 1 is the single stack, unchanged.
+//
 // FP32 FMA throughout, no TF32, like the JAX kernel's HIGHEST precision.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -94,6 +102,21 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// Member blockIdx.z's layer-l weights, bias and conditional weights
+// (null without a conditional input).
+__device__ __forceinline__ const float* member_W(const Stack& p, int l) {
+  return p.W[l] +
+         static_cast<size_t>(blockIdx.z) * p.dims[l] * p.dims[l + 1];
+}
+__device__ __forceinline__ const float* member_b(const Stack& p, int l) {
+  return p.b[l] + static_cast<size_t>(blockIdx.z) * p.dims[l + 1];
+}
+__device__ __forceinline__ const float* member_C(const Stack& p, int l) {
+  return p.C[l] == nullptr
+             ? nullptr
+             : p.C[l] + static_cast<size_t>(blockIdx.z) * p.dc * p.dims[l + 1];
+}
+
 __host__ __device__ __forceinline__ int cluster_chunk(int width) {
   return (width + kCluster - 1) / kCluster;
 }
@@ -120,6 +143,10 @@ __global__ void __launch_bounds__(kThreads)
     dense_small_kernel(const float* __restrict__ x,
                        const float* __restrict__ c, float* __restrict__ out,
                        int n, Stack p) {
+  const long long m0 = blockIdx.z * static_cast<long long>(n);  // member rows
+  x += m0 * p.dims[0];
+  if (c != nullptr) c += m0 * p.dc;
+  out += m0 * p.dims[p.n_layers];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int L = p.n_layers, dc = p.dc, d_last = p.dims[L];
@@ -136,7 +163,7 @@ __global__ void __launch_bounds__(kThreads)
   if (L > 1) {
     const int cw = cluster_chunk(p.dims[L - 1]), lo = rank * cw;
     const int ns = max(0, min(p.dims[L - 1], lo + cw) - lo);
-    const float* src = p.W[L - 1] + static_cast<size_t>(lo) * d_last;
+    const float* src = member_W(p, L - 1) + static_cast<size_t>(lo) * d_last;
     for (int i = tid; i < ns * d_last; i += kThreads)
       __pipeline_memcpy_async(slab + i, src + i, sizeof(float));
   }
@@ -154,8 +181,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_split = L == 1 ? 1 : L - 1;
   for (int l = 0; l < n_split; ++l) {
     const int d_in = p.dims[l], d_out = p.dims[l + 1];
-    const float* __restrict__ W = p.W[l];
-    const float* __restrict__ C = p.C[l];
+    const float* __restrict__ W = member_W(p, l);
+    const float* __restrict__ C = member_C(p, l);
     const int cw = cluster_chunk(d_out), lo = rank * cw;
     const int ns = max(0, min(d_out, lo + cw) - lo);
     const int items = n * ns;
@@ -177,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       acc = lane_sum(acc, S);
       if (valid && s == 0) {
-        const float v = activate(acc + __ldg(p.b[l] + j), p.act[l]);
+        const float v = activate(acc + __ldg(member_b(p, l) + j), p.act[l]);
         if (L == 1)
           out[r * d_out + j] = v;
         else
@@ -223,7 +250,7 @@ __global__ void __launch_bounds__(kThreads)
       if (valid && s == 0) part[r * d_out + o] = acc;
     }
     cluster.sync();
-    const float* __restrict__ C = p.C[L - 1];
+    const float* __restrict__ C = member_C(p, L - 1);
     const int co = cluster_chunk(d_out), olo = rank * co;
     const int no = max(0, min(d_out, olo + co) - olo);
     for (int i = tid; i < n * no; i += kThreads) {
@@ -235,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
       float v = 0.f;
 #pragma unroll
       for (int q = 0; q < kCluster; ++q) v += pv[q];
-      v += __ldg(p.b[L - 1] + o);
+      v += __ldg(member_b(p, L - 1) + o);
       if (C != nullptr) {
         float cv = 0.f;
         for (int k = 0; k < dc; ++k)
@@ -259,6 +286,10 @@ __global__ void __launch_bounds__(kStreamThreads)
     dense_stream_kernel(const float* __restrict__ x,
                         const float* __restrict__ c,
                         float* __restrict__ out, long long n, Stack p) {
+  const long long m0 = blockIdx.z * static_cast<long long>(n);  // member rows
+  x += m0 * p.dims[0];
+  if (c != nullptr) c += m0 * p.dc;
+  out += m0 * p.dims[p.n_layers];
   constexpr int kRec = kIn + kOut;
   extern __shared__ __align__(16) float smem[];
   const int din = p.dims[0], H = p.dims[1], dout = p.dims[2], dc = p.dc;
@@ -268,13 +299,13 @@ __global__ void __launch_bounds__(kStreamThreads)
     const int j = i / kRec, q = i % kRec;
     const float* src = nullptr;
     if (q < din)
-      src = p.W[0] + q * H + j;
+      src = member_W(p, 0) + q * H + j;
     else if (q < din + dc)
-      src = p.C[0] + (q - din) * H + j;
+      src = member_C(p, 0) + (q - din) * H + j;
     else if (q == din + dc)
-      src = p.b[0] + j;
+      src = member_b(p, 0) + j;
     else if (q >= kIn && q - kIn < dout)
-      src = p.W[1] + j * dout + (q - kIn);
+      src = member_W(p, 1) + j * dout + (q - kIn);
     smem[i] = src != nullptr ? __ldg(src) : 0.f;
   }
   __syncthreads();
@@ -320,11 +351,12 @@ __global__ void __launch_bounds__(kStreamThreads)
       acc[4 * q + 3] = fmaf(h, w.w, acc[4 * q + 3]);
     }
   }
-  const float* __restrict__ C1 = p.C[1];
+  const float* __restrict__ C1 = member_C(p, 1);
+  const float* __restrict__ b1 = member_b(p, 1);
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     if (o < dout) {
-      float v = acc[o] + __ldg(p.b[1] + o);
+      float v = acc[o] + __ldg(b1 + o);
       if (C1 != nullptr) {
         float cv = 0.f;
         for (int k = 0; k < dc; ++k)  // c from memory: `in` stays in registers
@@ -344,6 +376,10 @@ __global__ void __launch_bounds__(kThreads)
     dense_tiled_kernel(const float* __restrict__ x,
                        const float* __restrict__ c,
                        float* __restrict__ out, long long n, Stack p) {
+  const long long m0 = blockIdx.z * static_cast<long long>(n);  // member rows
+  x += m0 * p.dims[0];
+  if (c != nullptr) c += m0 * p.dc;
+  out += m0 * p.dims[p.n_layers];
   constexpr int T = kTileRows, TS = kTileStride;
   extern __shared__ __align__(16) float smem[];
   float* cur = smem;             // (ld, TS): activation k of row r at k*TS+r
@@ -365,8 +401,9 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int l = 0; l < p.n_layers; ++l) {
     const int d_in = p.dims[l], d_out = p.dims[l + 1];
-    const float* __restrict__ W = p.W[l];
-    const float* __restrict__ C = p.C[l];
+    const float* __restrict__ W = member_W(p, l);
+    const float* __restrict__ C = member_C(p, l);
+    const float* __restrict__ bl = member_b(p, l);
     const bool last = l == p.n_layers - 1;
     const int cgs = (d_out + 3) / 4;
     const int items = (T / 4) * cgs;
@@ -427,7 +464,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < 4; ++q) {
           const int col = col0 + q;
           if (col >= d_out) break;
-          const float bj = __ldg(p.b[l] + col);
+          const float bj = __ldg(bl + col);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float v = activate(acc[i][q] + bj, p.act[l]);
@@ -456,12 +493,17 @@ __global__ void __launch_bounds__(kThreads)
     dense_wide_kernel(const float* __restrict__ x,
                       const float* __restrict__ c, float* __restrict__ out,
                       long long n, Stack p) {
+  const long long m0 = blockIdx.z * static_cast<long long>(n);  // member rows
+  x += m0 * p.dims[0];
+  if (c != nullptr) c += m0 * p.dc;
+  out += m0 * p.dims[p.n_layers];
   __shared__ __align__(16) float as[kWideDepth][kWideTile];  // (k, row)
   __shared__ __align__(16) float ws[kWideDepth][kWideTile];  // (k, col)
   const int d_in = p.dims[0], d_out = p.dims[1], dc = p.dc;
   const int depth = d_in + dc;
-  const float* W = p.W[0];
-  const float* C = p.C[0];
+  const float* W = member_W(p, 0);
+  const float* C = member_C(p, 0);
+  const float* b0 = member_b(p, 0);
   const long long row0 = static_cast<long long>(blockIdx.x) * kWideTile;
   const int col0 = blockIdx.y * kWideTile;
   const int tid = threadIdx.x;
@@ -515,7 +557,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int q = 0; q < 4; ++q) {
       const int col = col0 + 4 * tx + q;
       if (col < d_out)
-        out[row * d_out + col] = activate(acc[i][q] + __ldg(p.b[0] + col),
+        out[row * d_out + col] = activate(acc[i][q] + __ldg(b0 + col),
                                           p.act[0]);
     }
   }
@@ -565,46 +607,51 @@ Plan plan_for(long long n, const Stack& p) {
 
 template <int kIn, int kOut, int kAct0>
 cudaError_t launch_stream(const float* x, const float* c, float* out,
-                          long long n, const Stack& p, size_t smem,
-                          cudaStream_t stream) {
+                          long long n, int members, const Stack& p,
+                          size_t smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(dense_stream_kernel<kIn, kOut, kAct0>, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>((n + kStreamThreads - 1) / kStreamThreads);
   dense_stream_kernel<kIn, kOut, kAct0>
-      <<<blocks, kStreamThreads, smem, stream>>>(x, c, out, n, p);
+      <<<dim3(blocks, 1, members), kStreamThreads, smem, stream>>>(x, c, out,
+                                                                   n, p);
   return cudaGetLastError();
 }
 
 template <int kIn, int kOut>
 cudaError_t launch_stream(const float* x, const float* c, float* out,
-                          long long n, const Stack& p, size_t smem,
-                          cudaStream_t stream) {
+                          long long n, int members, const Stack& p,
+                          size_t smem, cudaStream_t stream) {
   if (p.act[0] == kTanh)
-    return launch_stream<kIn, kOut, kTanh>(x, c, out, n, p, smem, stream);
+    return launch_stream<kIn, kOut, kTanh>(x, c, out, n, members, p, smem,
+                                           stream);
   if (p.act[0] == kRelu)
-    return launch_stream<kIn, kOut, kRelu>(x, c, out, n, p, smem, stream);
+    return launch_stream<kIn, kOut, kRelu>(x, c, out, n, members, p, smem,
+                                           stream);
   if (p.act[0] == kGelu)
-    return launch_stream<kIn, kOut, kGelu>(x, c, out, n, p, smem, stream);
-  return launch_stream<kIn, kOut, kLinear>(x, c, out, n, p, smem, stream);
+    return launch_stream<kIn, kOut, kGelu>(x, c, out, n, members, p, smem,
+                                           stream);
+  return launch_stream<kIn, kOut, kLinear>(x, c, out, n, members, p, smem,
+                                           stream);
 }
 
 }  // namespace
 
-// x: (n, dims[0]); c: (n, dc) or null; out: (n, dims[n_layers]).
-// W, b, C: arrays of n_layers device pointers (C entries null without a
-// conditional input).  Returns cudaErrorInvalidValue for a stack the
-// kernel does not take (too many layers, or a stack of two or more layers
-// with no regime whose shared memory fits at this n; a single layer
-// always has the wide regime).
-extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
-                                  long long n, int n_layers,
-                                  const int* dims, const int* acts,
-                                  const float* const* W,
-                                  const float* const* b,
-                                  const float* const* C, int dc,
-                                  cudaStream_t stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || n < 0)
+// x: (members, n, dims[0]); c: (members, n, dc) or null; out: (members,
+// n, dims[n_layers]).  W, b, C: arrays of n_layers device pointers, each
+// to members consecutive blocks (C entries null without a conditional
+// input).  Returns cudaErrorInvalidValue for a stack the kernel does not
+// take (too many layers, members outside [1, 65535], or a stack of two or
+// more layers with no regime whose shared memory fits at this n; a single
+// layer always has the wide regime).
+extern "C" int dense_stack_members_launch(
+    const float* x, const float* c, float* out, long long n, int n_layers,
+    const int* dims, const int* acts, const float* const* W,
+    const float* const* b, const float* const* C, int dc, int members,
+    cudaStream_t stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || n < 0 || members < 1 ||
+      members > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Stack p{};
   int widest = 0;
@@ -633,7 +680,7 @@ extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
     err = allow_smem(dense_small_kernel, plan.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kCluster);
+    cfg.gridDim = dim3(kCluster, 1, members);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = plan.smem;
     cfg.stream = stream;
@@ -651,9 +698,11 @@ extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
   }
   if (plan.regime == kStream) {
     switch (plan.in_bucket) {
-      case 4: err = launch_stream<4, 4>(x, c, out, n, p, plan.smem, stream);
+      case 4: err = launch_stream<4, 4>(x, c, out, n, members, p, plan.smem,
+                                        stream);
         break;
-      default: err = launch_stream<8, 8>(x, c, out, n, p, plan.smem, stream);
+      default: err = launch_stream<8, 8>(x, c, out, n, members, p, plan.smem,
+                                         stream);
     }
     return static_cast<int>(err);
   }
@@ -663,7 +712,8 @@ extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>(row_tiles),
                     static_cast<unsigned>((p.dims[1] + kWideTile - 1) /
-                                          kWideTile));
+                                          kWideTile),
+                    members);
     dense_wide_kernel<<<grid, kThreads, 0, stream>>>(x, c, out, n, p);
     return static_cast<int>(cudaGetLastError());
   }
@@ -671,7 +721,7 @@ extern "C" int dense_stack_launch(const float* x, const float* c, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
       static_cast<unsigned>((n + kTileRows - 1) / kTileRows);
-  dense_tiled_kernel<<<blocks, kThreads, plan.smem, stream>>>(x, c, out, n,
-                                                              p);
+  dense_tiled_kernel<<<dim3(blocks, 1, members), kThreads, plan.smem,
+                       stream>>>(x, c, out, n, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,15 @@
 //   thread per element walks its row with the knot sums in registers
 //   (rqs_eval); element i reads row i % p_rows; the ragged edge is
 //   masked, not padded.
+//
+// A member axis (M splines of one shape, each with its own parameters,
+// in one launch: the counterpart of fit_ensemble's vmap over the Pallas
+// kernel) puts the members' elements and rows one after another: member
+// m's n elements read member m's p_rows rows.  With one broadcast row a
+// member, the grid's y dimension is the member (block y stages row y);
+// the walk folds the members into its elements (element i of member m
+// reads row m * p_rows + i % p_rows, which for a row per element is the
+// element's own).
 #include "common.cuh"
 #include "rqs.cuh"
 
@@ -46,6 +55,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* raw = tab + rqs_table_floats(K);  // w (K), h (K), s (K-1)
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
+  // Member blockIdx.y: its elements and its row.
+  const long long m = blockIdx.y;
+  x += m * n;
+  y += m * n;
+  ldj += m * n;
+  w += m * K;
+  h += m * K;
+  s += m * (K - 1);
   const float v = i < n ? x[i] : 0.f;
   for (int t = threadIdx.x; t < 3 * K - 1; t += blockDim.x)
     raw[t] = t < K ? w[t] : t < 2 * K ? h[t - K] : s[t - 2 * K];
@@ -61,38 +78,47 @@ __global__ void __launch_bounds__(kMaxThreads)
     rqs_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ h, const float* __restrict__ s,
                float* __restrict__ y, float* __restrict__ ldj, long long n,
-               int K, long long p_rows, float range_min) {
+               long long total, int K, long long p_rows, float range_min) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
-  if (i >= n) return;
-  const long long r = i % p_rows;
+  if (i >= total) return;
+  const long long m = i / n;  // the member: n elements, p_rows rows each
+  const long long r = m * p_rows + (i - m * n) % p_rows;
   rqs_eval<kInverse>(x[i], w + r * K, h + r * K, s + r * (K - 1), K,
                      range_min, y[i], ldj[i]);
 }
 
 }  // namespace
 
-// x, y, ldj: n floats.  w, h: (p_rows, K); s: (p_rows, K-1); element i
-// uses parameter row i % p_rows.  The launch plan (threads a block,
-// blocks, dynamic shared bytes) comes from ops/rqs.py `kernel_plan`; it
-// is only checked here: threads a multiple of 32 in [32, 256], a thread
-// an element; the shared bytes the row's table needs with one row and a
-// table (smem > 0), 0 for the walk.
-extern "C" int rqs_launch(const float* x, const float* w, const float* h,
-                          const float* s, float* y, float* ldj, long long n,
-                          int K, long long p_rows, float range_min,
-                          int inverse, int threads, long long blocks,
-                          long long smem, cudaStream_t stream) {
+// x, y, ldj: members x n floats.  w, h: (members x p_rows, K); s:
+// (members x p_rows, K-1); element i of member m uses parameter row
+// m * p_rows + i % p_rows.  The launch plan (threads a block, blocks,
+// dynamic shared bytes) comes from ops/rqs.py `kernel_plan`; it is only
+// checked here: threads a multiple of 32 in [32, 256], a thread an
+// element; the shared bytes the row's table needs with one row and a
+// table (smem > 0; blocks over one member's n, members in grid y, at
+// most 65535), 0 for the walk (blocks over all members x n).
+extern "C" int rqs_members_launch(const float* x, const float* w,
+                                  const float* h, const float* s, float* y,
+                                  float* ldj, long long n, int K,
+                                  long long p_rows, float range_min,
+                                  int inverse, int threads, long long blocks,
+                                  long long smem, int members,
+                                  cudaStream_t stream) {
   const bool row = p_rows == 1 && smem != 0;
   const size_t want_smem = row ? row_smem(K) : 0;
-  if (K < 1 || p_rows < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || blocks != (n + threads - 1) / threads ||
+  const long long total = n * members;
+  const long long elems = row ? n : total;
+  if (K < 1 || p_rows < 1 || members < 1 || (row && members > 65535) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      blocks != (elems + threads - 1) / threads ||
       smem != static_cast<long long>(want_smem) ||
       want_smem > static_cast<size_t>(kMaxDynamicSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const unsigned grid = static_cast<unsigned>(blocks);
+  const unsigned nb = static_cast<unsigned>(blocks);
   if (row) {
+    const dim3 grid(nb, members);
     cudaError_t err = inverse ? allow_smem(rqs_row_kernel<true>, want_smem)
                               : allow_smem(rqs_row_kernel<false>, want_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -103,11 +129,11 @@ extern "C" int rqs_launch(const float* x, const float* w, const float* h,
       rqs_row_kernel<false><<<grid, threads, want_smem, stream>>>(
           x, w, h, s, y, ldj, n, K, range_min);
   } else if (inverse) {
-    rqs_kernel<true><<<grid, threads, 0, stream>>>(x, w, h, s, y, ldj, n, K,
-                                                   p_rows, range_min);
+    rqs_kernel<true><<<nb, threads, 0, stream>>>(x, w, h, s, y, ldj, n,
+                                                 total, K, p_rows, range_min);
   } else {
-    rqs_kernel<false><<<grid, threads, 0, stream>>>(x, w, h, s, y, ldj, n,
-                                                    K, p_rows, range_min);
+    rqs_kernel<false><<<nb, threads, 0, stream>>>(x, w, h, s, y, ldj, n,
+                                                  total, K, p_rows, range_min);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,7 +40,7 @@ Tensor = torch.Tensor
 
 __all__ = ["SchNetEmbedding", "SchNetInteraction", "SchNetPotential",
            "gaussian_rbf", "cosine_cutoff", "shifted_softplus",
-           "energy_force_loss"]
+           "energy_and_forces", "energy_force_loss"]
 
 _SSP = "shifted_softplus"
 
@@ -258,6 +258,22 @@ class SchNetPotential(nn.Module):
         return lambda box: (lambda x: self(x, species, box, mask))
 
 
+def energy_and_forces(model: nn.Module, x: Tensor, species: Tensor,
+                      box: Optional[Tensor] = None,
+                      mask: Optional[Tensor] = None):
+    """``(E, F)``: the potential's energies and forces ``F = -grad_x
+    sum(E)``, the force by ``torch.func.grad``, so that it runs inside
+    ``torch.func`` transforms (a committee's ``vmap``, a trainer's
+    ``grad``) and, outside them, stays differentiable in the weights and
+    in ``x`` wherever grad mode records them."""
+    def total(xx):
+        e = model(xx, species, box, mask)
+        return e.sum(), e
+
+    g, e = torch.func.grad(total, has_aux=True)(x)
+    return e, -g
+
+
 def energy_force_loss(model: nn.Module, x: Tensor, species: Tensor,
                       energy: Tensor, forces: Tensor, *,
                       box: Optional[Tensor] = None,
@@ -265,21 +281,17 @@ def energy_force_loss(model: nn.Module, x: Tensor, species: Tensor,
                       w_energy: float = 1.0,
                       w_force: float = 1.0) -> Tensor:
     """``(w_e / N) mean_b (E_pred - E)^2 + (w_f / 3N) mean_b |F_pred -
-    F|^2`` with ``F_pred = -grad_x E_pred`` (taken with ``create_graph``,
-    so the loss differentiates in the weights through the forces).
-    ``model`` is any ML potential with the contract ``model(x, species,
-    box, mask) -> energy``: a :class:`SchNetPotential` or a
+    F|^2`` with ``F_pred = -grad_x E_pred`` (:func:`energy_and_forces`,
+    so the loss differentiates in the weights through the forces, under
+    autograd and under ``torch.func.grad`` alike).  ``model`` is any ML
+    potential with the contract ``model(x, species, box, mask) ->
+    energy``: a :class:`SchNetPotential` or a
     :class:`~vaemolsim_tpu_torch.nn.painn.PaiNNPotential`."""
     if mask is None:
-        n_eff = torch.tensor(float(x.shape[-2]), dtype=x.dtype,
-                             device=x.device)
+        n_eff = float(x.shape[-2])
     else:
         n_eff = mask.sum(-1).clamp_min(1).to(x.dtype)
-    with torch.enable_grad():
-        xg = x if x.requires_grad else x.detach().requires_grad_(True)
-        e_pred = model(xg, species, box, mask)
-        grad, = torch.autograd.grad(e_pred.sum(), xg, create_graph=True)
-    f_pred = -grad
+    e_pred, f_pred = energy_and_forces(model, x, species, box, mask)
     e_term = ((e_pred - energy) ** 2 / n_eff).mean()
     df = (f_pred - forces) ** 2
     if mask is not None:

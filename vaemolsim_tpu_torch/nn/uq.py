@@ -5,10 +5,14 @@
 K independently initialized potentials (``SchNetPotential``,
 ``PaiNNPotential``, or any member with the contract ``member(x,
 species, box, mask) -> energy``), stacked by ``train.stack_models`` (a
-``ModuleList``), are evaluated one after another; the committee's force
-disagreement is the error signal of active learning.  Forces are
-``-grad`` of the summed energy by autograd; the graph is kept (for a
-gradient of the uncertainty) when grad mode is on.  Standard deviations
+``ModelStack``; a sequence of members is stacked for the call only,
+the members untouched), are evaluated as one ``torch.func.vmap`` over
+the member axis, as the JAX package ``vmap``s its stack; the
+committee's force disagreement is the error signal of active learning.
+Forces are ``-grad`` of the summed energy
+(``nn.schnet.energy_and_forces``); when grad mode is on the graph is
+kept to ``x`` and to the members' weights (a ``ModelStack``'s stacked
+parameters, or each member's own), for a gradient of the uncertainty.  Standard deviations
 and variances are the population ones (``correction=0``), as the JAX
 package's ``jnp.std`` / ``jnp.var``.
 """
@@ -18,6 +22,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+
+from vaemolsim_tpu_torch.members import (ModelStack, stacked_state,
+                                         vmap_members)
+from vaemolsim_tpu_torch.nn.schnet import energy_and_forces
 
 Tensor = torch.Tensor
 
@@ -40,17 +48,20 @@ class EnsemblePrediction(NamedTuple):
 def _energies_forces(model_stack: Sequence[torch.nn.Module], x: Tensor,
                      species: Tensor, box: Optional[Tensor],
                      mask: Optional[Tensor]):
-    """Every member's energies (K, ...) and forces (K, ..., N, 3)."""
-    keep = torch.is_grad_enabled()
-    es, fs = [], []
-    with torch.enable_grad():
-        xg = x if x.requires_grad else x.detach().requires_grad_(True)
-        for member in model_stack:
-            e = member(xg, species, box, mask)
-            (g,) = torch.autograd.grad(e.sum(), xg, create_graph=keep)
-            es.append(e if keep else e.detach())
-            fs.append(-g)
-    return torch.stack(es), torch.stack(fs)
+    """Every member's energies (K, ...) and forces (K, ..., N, 3): one
+    vmapped call over the stack's member axis (a sequence's members
+    stacked for the call only, left as they are)."""
+    def member(m, xx):
+        return energy_and_forces(m, xx, species, box, mask)
+
+    if isinstance(model_stack, ModelStack):
+        e, f = model_stack.vmap(member, x)
+    else:
+        members = list(model_stack)
+        e, f = vmap_members(members[0], stacked_state(members), member, x)
+    if not torch.is_grad_enabled():
+        e, f = e.detach(), f.detach()
+    return e, f
 
 
 def ensemble_energy_forces(model_stack: Sequence[torch.nn.Module],

@@ -16,6 +16,16 @@ fit a block's shared memory (more than 4469 bins) runs the same kernel's
 walk, which has no such limit (:func:`kernel_plan`).  The circular
 splines stay plain PyTorch, as
 on the TPU, where the kernel had no circular branch either.
+
+Under ``torch.func.vmap`` (a member axis: ``fit_ensemble``'s K flows,
+each with its own spline parameters) a CUDA call launches once for all
+members (:func:`rqs_members_cuda`).  Which route takes which case, from
+one member's shapes: one broadcast row a member (example 09's 1-D
+RealNVP) takes the table regime with the members on the grid's second
+axis, each block building its member's knot table; anything else (a row
+per element, a row per trailing block, or a broadcast row too wide for
+a table) takes the walk, with the members folded into the elements and
+their rows (member m's element i reads its row m * P + i % P).
 """
 
 from __future__ import annotations
@@ -31,16 +41,17 @@ from vaemolsim_tpu_torch.ops.bijectors import Bijector
 Tensor = torch.Tensor
 
 __all__ = ["rqs_forward", "rqs_inverse", "rqs_forward_plain",
-           "rqs_inverse_plain", "rqs_cuda", "kernel_plan", "table_floats",
+           "rqs_inverse_plain", "rqs_cuda", "rqs_members_cuda",
+           "kernel_plan", "table_floats",
            "rqs_forward_circular", "rqs_inverse_circular",
            "RationalQuadraticSpline", "KERNEL"]
 
 KERNEL = _build.Kernel(
-    "rqs", "csrc/rqs.cu", "rqs_launch",
+    "rqs", "csrc/rqs.cu", "rqs_members_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
                              ctypes.c_int, ctypes.c_longlong,
-                             ctypes.c_longlong],
+                             ctypes.c_longlong, ctypes.c_int],
     replaces="vaemolsim_tpu/ops/rqs_pallas.py:52")
 
 # The H100's SMs and the most dynamic shared memory a block may take.
@@ -55,7 +66,7 @@ def table_floats(K: int) -> int:
 
 
 def kernel_plan(n: int, K: int, p_rows: int,
-                threads: int | None = None) -> dict:
+                threads: int | None = None, members: int = 1) -> dict:
     """How ``csrc/rqs.cu`` runs a call, decided here and only validated
     by the kernel's launch: a thread an element.  One broadcast row
     (``p_rows == 1``) whose knot table fits a block's shared memory (K up
@@ -66,14 +77,18 @@ def kernel_plan(n: int, K: int, p_rows: int,
     knot table and the row itself.  A given ``threads`` is taken as it
     is, to measure one plan at a shape.  Otherwise (a row per element,
     or a broadcast row of more bins) the ``"walk"``: 256 threads a
-    block, no shared memory, each thread walking its element's row."""
+    block, no shared memory, each thread walking its element's row.
+    ``members`` M: ``n`` and ``p_rows`` are one member's; the table
+    regime's blocks cover one member (the grid's second axis the
+    members), the walk's all M n elements."""
     smem = 4 * (table_floats(K) + 3 * K)
     if p_rows == 1 and smem <= MAX_SMEM:
         if threads is None:
             threads = min(256, max(128, 32 * -(-(K + 1) // 32)))
         return dict(regime="table", threads=threads,
                     blocks=-(-n // threads), smem=smem)
-    return dict(regime="walk", threads=256, blocks=-(-n // 256), smem=0)
+    return dict(regime="walk", threads=256, blocks=-(-(members * n) // 256),
+                smem=0)
 
 
 # ---------------------------------------------------------------------------
@@ -177,46 +192,85 @@ def rqs_inverse_plain(y: Tensor, widths: Tensor, heights: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _param_rows(p: Tensor, out_batch: torch.Size, width: int) -> Tensor:
+def _param_rows(p: Tensor, out_batch: torch.Size, width: int,
+                members: int = 0) -> Tensor:
     """(P, width) parameter rows such that element i of the flattened
     output uses row i % P: P = 1 for one shared row, P = the size of
     the parameters' batch when it is a trailing block of the output's
-    batch; otherwise the rows are expanded to the full output."""
-    pb = list(p.shape[:-1])
+    batch; otherwise the rows are expanded to the full output.  With
+    ``members`` M, ``p`` has a leading member axis and ``out_batch`` is
+    one member's: (M P, width), member m's rows after member m-1's."""
+    m = (members,) if members else ()
+    pb = list(p.shape[len(m):-1])
     while pb and pb[0] == 1:
         pb.pop(0)
     if pb == list(out_batch[len(out_batch) - len(pb):]):
         return p.reshape(-1, width).contiguous()
-    return p.expand(tuple(out_batch) + (width,)).reshape(-1, width
-                                                         ).contiguous()
+    return _lift(p, members, len(out_batch) + 1).expand(
+        m + tuple(out_batch) + (width,)).reshape(-1, width).contiguous()
+
+
+def _lift(t: Tensor, members: int, ndim: int) -> Tensor:
+    """``t`` with singleton axes after its member axis (if any) up to
+    ``ndim`` axes a member, so that it broadcasts member by member."""
+    if not members:
+        return t
+    return t.reshape((members,) + (1,) * (ndim + 1 - t.dim()) + t.shape[1:])
 
 
 def rqs_cuda(x: Tensor, widths: Tensor, heights: Tensor, slopes: Tensor,
              range_min: float, inverse: bool) -> Tuple[Tensor, Tensor]:
     """Launch ``csrc/rqs.cu``: (out, ldj) with the broadcast shape of x
     and the parameters' batch axes."""
+    return _launch(x, widths, heights, slopes, range_min, inverse, 0)
+
+
+def rqs_members_cuda(x: Tensor, widths: Tensor, heights: Tensor,
+                     slopes: Tensor, range_min: float, inverse: bool
+                     ) -> Tuple[Tensor, Tensor]:
+    """M splines of one shape in one launch of ``csrc/rqs.cu`` (the
+    kernel's member axis): every tensor has a leading member axis and
+    member m's x goes through member m's parameters, broadcast as
+    :func:`rqs_cuda` broadcasts one member's.  Counted as the kernel's
+    ``"members"`` mode."""
+    return _launch(x, widths, heights, slopes, range_min, inverse,
+                   x.shape[0])
+
+
+def _launch(x, widths, heights, slopes, range_min, inverse,
+            members: int) -> Tuple[Tensor, Tensor]:
+    """The launch behind both wrappers (the kernel's one entry, which
+    takes a member count); ``members`` 0 for one spline without a member
+    axis, launched as one member."""
     K = widths.shape[-1]
     if heights.shape[-1] != K or slopes.shape[-1] != K - 1:
         raise ValueError(f"expected (..., K), (..., K), (..., K-1) "
                          f"parameters, got {tuple(widths.shape)}, "
                          f"{tuple(heights.shape)}, {tuple(slopes.shape)}")
-    batch = torch.broadcast_shapes(x.shape, widths.shape[:-1],
-                                   heights.shape[:-1], slopes.shape[:-1])
-    xf = _build.require(x.expand(batch).contiguous().reshape(-1), "x")
-    w = _build.require(_param_rows(widths, batch, K), "bin_widths")
-    rows = w.shape[0]
-    h = _build.require(_param_rows(heights, batch, K), "bin_heights",
-                       (rows, K))
-    s = _build.require(_param_rows(slopes, batch, K - 1), "knot_slopes",
-                       (rows, K - 1))
-    plan = kernel_plan(xf.numel(), K, rows)
+    m = (members,) if members else ()
+    M = max(members, 1)
+    k = len(m)
+    batch = torch.broadcast_shapes(x.shape[k:], widths.shape[k:-1],
+                                   heights.shape[k:-1], slopes.shape[k:-1])
+    xf = _build.require(_lift(x, members, len(batch)).expand(
+        m + batch).contiguous().reshape(-1), "x")
+    w = _build.require(_param_rows(widths, batch, K, members), "bin_widths")
+    rows = w.shape[0] // M
+    h = _build.require(_param_rows(heights, batch, K, members),
+                       "bin_heights", (M * rows, K))
+    s = _build.require(_param_rows(slopes, batch, K - 1, members),
+                       "knot_slopes", (M * rows, K - 1))
+    n = xf.numel() // M
+    plan = (kernel_plan(n, K, rows, members=M) if members
+            else kernel_plan(n, K, rows))
     out = torch.empty_like(xf)
     ldj = torch.empty_like(xf)
     KERNEL.launch(x.device, xf.data_ptr(), w.data_ptr(), h.data_ptr(),
-                  s.data_ptr(), out.data_ptr(), ldj.data_ptr(), xf.numel(),
+                  s.data_ptr(), out.data_ptr(), ldj.data_ptr(), n,
                   K, rows, float(range_min), int(inverse), plan["threads"],
-                  plan["blocks"], plan["smem"], outputs=(out, ldj))
-    return out.reshape(batch), ldj.reshape(batch)
+                  plan["blocks"], plan["smem"], M,
+                  mode="members" if members else None, outputs=(out, ldj))
+    return out.reshape(m + batch), ldj.reshape(m + batch)
 
 
 def _dispatch(x, widths, heights, slopes, range_min, inverse):
@@ -225,7 +279,8 @@ def _dispatch(x, widths, heights, slopes, range_min, inverse):
         return plain(x, widths, heights, slopes, range_min)
     return _build.call_with_plain_grad(
         lambda *a: rqs_cuda(*a, range_min, inverse),
-        lambda *a: plain(*a, range_min), x, widths, heights, slopes)
+        lambda *a: plain(*a, range_min), x, widths, heights, slopes,
+        member_fn=lambda *a: rqs_members_cuda(*a, range_min, inverse))
 
 
 def rqs_forward(x: Tensor, widths: Tensor, heights: Tensor, slopes: Tensor,

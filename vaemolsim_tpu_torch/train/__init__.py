@@ -6,6 +6,8 @@ from vaemolsim_tpu_torch.train.checkpoint import (  # noqa: F401
     save_checkpoint,
 )
 from vaemolsim_tpu_torch.train.loop import (  # noqa: F401
+    EnsembleAdam,
+    ModelStack,
     fit,
     fit_ensemble,
     make_train_step,

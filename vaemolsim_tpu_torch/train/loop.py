@@ -9,10 +9,10 @@ a tuple / list / dict of tensors sharing the leading (sample) axis.
 
 ``data`` may instead be a callable ``data(generator) -> iterable of
 batches``, a stream drawn anew each epoch.  ``fit_ensemble`` trains K
-models of one structure side by side on the same batches, each with its
-own optimizer and generator; it runs the K members one after another
-within each step (the JAX package ``vmap``s them into one program; a
-member-batched program is a ROADMAP.md item).  ``fit(mesh=...)`` trains
+models of one structure (a :class:`~vaemolsim_tpu_torch.members.
+ModelStack`) on the same batches as one program: one ``torch.func.vmap``
+of the members' gradients over the stacked tensors and one optimizer
+over them, as the JAX package ``vmap``s its step.  ``fit(mesh=...)`` trains
 data-parallel over a ``DeviceMesh`` dimension: each rank takes its slice
 of every batch and the gradients are all-reduced after ``backward``.
 """
@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from vaemolsim_tpu_torch._tree import leaves, tree_map
+from vaemolsim_tpu_torch.members import (ModelStack, member_chunk,
+                                         stack_models, unstack_model)
 from vaemolsim_tpu_torch.parallel.distributed import (all_gather_cat,
                                                       mesh_dim,
                                                       rank_generator)
@@ -34,7 +36,7 @@ from vaemolsim_tpu_torch.parallel.sharding import replicate
 Tensor = torch.Tensor
 
 __all__ = ["fit", "fit_ensemble", "make_train_step", "stack_models",
-           "unstack_model"]
+           "unstack_model", "ModelStack", "EnsembleAdam"]
 
 # History keys that a loss's metrics may not overwrite (elbo_loss's own
 # "loss" metric duplicates the total).
@@ -342,17 +344,67 @@ def _gather_shards(data, group):
     return tree_map(gather, data)
 
 
-def stack_models(models: Sequence[torch.nn.Module]) -> torch.nn.ModuleList:
-    """K models of one structure as one ensemble, the input of
-    :func:`fit_ensemble` (a ModuleList of the members themselves; the
-    JAX package stacks their leaves along a new leading axis)."""
-    return torch.nn.ModuleList(models)
+def _member_grads(stack: ModelStack, loss_fn: Callable) -> Callable:
+    """``grads(trained, fixed, *args, in_dims) -> (grads, aux)``: the
+    gradient in the ``trained`` stacked tensors of every member's loss as
+    one ``torch.func.vmap`` of ``torch.func.grad`` over the stack's member
+    axis, the member's ``fixed`` tensors (frozen parameters, buffers)
+    held.  ``loss_fn(member, *args) -> (loss, aux)`` runs whole inside
+    the member's functional call (:meth:`ModelStack.call`); ``aux`` comes
+    back stacked.  ``in_dims`` gives each argument's member axis (None:
+    shared).  Randomness inside the vmapped call raises."""
+    def member_loss(trained, fixed, *args):
+        return stack.call(loss_fn, {**trained, **fixed}, *args)
+
+    grad = torch.func.grad(member_loss, has_aux=True)
+
+    def grads(trained, fixed, *args, in_dims):
+        return torch.func.vmap(
+            grad, in_dims=(0, 0, *in_dims), randomness="error",
+            chunk_size=member_chunk(next(iter(trained.values())).device))(
+                trained, fixed, *args)
+
+    return grads
 
 
-def unstack_model(stack: Sequence[torch.nn.Module],
-                  i: int) -> torch.nn.Module:
-    """Ensemble member ``i``."""
-    return stack[i]
+def _ensemble_step(stack: ModelStack, loss_fn: Callable,
+                   optimizer: torch.optim.Optimizer) -> Callable:
+    """``step(batch, draws) -> ((K,) losses, {name: (K,) metric})``: the
+    gradient of every member's loss as one ``torch.func.vmap`` of
+    ``torch.func.grad`` over the stack's member axis, then one step of
+    ``optimizer``, which holds the stack's trainable stacked tensors
+    (Adam is elementwise, so this is K per-member Adams).
+
+    ``loss_fn(member, batch, draws)`` runs whole inside the member's
+    functional call (:meth:`ModelStack.call`), ``batch`` shared by all
+    members, ``draws`` each member's slice of the stacked draws (or
+    None).  It may not draw from a generator: randomness inside the
+    vmapped call raises."""
+    params = dict(stack.stacked.named_parameters())
+    train = [n for n, p in params.items() if p.requires_grad]
+
+    def with_metrics(member, batch, draws):
+        out = loss_fn(member, batch, draws)
+        loss, metrics = out if isinstance(out, tuple) else (out, {})
+        metrics = {k: torch.as_tensor(v) for k, v in metrics.items()
+                   if k not in _RESERVED}
+        return loss, (loss, metrics)
+
+    member_grads = _member_grads(stack, with_metrics)
+
+    def step(batch, draws=None):
+        state = stack.state()
+        trained = {n: state.pop(n) for n in train}
+        grads, (loss, metrics) = member_grads(
+            trained, state, batch, draws,
+            in_dims=(None, None if draws is None else 0))
+        for n in train:
+            params[n].grad = grads[n]
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), metrics
+
+    return step
 
 
 def fit_ensemble(model_stack: Sequence[torch.nn.Module], loss_fn: Callable,
@@ -361,26 +413,33 @@ def fit_ensemble(model_stack: Sequence[torch.nn.Module], loss_fn: Callable,
                  batch_size: Optional[int] = None,
                  optimizer: Optional[Callable] = None,
                  learning_rate: float = 1e-3,
-                 shuffle: bool = True
-                 ) -> Tuple[torch.nn.ModuleList, Dict[str, Any]]:
-    """Train the K members of ``model_stack`` (:func:`stack_models`)
-    side by side: every member sees the same shuffled batches, each has
-    its own optimizer (``optimizer`` is a factory, by default Adam at
-    ``learning_rate``) and its own generator, seeded from
-    ``generator``.  Returns the stack, trained in place, and a history
-    whose "loss" (and every metric) entries are per-epoch ``(K,)``
-    arrays.  Each step runs the members one after another."""
+                 shuffle: bool = True,
+                 draw: Optional[Callable] = None
+                 ) -> Tuple[ModelStack, Dict[str, Any]]:
+    """Train the K members of ``model_stack`` (a :class:`ModelStack`, or
+    the members, stacked here) as one program: every member sees the
+    same shuffled batches, and each step is one vmapped gradient over
+    the member axis and one optimizer over the stacked tensors
+    (``optimizer`` is a factory, by default Adam at ``learning_rate``)
+    (:func:`_ensemble_step`).  Each member has its own generator,
+    seeded from ``generator``; ``draw(member generator)``, where given,
+    makes a member's random inputs for a step outside the vmapped call,
+    and ``loss_fn(member, batch, draws)`` gets them as its third
+    argument (None without ``draw``).  Returns the stack, trained in
+    place, and a history whose "loss" (and every metric) entries are
+    per-epoch ``(K,)`` arrays."""
     if callable(data):
         raise ValueError(
             "fit_ensemble needs in-memory data (every member takes the "
             "same batches); materialize the stream or use fit() per "
             "member")
-    stack = stack_models(list(model_stack))
+    stack = (model_stack if isinstance(model_stack, ModelStack)
+             else stack_models(list(model_stack)))
     device = generator.device
     make_opt = optimizer or (lambda ps: torch.optim.Adam(ps,
                                                          lr=learning_rate))
-    steps = [make_train_step(loss_fn, make_opt(
-        [p for p in m.parameters() if p.requires_grad])) for m in stack]
+    step = _ensemble_step(stack, loss_fn, make_opt(
+        [p for p in stack.parameters() if p.requires_grad]))
     seeds = torch.randint(2 ** 62, (len(stack),), generator=generator,
                           device=device).tolist()
     member_gens = [torch.Generator(device=device).manual_seed(s)
@@ -395,14 +454,12 @@ def fit_ensemble(model_stack: Sequence[torch.nn.Module], loss_fn: Callable,
         metrics: Dict[str, List[Tensor]] = {}
         for batch in _batches(data, n, batch_size, n_batches, shuffle,
                               generator):
-            outs = [step(m, batch, g)
-                    for step, m, g in zip(steps, stack, member_gens)]
-            losses.append(torch.stack([o[0] for o in outs]))
-            for name in outs[0][1]:
-                if name not in _RESERVED:
-                    metrics.setdefault(name, []).append(torch.stack([
-                        torch.as_tensor(o[1][name], device=device)
-                        for o in outs]))
+            draws = (None if draw is None else
+                     _stack_trees([draw(g) for g in member_gens]))
+            loss, got = step(batch, draws)
+            losses.append(loss)
+            for name, v in got.items():
+                metrics.setdefault(name, []).append(v)
         history["loss"].append(
             torch.stack(losses).float().mean(0).cpu().numpy())
         history["epoch_time_s"].append(time.perf_counter() - t0)
@@ -410,3 +467,83 @@ def fit_ensemble(model_stack: Sequence[torch.nn.Module], loss_fn: Callable,
             history.setdefault(name, []).append(
                 torch.stack(v).float().mean(0).cpu().numpy())
     return stack, history
+
+
+def _stack_trees(trees: Sequence[Any]) -> Any:
+    """Same-structured trees of tensors stacked leaf by leaf on a new
+    leading (member) axis."""
+    first = trees[0]
+    if isinstance(first, Tensor):
+        return torch.stack(list(trees))
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return type(first)(_stack_trees(list(c)) for c in zip(*trees))
+
+
+class EnsembleAdam:
+    """Adam over a :class:`ModelStack`'s member axis as a function of a
+    state of tensors: the form of a training loop replayed by
+    ``utils.scan.scan_collect`` (the JAX examples' ``lax.scan`` over a
+    vmapped ``optax.adam`` step, whose update this writes out: optax's
+    moments, bias corrections and order of operations, the step count a
+    device tensor, so a captured step reads nothing from the host).
+
+    :meth:`init` gives the state (copies of the stack's trainable stacked
+    parameters, the two moments, the count); :meth:`update` takes one
+    step for every member, the gradients of ``loss_fn(member, *args)``
+    as one ``torch.func.vmap`` of ``torch.func.grad`` over the member
+    axis; :meth:`write` copies a state's parameters into the stack (and
+    so into its members).  Frozen parameters and buffers are read from
+    the stack."""
+
+    def __init__(self, stack: ModelStack, loss_fn: Callable, *,
+                 learning_rate: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.stack = stack
+        self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+        self.names = [n for n, p in stack.stacked.named_parameters()
+                      if p.requires_grad]
+
+        def with_loss(member, *args):
+            loss = loss_fn(member, *args)
+            return loss, loss
+
+        self._grads = _member_grads(stack, with_loss)
+
+    def init(self) -> Dict[str, Any]:
+        state = self.stack.state()
+        params = {n: state[n].clone() for n in self.names}
+        device = next(iter(params.values())).device
+        return {"params": params,
+                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "count": torch.zeros((), device=device)}
+
+    def update(self, state: Dict[str, Any], *args,
+               in_dims: Optional[Sequence[Optional[int]]] = None
+               ) -> Tuple[Dict[str, Any], Tensor]:
+        """One step: ``(new state, (K,) losses)``.  ``in_dims`` gives
+        each argument's member axis (None: shared, the default)."""
+        fixed = {n: t for n, t in self.stack.state().items()
+                 if n not in state["params"]}
+        dims = tuple(in_dims) if in_dims is not None else (None,) * len(args)
+        params = state["params"]
+        grads, loss = self._grads(params, fixed, *args, in_dims=dims)
+        count = state["count"] + 1
+        c1 = 1 - self.b1 ** count
+        c2 = 1 - self.b2 ** count
+        new = {"params": {}, "mu": {}, "nu": {}, "count": count}
+        for n, p in params.items():
+            g = grads[n]
+            mu = (1 - self.b1) * g + self.b1 * state["mu"][n]
+            nu = (1 - self.b2) * (g * g) + self.b2 * state["nu"][n]
+            step = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            new["params"][n] = p + step * -self.lr
+            new["mu"][n], new["nu"][n] = mu, nu
+        return new, loss
+
+    def write(self, state: Dict[str, Any]) -> None:
+        params = dict(self.stack.stacked.named_parameters())
+        with torch.no_grad():
+            for n, t in state["params"].items():
+                params[n].copy_(t)
